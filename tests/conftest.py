@@ -13,6 +13,11 @@ import pytest
 from repro.core import GeoSpec, executable_variants
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA card with nvcc; skips without one")
+
+
 def pytest_generate_tests(metafunc):
     if "executable_variant" in metafunc.fixturenames:
         metafunc.parametrize("executable_variant",
