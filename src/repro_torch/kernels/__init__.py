@@ -1,13 +1,19 @@
 """Hand-written Hopper kernels of the port, with their plain versions.
 
-  latency_hist - masked per-lane latency histogramming for the batched
-                 execution plane's p50/p99 surfaces (CUDA C++,
-                 ``csrc/latency_hist.cu``)
+  latency_hist    - masked per-lane latency histogramming for the batched
+                    execution plane's p50/p99 surfaces (CUDA C++,
+                    ``csrc/latency_hist.cu``)
+  flash_attention - attention forward over a whole sequence, causal or
+                    not, with GQA: the models' prefill (CUDA C++,
+                    ``csrc/flash_attention.cu``)
+  flash_decode    - split-KV attention of one query token per sequence
+                    against its KV cache: the models' decode step (CUDA
+                    C++, ``csrc/decode_attention.cu``)
 
 Each ships with a wrapper that launches the kernel on CUDA tensors and
 runs the plain version (``ref.py``) on CPU tensors; ``ops.py`` is the
-dispatch core code calls.  Sources are compiled on first use, on the
-machine with the card: importing this package builds nothing.
+dispatch core and model code call.  Sources are compiled on first use, on
+the machine with the card: importing this package builds nothing.
 """
 from . import ops, ref
 

@@ -1,0 +1,161 @@
+"""Split-KV flash decode: the hand-written CUDA kernel and its wrapper.
+
+Replaces the Pallas kernel ``src/repro/kernels/decode_attention.py:
+_decode_kernel``.  The CUDA source is ``csrc/decode_attention.cu``: a grid
+of (split, kv head, batch) blocks computes each split's (max, sum,
+weighted values) for all query heads of its kv head, and a second kernel
+merges the splits by log-sum-exp in fixed order.  It is bound by the bytes
+of the cache it reads (see the source's note).
+
+The wrapper takes the JAX kernel's layout, q (B, H, d), caches
+(B, H_kv, S_max, d) and cache_len (B,) int32, as strided views whose last
+dimension is contiguous, so the model passes ``cache.transpose(1, 2)`` of
+its (B, S_max, H_kv, d) caches without a copy.  ``cache_len`` stays on the
+device: nothing here waits on it.  A CUDA tensor launches the kernel (or
+the call raises); a CPU tensor runs the plain version
+:func:`repro_torch.kernels.ref.ref_decode`.  ``flash_decode.launches``
+counts launches (one per call: the split pass and its merge), and only
+those.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from ._build import build_library
+from .ref import ref_decode
+
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+TILE = 64          # keys per tile in the kernel; a split is whole tiles
+MAX_OUT = 2048     # group * d the kernel's registers hold
+BLOCKS_PER_SM = 2  # splits are sized to fill the card about twice over
+
+_lib: Optional[ctypes.CDLL] = None
+_build_log = ""
+
+
+def build() -> str:
+    """Compile ``csrc/decode_attention.cu`` (once per source and flags) and
+    load it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
+    global _lib, _build_log
+    if _lib is not None:
+        return _build_log
+    lib, _build_log = build_library("decode_attention.cu")
+    fn = lib.flash_decode_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return _build_log
+
+
+def split_plan(batch: int, n_kv_heads: int, s_max: int,
+               n_sms: int) -> Tuple[int, int]:
+    """(n_splits, split_len): whole 64-key tiles per split, as many splits
+    as it takes for ``batch * n_kv_heads * n_splits`` to reach about
+    ``BLOCKS_PER_SM`` blocks per SM, and no more splits than tiles."""
+    n_tiles = max(1, -(-s_max // TILE))
+    want = -(-BLOCKS_PER_SM * n_sms // max(1, batch * n_kv_heads))
+    n_splits = min(max(1, want), n_tiles)
+    split_len = -(-n_tiles // n_splits) * TILE
+    return -(-s_max // split_len), split_len
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+           cache_len: torch.Tensor) -> None:
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.dim() != 4:
+        raise ValueError(f"q (B, H, d) and caches (B, H_kv, S_max, d) "
+                         f"expected: {tuple(q.shape)}, "
+                         f"{tuple(k_cache.shape)}, {tuple(v_cache.shape)}")
+    B, H, D = q.shape
+    if (k_cache.shape != v_cache.shape or k_cache.shape[0] != B
+            or k_cache.shape[3] != D):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    if k_cache.shape[1] == 0 or H % k_cache.shape[1] != 0:
+        raise ValueError(f"{H} query heads do not group over "
+                         f"{k_cache.shape[1]} kv heads")
+    if cache_len.shape != (B,):
+        raise ValueError(f"cache_len must be ({B},): "
+                         f"{tuple(cache_len.shape)}")
+    if cache_len.dtype != torch.int32:
+        raise TypeError(f"cache_len must be int32: {cache_len.dtype}")
+    if not (q.dtype == k_cache.dtype == v_cache.dtype) or q.dtype not in DTYPES:
+        raise TypeError(f"q and caches must share float32 or bfloat16: "
+                        f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    if not (q.device == k_cache.device == v_cache.device == cache_len.device):
+        raise ValueError(f"tensors on different devices: {q.device}, "
+                         f"{k_cache.device}, {v_cache.device}, "
+                         f"{cache_len.device}")
+
+
+def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+            cache_len: torch.Tensor) -> torch.Tensor:
+    B, H, D = q.shape
+    H_kv, S_max = k_cache.shape[1], k_cache.shape[2]
+    group = H // H_kv
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
+    if group * D > MAX_OUT:
+        raise ValueError(f"group {group} x head dim {D} exceeds the "
+                         f"kernel's {MAX_OUT} outputs per block")
+    q, k_cache, v_cache = (t if t.stride(-1) == 1 else t.contiguous()
+                           for t in (q, k_cache, v_cache))
+    lens = cache_len.contiguous()
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    build()
+    n_splits, split_len = split_plan(B, H_kv, S_max, _n_sms(q.device))
+    ws = torch.empty(B * H_kv * n_splits * (group * D + 2 * group),
+                     dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 10)(
+        *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
+        *out.stride()[:2])
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib.flash_decode_launch(
+            int(q.dtype == torch.bfloat16), D, q.data_ptr(),
+            k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), B, H, H_kv, S_max, n_splits,
+            split_len, 1.0 / math.sqrt(D), strides, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_decode.launches += 1
+    return out
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, cache_len: torch.Tensor
+                 ) -> torch.Tensor:
+    """q: (B, H, d), one token per sequence; caches: (B, H_kv, S_max, d);
+    cache_len: (B,) int32 with 1 <= cache_len <= S_max (not checked: that
+    would wait on the device; the kernel clamps it to S_max).  Returns
+    (B, H, d) in q's dtype.
+
+    CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128);
+    CPU tensors run the plain version.  Any other device raises."""
+    _check(q, k_cache, v_cache, cache_len)
+    if q.device.type == "cpu":
+        return ref_decode(q, k_cache, v_cache, cache_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode runs on cuda or cpu, not {q.device}")
+    return _launch(q, k_cache, v_cache, cache_len)
+
+
+flash_decode.launches = 0

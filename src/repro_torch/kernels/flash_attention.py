@@ -1,0 +1,119 @@
+"""Flash attention forward (prefill): the hand-written CUDA kernel and its
+wrapper.
+
+Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py:
+_flash_kernel``.  The CUDA source is ``csrc/flash_attention.cu``: one
+block per (batch, head, 64-query tile) walks the K/V tiles from 0 up to the
+diagonal with an online softmax in float32 registers - bfloat16 inputs on
+the tensor cores (``mma.sync``, float32 accumulation), float32 inputs in
+float32 FMAs on the CUDA cores.  At the serving path's shapes it is bound
+by operations (see the source's note).
+
+The wrapper takes the JAX kernel's layout, q (B, H, S, d) and k/v
+(B, H_kv, S, d), as any strided views whose last dimension is contiguous,
+and returns (B, H, S, d) laid out as a (B, S, H, d) tensor, so the model's
+``out.transpose(1, 2).reshape(B, S, H * d)`` costs no copy.  A CUDA tensor
+launches the kernel (or the call raises); a CPU tensor runs the plain
+version :func:`repro_torch.kernels.ref.ref_attention`.
+``flash_attention.launches`` counts kernel launches, and only those.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from ._build import build_library
+from .ref import ref_attention
+
+HEAD_DIMS = (16, 32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+
+_lib: Optional[ctypes.CDLL] = None
+_build_log = ""
+
+
+def build() -> str:
+    """Compile ``csrc/flash_attention.cu`` (once per source and flags) and
+    load it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
+    global _lib, _build_log
+    if _lib is not None:
+        return _build_log
+    lib, _build_log = build_library("flash_attention.cu")
+    fn = lib.flash_attention_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return _build_log
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"q (B, H, S, d) and k/v (B, H_kv, S, d) expected: "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, S, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, D):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.shape[1] == 0 or H % k.shape[1] != 0:
+        raise ValueError(f"{H} query heads do not group over {k.shape[1]} "
+                         f"kv heads")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
+        raise TypeError(f"q, k, v must share float32 or bfloat16: "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"tensors on different devices: {q.device}, "
+                         f"{k.device}, {v.device}")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    B, H, S, D = q.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
+    # the kernel reads rows through strides; only the last dim must be dense
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    out = torch.empty((B, S, H, D), dtype=q.dtype,
+                      device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    build()
+    strides = (ctypes.c_longlong * 12)(*(
+        s for t in (q, k, v, out) for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib.flash_attention_launch(
+            int(q.dtype == torch.bfloat16), D, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, H, k.shape[1], S, int(causal),
+            1.0 / math.sqrt(D), strides, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, H, S, d); k/v: (B, H_kv, S, d), H % H_kv == 0, float32 or
+    bfloat16.  Returns (B, H, S, d) in q's dtype.
+
+    CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128);
+    CPU tensors run the plain version.  Any other device raises."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return ref_attention(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _launch(q, k, v, causal)
+
+
+flash_attention.launches = 0

@@ -25,41 +25,19 @@ to the kernel (or the call raises); a CPU tensor goes to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Optional
 
 import torch
 
+from ._build import build_library
 from .ref import ref_latency_hist
 
-_CSRC = Path(__file__).resolve().parent / "csrc" / "latency_hist.cu"
-_BUILD_DIR = Path(__file__).resolve().parent / "build"
-_ARCH = "-gencode=arch=compute_90a,code=sm_90a"
-_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-          "-Xptxas", "-v")
 _THREADS = 256
 _CHUNK = _THREADS * 16 * 16  # mask entries per block at most
 _MAX_BINS = 4096  # (2B + 1) * 4 bytes of shared memory stays under 48 KB
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the latency_hist CUDA kernel cannot "
-                       "be built (set CUDA_HOME or put nvcc on PATH)")
 
 
 def build() -> str:
@@ -69,25 +47,7 @@ def build() -> str:
     global _lib, _build_log
     if _lib is not None:
         return _build_log
-    src = _CSRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join((_ARCH,) + _FLAGS).encode()
-                         ).hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / f"latency_hist_{tag}.so"
-    log = so.with_suffix(".log")
-    if not so.exists():
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), _ARCH, *_FLAGS, "-o", tmp, str(_CSRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)  # atomic: concurrent builders see a whole file
-    _build_log = log.read_text() if log.exists() else ""
-    lib = ctypes.CDLL(str(so))
+    lib, _build_log = build_library("latency_hist.cu")
     fn = lib.latency_hist_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,

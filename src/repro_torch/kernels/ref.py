@@ -2,11 +2,17 @@
 
 Small, obviously-correct implementations that follow the reference's own
 definitions.  The CPU path runs them, the tests hold them against the JAX
-package, and the card's kernels are held against them bit for bit.
+package, and the card's kernels are held against them: the histogram bit
+for bit, attention within the float tolerance its test states.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+#: The reference's mask value: masked scores are set to it, not to -inf.
+NEG_INF = -1e30
 
 #: Elements of the (L, chunk, B+1) comparison tensor built per pass; keeps
 #: the plain histogram's working set to a few hundred MB at any N.
@@ -33,3 +39,41 @@ def ref_latency_hist(samples: torch.Tensor, valid: torch.Tensor,
         ok = (valid[:, lo:lo + step] > 0).to(torch.int64)
         out.scatter_add_(1, idx, ok)
     return out.to(torch.int32)
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True) -> torch.Tensor:
+    """q: (B, H, S, d); k/v: (B, H_kv, S, d), H % H_kv == 0 (query head h
+    reads kv head h // (H / H_kv)).  Full-softmax attention with float32
+    scores, a -1e30 causal mask and float32 softmax; the output has q's
+    dtype.  Any strides are taken."""
+    B, H, S, D = q.shape
+    H_kv = k.shape[1]
+    group = H // H_kv
+    qg = q.reshape(B, H_kv, group, S, D).float()
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(D)
+    if causal:
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    return out.reshape(B, H, S, D).to(q.dtype)
+
+
+def ref_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+               cache_len: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, d), one token per sequence; caches: (B, H_kv, S_max, d);
+    cache_len: (B,) integer.  Row b attends to its first cache_len[b]
+    entries (float32 scores and softmax, -1e30 mask); the output has q's
+    dtype.  Any strides are taken."""
+    B, H, D = q.shape
+    H_kv, S = k_cache.shape[1], k_cache.shape[2]
+    group = H // H_kv
+    qg = q.reshape(B, H_kv, group, D).float()
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, k_cache.float()) / math.sqrt(D)
+    valid = (torch.arange(S, device=q.device)[None, :]
+             < cache_len.to(q.device).reshape(-1, 1))
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return out.reshape(B, H, D).to(q.dtype)

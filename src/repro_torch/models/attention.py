@@ -1,0 +1,110 @@
+"""Attention: GQA/MHA prefill and cached decode (port of
+``models/attention.py``).
+
+Prefill runs :func:`chunked_attention`, which the JAX package wrote as a
+scan over query blocks and names the reference oracle of the Pallas flash
+kernel; here it is one call of ``ops.flash_attention`` (the CUDA kernel on
+the card, its plain version on the host).  Decode runs
+``ops.flash_decode`` against the KV cache.  Both hand the kernels strided
+views of the (B, S, H, d) activations and (B, S_max, H_kv, d) caches: no
+copy per layer per token.
+
+Caches are updated in place (the reference returns new arrays): a decode
+step writes its key and value into row ``pos`` of the cache it is given.
+``pos`` is a 0-d int32 tensor on the cache's device, so a step never waits
+on the device for it.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Tuple
+
+import torch
+
+from ..kernels import ops
+from .layers import apply_mrope, apply_rope
+
+def qkv_project(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                n_heads: int, n_kv_heads: int, d_head: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    B, S, _ = x.shape
+    q = x @ params["w_q"]
+    k = x @ params["w_k"]
+    v = x @ params["w_v"]
+    if "b_q" in params:
+        q = q + params["b_q"]
+        k = k + params["b_k"]
+        v = v + params["b_v"]
+    return (q.reshape(B, S, n_heads, d_head),
+            k.reshape(B, S, n_kv_heads, d_head),
+            v.reshape(B, S, n_kv_heads, d_head))
+
+
+def _rope_qk(q, k, positions, rope_mode: str, theta: float, mrope_sections):
+    if rope_mode == "none":
+        return q, k
+    if rope_mode == "mrope":
+        return (apply_mrope(q, positions, mrope_sections, theta),
+                apply_mrope(k, positions, mrope_sections, theta))
+    return apply_rope(q, positions, theta), apply_rope(k, positions, theta)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, d); k/v: (B, S, H_kv, d) with H % H_kv == 0.  Returns
+    (B, S, H, d).  The flash kernel walks the whole sequence itself, so the
+    reference's query-block scan has no counterpart."""
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal)
+    return out.transpose(1, 2)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: torch.Tensor
+                     ) -> torch.Tensor:
+    """q: (B, 1, H, d); caches: (B, S_max, H_kv, d); cache_len: (B,) int32
+    on the caches' device.  Returns (B, 1, H, d)."""
+    B, _, H, D = q.shape
+    out = ops.flash_decode(q.reshape(B, H, D), k_cache.transpose(1, 2),
+                           v_cache.transpose(1, 2), cache_len)
+    return out.reshape(B, 1, H, D)
+
+
+def decode_attention_block(params: Mapping[str, torch.Tensor],
+                           x: torch.Tensor, cache: dict, *, n_heads: int,
+                           n_kv_heads: int, d_head: int,
+                           rope_mode: str = "rope",
+                           rope_theta: float = 10_000.0,
+                           mrope_sections=(16, 24, 24)
+                           ) -> Tuple[torch.Tensor, dict]:
+    """One decode step.  cache: {"k": (B, S_max, H_kv, d), "v": ...,
+    "pos": () int32}; "k" and "v" are written in place at row pos.
+    Returns (output (B, 1, d_model), the cache with "pos" advanced)."""
+    B = x.shape[0]
+    pos = cache["pos"]
+    q, k, v = qkv_project(params, x, n_heads, n_kv_heads, d_head)
+    positions = (pos.expand(B, 1) if rope_mode != "mrope"
+                 else pos.expand(3, B, 1))
+    q, k = _rope_qk(q, k, positions, rope_mode, rope_theta, mrope_sections)
+
+    k_cache, v_cache = cache["k"], cache["v"]
+    S_max = k_cache.shape[1]
+    # past the end the reference's dynamic_update_slice clamps to the last
+    # row; clamping here keeps that and never indexes out of bounds
+    slot = torch.clamp(pos, max=S_max - 1).reshape(1).long()
+    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    cache_len = torch.clamp(pos + 1, max=S_max).to(torch.int32).expand(B)
+    out = decode_attention(q, k_cache, v_cache, cache_len.contiguous())
+    new_cache = {"k": k_cache, "v": v_cache, "pos": pos + 1}
+    return out.reshape(B, 1, n_heads * d_head) @ params["w_o"], new_cache
+
+
+def init_kv_cache(batch: int, s_max: int, n_kv_heads: int, d_head: int,
+                  dtype: torch.dtype, device=None) -> dict:
+    return {
+        "k": torch.zeros((batch, s_max, n_kv_heads, d_head), dtype=dtype,
+                         device=device),
+        "v": torch.zeros((batch, s_max, n_kv_heads, d_head), dtype=dtype,
+                         device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }

@@ -1,0 +1,104 @@
+"""Carry the JAX package's weights and caches into the port, and back.
+
+The reference keeps each segment's layers stacked on a leading
+``(repeats, ...)`` axis (``models/model.py:init_segment``,
+``init_cache``); the port keeps one module and one cache dict per layer.
+These functions unstack (and restack) in the reference's layer order, so
+both packages compute on the same weights in the tests.  They take and
+give numpy arrays (``jax.tree.map(np.asarray, tree)`` on the reference's
+side), never JAX arrays: the port imports no JAX.
+"""
+from __future__ import annotations
+
+from typing import TYPE_CHECKING, Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from .model import Transformer, build_segments
+
+if TYPE_CHECKING:
+    from ..configs.base import ModelConfig
+
+
+def _layer_slots(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
+    """(segment, repeat, pattern position) of every layer, in order."""
+    return [(si, r, p)
+            for si, seg in enumerate(build_segments(cfg))
+            for r in range(seg.repeats)
+            for p in range(len(seg.pattern))]
+
+
+def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    # through float32: numpy has no bfloat16 of its own, and every
+    # bfloat16 value is exact in float32
+    arr = np.asarray(a)
+    if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.from_numpy(np.ascontiguousarray(arr)).to(dtype=dtype,
+                                                         device=device)
+
+
+def _assign(module: torch.nn.Module, tree: Dict[str, Any], where: str) -> None:
+    for name, value in tree.items():
+        if isinstance(value, dict):
+            _assign(getattr(module, name), value, f"{where}.{name}")
+            continue
+        param = module._parameters.get(name)
+        if param is None:
+            raise KeyError(f"the port has no parameter {where}.{name}")
+        if tuple(np.shape(value)) != tuple(param.shape):
+            raise ValueError(f"{where}.{name}: shape {np.shape(value)} against "
+                             f"{tuple(param.shape)}")
+        param.data.copy_(_to_tensor(value, param.dtype, param.device))
+
+
+def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
+                    device=None) -> Transformer:
+    """A :class:`Transformer` holding the reference's ``init_params`` tree
+    (as numpy arrays), on ``device`` (``None`` means cuda)."""
+    model = Transformer(cfg, None, resolve_device(device))
+    _assign(model.embed, tree["embed"], "embed")
+    _assign(model.final_norm, tree["final_norm"], "final_norm")
+    for layer, (si, r, p) in zip(model.layers, _layer_slots(cfg)):
+        stacked = tree["segments"][si][p]
+        _assign(layer, _take(stacked, r), "layer")
+    return model
+
+
+def _take(tree, r: int):
+    if isinstance(tree, dict):
+        return {k: _take(v, r) for k, v in tree.items()}
+    return np.asarray(tree)[r]
+
+
+def caches_from_jax(cfg: ModelConfig, caches, device=None) -> List[dict]:
+    """The port's per-layer caches from the reference's stacked ones (as
+    numpy arrays), on ``device`` (``None`` means cuda)."""
+    dev = resolve_device(device)
+    out = []
+    for si, r, p in _layer_slots(cfg):
+        entry = _take(caches[si][p], r)
+        out.append({
+            "k": _to_tensor(entry["k"], cfg.kv_dtype(), dev),
+            "v": _to_tensor(entry["v"], cfg.kv_dtype(), dev),
+            "pos": _to_tensor(entry["pos"], torch.int32, dev),
+        })
+    return out
+
+
+def caches_to_numpy(cfg: ModelConfig, caches: List[dict]) -> List[tuple]:
+    """The port's caches in the reference's layout: a list over segments of
+    tuples over pattern positions of {"k", "v", "pos"} stacked on a
+    leading (repeats,) axis; float32 numpy arrays."""
+    segs = build_segments(cfg)
+    out = [[{"k": [], "v": [], "pos": []} for _ in seg.pattern]
+           for seg in segs]
+    for entry, (si, r, p) in zip(caches, _layer_slots(cfg)):
+        for name in ("k", "v", "pos"):
+            t = entry[name].detach().cpu()
+            out[si][p][name].append(
+                t.float().numpy() if name != "pos" else t.numpy())
+    return [tuple({name: np.stack(vals) for name, vals in d.items()}
+                  for d in seg) for seg in out]

@@ -1,0 +1,358 @@
+"""Model assembly for the dense decoder (port of ``models/model.py``).
+
+``init_params`` builds a :class:`Transformer`: an embedding, an
+``nn.ModuleList`` of :class:`DecoderBlock` (norm, :class:`Attention`, norm,
+:class:`MLP`) and a final norm.  Every module keeps the JAX package's
+parameter names and ``(in, out)`` layouts, so its parameters index like
+the reference's dicts (``block.attn["w_q"]``) and
+:mod:`repro_torch.models.convert` can carry the reference's weights over
+one to one.  ``forward``, ``prefill``, ``decode_step`` and ``init_cache``
+keep the reference's names and signatures as thin functions over the
+modules, so the serving code reads the same in both packages.
+
+Layers run as a Python loop; the reference's segments (stacked
+``lax.scan`` bodies) are a JAX compile-time device and are kept only to map
+its stacked weights and caches onto layers (:func:`build_segments`).
+
+This slice covers the dense decoder: mixer ``"attn"``, channel ``"mlp"``
+(all five kinds), rmsnorm or layernorm, rope, M-RoPE or none, optional QKV
+bias, tied or untied embeddings - granite-3-2b, phi3-medium-14b,
+qwen1.5-32b, nemotron-4-15b and the qwen2-vl-72b text backbone.  Other
+mixers and channels raise ``NotImplementedError`` naming their
+``ROADMAP.md`` item.  Caches are updated in place by ``decode_step``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import TYPE_CHECKING, List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..core.device import resolve_device
+from . import attention as attn_lib
+from .layers import (
+    MLP_KINDS,
+    apply_mlp,
+    dense_init,
+    embed_init,
+    embed_tokens,
+    layernorm,
+    rmsnorm,
+    text_mrope_positions,
+    unembed,
+)
+
+if TYPE_CHECKING:  # configs.base imports models.moe
+    from ..configs.base import ModelConfig
+
+LayerSig = Tuple[str, str]  # (mixer, channel): ("attn", "mlp"), ...
+
+#: Where each part of the model zoo that this slice leaves out is queued.
+_NOT_PORTED = {
+    "local_attn": "ROADMAP.md queue 1, item 12 (recurrentgemma-2b serving)",
+    "rglru": "ROADMAP.md queue 1, item 12 (recurrentgemma-2b serving, with "
+             "rglru_scan: queue 2, item 4)",
+    "rwkv6": "ROADMAP.md queue 1, item 12 (rwkv6-7b serving, with wkv6: "
+             "queue 2, item 5)",
+    "xattn": "ROADMAP.md queue 1, item 12 (whisper encoder-decoder)",
+    "moe": "ROADMAP.md queue 1, item 12 (models/moe.py)",
+    "rwkv_cm": "ROADMAP.md queue 1, item 12 (rwkv6-7b serving)",
+}
+
+
+@dataclass(frozen=True)
+class Segment:
+    pattern: Tuple[LayerSig, ...]
+    repeats: int
+
+
+def layer_signatures(cfg: ModelConfig) -> List[LayerSig]:
+    return [(t, cfg.channel_kind(i)) for i, t in enumerate(cfg.layer_types())]
+
+
+def split_segments(sigs: List[LayerSig]) -> List[Segment]:
+    """The reference's segment splitter (maximal runs of a repeating layer
+    signature), carried as is: the order of its stacked weights."""
+    segments: List[Segment] = []
+    i = 0
+    while i < len(sigs):
+        rest = sigs[i:]
+        q_best, reps_best = len(rest), 1
+        for q in range(1, len(rest) + 1):
+            reps = len(rest) // q
+            if reps >= 2 and all(rest[j] == rest[j % q] for j in range(reps * q)):
+                q_best, reps_best = q, reps
+                break
+        if reps_best == 1 and len(rest) > 1:
+            r = 1
+            while r < len(rest) and rest[r] == rest[0]:
+                r += 1
+            q_best, reps_best = 1, r
+        segments.append(Segment(pattern=tuple(rest[:q_best]), repeats=reps_best))
+        i += q_best * reps_best
+    return segments
+
+
+def build_segments(cfg: ModelConfig) -> List[Segment]:
+    return split_segments(layer_signatures(cfg))
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not run."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  f"not ported yet: {_NOT_PORTED['xattn']}")
+    for mixer, channel in layer_signatures(cfg):
+        for part in (mixer, channel):
+            if part in _NOT_PORTED:
+                raise NotImplementedError(f"{cfg.name}: {part!r} layers are "
+                                          f"not ported yet: "
+                                          f"{_NOT_PORTED[part]}")
+        if mixer != "attn" or channel != "mlp":
+            raise ValueError(f"{cfg.name}: unknown layer {mixer}/{channel}")
+    if cfg.mlp_kind not in MLP_KINDS:
+        raise ValueError(f"{cfg.name}: unknown mlp kind {cfg.mlp_kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# modules
+# ---------------------------------------------------------------------------
+
+
+class ParamModule(nn.Module):
+    """A module whose own parameters carry the reference's names and index
+    like its dicts: ``m["w_q"]``, ``"b_q" in m``.  Parameters are for
+    inference (``requires_grad=False``); training is a later slice."""
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._parameters[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters
+
+    def add(self, name: str, value: torch.Tensor) -> None:
+        self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+
+
+def _dense(gen, in_dim, out_dim, dtype, device) -> torch.Tensor:
+    if gen is None:  # filled later, e.g. from the reference's weights
+        return torch.empty((in_dim, out_dim), dtype=dtype, device=device)
+    return dense_init(gen, in_dim, out_dim, dtype)
+
+
+class Norm(ParamModule):
+    def __init__(self, kind: str, dim: int, dtype, device) -> None:
+        super().__init__()
+        self.kind = kind
+        self.add("scale", torch.ones((dim,), dtype=dtype, device=device))
+        if kind == "layernorm":
+            self.add("bias", torch.zeros((dim,), dtype=dtype, device=device))
+        elif kind != "rmsnorm":
+            raise ValueError(f"unknown norm {kind!r}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(self, x) if self.kind == "rmsnorm" else layernorm(self, x)
+
+
+class Attention(ParamModule):
+    def __init__(self, cfg: ModelConfig, gen, dtype, device) -> None:
+        super().__init__()
+        d, H, H_kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self.add("w_q", _dense(gen, d, H * dh, dtype, device))
+        self.add("w_k", _dense(gen, d, H_kv * dh, dtype, device))
+        self.add("w_v", _dense(gen, d, H_kv * dh, dtype, device))
+        self.add("w_o", _dense(gen, H * dh, d, dtype, device))
+        if cfg.qkv_bias:  # Qwen1.5 [hf:Qwen/Qwen1.5-*]
+            for name, width in (("b_q", H * dh), ("b_k", H_kv * dh),
+                                ("b_v", H_kv * dh)):
+                self.add(name, torch.zeros((width,), dtype=dtype,
+                                           device=device))
+
+
+class MLP(ParamModule):
+    def __init__(self, d_model: int, d_ff: int, kind: str, gen, dtype,
+                 device) -> None:
+        super().__init__()
+        self.kind = kind
+        if kind in ("swiglu", "geglu"):
+            self.add("w_gate", _dense(gen, d_model, d_ff, dtype, device))
+        self.add("w_up", _dense(gen, d_model, d_ff, dtype, device))
+        self.add("w_down", _dense(gen, d_ff, d_model, dtype, device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_mlp(self, x, self.kind)
+
+
+class DecoderBlock(nn.Module):
+    """Pre-norm decoder layer: x + attn(ln1(x)), then + mlp(ln2(x))."""
+
+    def __init__(self, cfg: ModelConfig, gen, device) -> None:
+        super().__init__()
+        dtype = cfg.dtype()
+        self.cfg = cfg
+        self.ln1 = Norm(cfg.norm, cfg.d_model, dtype, device)
+        self.attn = Attention(cfg, gen, dtype, device)
+        self.ln2 = Norm(cfg.norm, cfg.d_model, dtype, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff_dense or cfg.d_ff, cfg.mlp_kind,
+                       gen, dtype, device)
+
+    def _akw(self) -> dict:
+        cfg = self.cfg
+        return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                    d_head=cfg.head_dim)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """Whole-sequence step (forward, prefill).  With ``cache_len`` it
+        also returns the layer's KV cache, padded to ``max(cache_len, S)``
+        rows, with ``pos`` = S."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q, k, v = attn_lib.qkv_project(self.attn, self.ln1(x), **self._akw())
+        q, k = attn_lib._rope_qk(q, k, positions, cfg.rope_mode,
+                                 cfg.rope_theta, cfg.mrope_sections)
+        out = attn_lib.chunked_attention(q, k, v, causal=True)
+        x = x + out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ self.attn["w_o"]
+        entry = None
+        if cache_len is not None:
+            rows = max(cache_len, S)
+            entry = {"pos": torch.full((), S, dtype=torch.int32,
+                                       device=x.device)}
+            for name, t in (("k", k), ("v", v)):
+                buf = t.new_zeros((B, rows) + t.shape[2:])
+                buf[:, :S] = t
+                entry[name] = buf
+        return x + self.mlp(self.ln2(x)), entry
+
+    def decode(self, x: torch.Tensor, cache: dict
+               ) -> Tuple[torch.Tensor, dict]:
+        """One-token step.  x: (B, 1, d_model)."""
+        cfg = self.cfg
+        out, new_cache = attn_lib.decode_attention_block(
+            self.attn, self.ln1(x), cache, rope_mode=cfg.rope_mode,
+            rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
+            **self._akw())
+        x = x + out
+        return x + self.mlp(self.ln2(x)), new_cache
+
+
+class Transformer(nn.Module):
+    """Embedding, decoder layers, final norm; tied or untied unembedding."""
+
+    def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
+                 device) -> None:
+        super().__init__()
+        check_supported(cfg)
+        dtype = cfg.dtype()
+        self.cfg = cfg
+        self.embed = ParamModule()
+        self.embed.add("tokens", embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                            dtype) if gen is not None else
+                       torch.empty((cfg.vocab_size, cfg.d_model),
+                                   dtype=dtype, device=device))
+        if not cfg.tie_embeddings:
+            self.embed.add("unembed", _dense(gen, cfg.d_model,
+                                             cfg.vocab_size, dtype, device))
+        self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
+        self.layers = nn.ModuleList(DecoderBlock(cfg, gen, device)
+                                    for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["tokens"].device
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_tokens(self.embed, tokens.to(self.device)
+                            ).to(self.cfg.cdtype())
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        return unembed(self.embed, self.final_norm(x)).float()
+
+    def forward(self, tokens: torch.Tensor,
+                cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
+        """tokens (B, S).  Without ``cache_len``: (logits (B, S, V) float32,
+        None).  With it: (last position's logits (B, V), per-layer
+        caches)."""
+        B, S = tokens.shape
+        x = self._embed(tokens)
+        positions = _positions_for(self.cfg, B, S, x.device)
+        caches = [] if cache_len is not None else None
+        for layer in self.layers:
+            x, entry = layer(x, positions, cache_len)
+            if caches is not None:
+                caches.append(entry)
+        if caches is None:
+            return self._logits(x), None
+        return self._logits(x[:, -1:])[:, 0], caches
+
+    def decode(self, caches: List[dict], token: torch.Tensor
+               ) -> Tuple[torch.Tensor, List[dict]]:
+        x = self._embed(token)
+        new_caches = []
+        for layer, cache in zip(self.layers, caches):
+            x, nc = layer.decode(x, cache)
+            new_caches.append(nc)
+        return self._logits(x)[:, 0], new_caches
+
+
+def _positions_for(cfg: ModelConfig, batch: int, seq: int, device):
+    if cfg.rope_mode == "mrope":
+        return text_mrope_positions(batch, seq, device=device)
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+    return pos.expand(batch, seq)
+
+
+# ---------------------------------------------------------------------------
+# the reference's entry points, over the modules
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: ModelConfig,
+                gen: Union[torch.Generator, int, None] = 0,
+                device=None) -> Transformer:
+    """Random weights with the reference's distributions, drawn from ``gen``
+    (a ``torch.Generator`` on the target device, or an int seed) on
+    ``device`` (``None`` means cuda: without a card this raises unless
+    ``device="cpu"``)."""
+    dev = resolve_device(device)
+    if not isinstance(gen, torch.Generator):
+        gen = torch.Generator(device=dev).manual_seed(int(gen or 0))
+    if gen.device.type != dev.type:
+        raise ValueError(f"generator on {gen.device}, weights on {dev}")
+    return Transformer(cfg, gen, dev)
+
+
+def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits (B, S, V) float32, aux loss);
+    the dense decoder's aux loss is 0."""
+    logits, _ = params(tokens)
+    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+            cache_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, List[dict]]:
+    """Forward + KV cache collection.  Returns (last logits (B, V), caches);
+    ``cache_len`` reserves room for later decode steps (default S + 128)."""
+    return params(tokens, cache_len=cache_len or (tokens.shape[1] + 128))
+
+
+def decode_step(cfg: ModelConfig, params: Transformer, caches: List[dict],
+                token: torch.Tensor) -> Tuple[torch.Tensor, List[dict]]:
+    """One decode step.  token: (B, 1) integer.  Returns (logits (B, V)
+    float32, caches); the caches' K/V buffers are written in place."""
+    return params.decode(caches, token)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device=None) -> List[dict]:
+    """Zeroed per-layer caches at ``pos`` 0."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    return [attn_lib.init_kv_cache(batch, cache_len, cfg.n_kv_heads,
+                                   cfg.head_dim, cfg.kv_dtype(), dev)
+            for _ in range(cfg.n_layers)]

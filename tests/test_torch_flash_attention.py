@@ -1,0 +1,145 @@
+"""The port's flash attention against the reference's Pallas kernel.
+
+On the CPU the wrapper runs its plain version, which must agree with the
+reference's Pallas kernel (interpret mode) and its jnp oracle at the
+kernel tests' tolerances (float32 2e-5, bfloat16 2e-2); on a card
+(``-m gpu``) the CUDA kernel must agree with the plain version at the same
+tolerances.  The card's machine has no JAX, so the reference is imported
+only by the tests that compare with it: there run
+``python -m pytest --noconftest -m gpu tests/test_torch_flash_attention.py``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+
+ATTN_SHAPES = [
+    # (B, H, H_kv, S, D, block_q, block_k): tests/test_kernels.py's shapes
+    (1, 2, 2, 64, 32, 16, 16),
+    (2, 4, 2, 128, 64, 32, 64),   # GQA group 2, uneven blocks
+    (1, 8, 1, 64, 16, 64, 16),    # MQA
+    (2, 2, 2, 96, 32, 32, 32),    # S not a power of two
+    (1, 6, 1, 64, 16, 32, 32),    # GQA group 6 (nemotron-4-15b's)
+]
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def tol(dtype):
+    return (dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16
+            else dict(rtol=2e-5, atol=2e-5))
+
+
+def _inputs(B, H, H_kv, S, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, H, S, D), dtype=np.float32),
+            rng.standard_normal((B, H_kv, S, D), dtype=np.float32),
+            rng.standard_normal((B, H_kv, S, D), dtype=np.float32))
+
+
+def _torch(arrays, dtype, device="cpu"):
+    # float32 -> bfloat16 rounds to nearest even in both packages
+    return [torch.from_numpy(a).to(device=device, dtype=dtype)
+            for a in arrays]
+
+
+def _reference(arrays, dtype, causal, bq, bk):
+    import jax.numpy as jnp
+    from repro.kernels import ref as jref
+    from repro.kernels.flash_attention import flash_attention as pallas
+
+    jd = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    q, k, v = (jnp.asarray(a, jd) for a in arrays)
+    pal = np.asarray(pallas(q, k, v, causal=causal, block_q=bq, block_k=bk,
+                            interpret=True), np.float32)
+    oracle = np.asarray(jref.ref_attention(q, k, v, causal=causal),
+                        np.float32)
+    np.testing.assert_allclose(pal, oracle, **tol(dtype))
+    return pal, oracle
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("dtype", list(DTYPES), ids=list(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_version_matches_pallas_kernel(shape, dtype, causal):
+    B, H, H_kv, S, D, bq, bk = shape
+    dt = DTYPES[dtype]
+    arrays = _inputs(B, H, H_kv, S, D)
+    out = flash_attention(*_torch(arrays, dt), causal=causal)
+    assert out.dtype == dt and out.shape == (B, H, S, D)
+    pal, oracle = _reference(arrays, dt, causal, bq, bk)
+    np.testing.assert_allclose(out.float().numpy(), pal, **tol(dt))
+    np.testing.assert_allclose(out.float().numpy(), oracle, **tol(dt))
+
+
+def test_strided_views_match_contiguous_inputs():
+    """The model hands in transposed views of (B, S, H, d) activations."""
+    B, H, H_kv, S, D = 2, 8, 2, 40, 32
+    q, k, v = _inputs(B, H, H_kv, S, D, seed=4)
+    contiguous = flash_attention(*_torch((q, k, v), torch.float32))
+    views = [torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1, 3))
+                              ).transpose(1, 2) for a in (q, k, v)]
+    assert not views[0].is_contiguous()
+    torch.testing.assert_close(flash_attention(*views), contiguous,
+                               rtol=0, atol=0)
+
+
+def test_cpu_dispatch_never_counts_a_launch():
+    before = flash_attention.launches
+    args = _torch(_inputs(1, 4, 2, 16, 16, seed=5), torch.float32)
+    torch.testing.assert_close(ops.flash_attention(*args),
+                               ref.ref_attention(*args), rtol=0, atol=0)
+    assert ops.flash_attention is flash_attention
+    assert flash_attention.launches == before == 0
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    q, k, v = _torch(_inputs(1, 4, 2, 16, 16), torch.float32)
+    with pytest.raises(TypeError):
+        flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError):
+        flash_attention(q[:, :3], k, v)           # 3 heads over 2
+    with pytest.raises(ValueError):
+        flash_attention(q, k[:, :, :8], v[:, :, :8])
+    with pytest.raises(ValueError):
+        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# (B, H, H_kv, S, D): the edge shapes of the card check - S of 1, a ragged
+# 17 and 1000, whole tiles; head dims 16 to 128; groups 1, 4, 6 and 8
+GPU_SHAPES = [
+    (1, 4, 4, 1, 64), (2, 8, 2, 17, 64), (1, 8, 1, 128, 128),
+    (2, 12, 2, 1000, 64), (1, 32, 8, 300, 64), (1, 6, 1, 77, 16),
+    (2, 4, 2, 65, 32), (1, 16, 2, 256, 128),
+]
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    before = flash_attention.launches
+    n = 0
+    for i, (B, H, H_kv, S, D) in enumerate(GPU_SHAPES):
+        arrays = _inputs(B, H, H_kv, S, D, seed=10 + i)
+        for dt in DTYPES.values():
+            host = _torch(arrays, dt)
+            dev = [t.cuda() for t in host]
+            # strided: the model's (B, S, H, d) layout, transposed
+            views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                     for t in dev]
+            for causal in (True, False):
+                expect = ref.ref_attention(*host, causal=causal).float()
+                for args in (dev, views):
+                    got = flash_attention(*args, causal=causal)
+                    torch.cuda.synchronize()
+                    n += 1
+                    np.testing.assert_allclose(
+                        got.float().cpu().numpy(), expect.numpy(), **tol(dt),
+                        err_msg=f"{(B, H, H_kv, S, D)} {dt} causal={causal}")
+    assert flash_attention.launches == before + n

@@ -23,6 +23,13 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.latency_hist\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.decode_attention\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.models.convert\n"
+        "import repro_torch.serving.scheduler, repro_torch.serving.server\n"
+        "import repro_torch.launch.serve\n"
+        "repro_torch.configs.get_config('granite-3-2b')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
         "m.startswith('repro.'))\n"
@@ -76,3 +83,38 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     # the explicit host run still works
     _, x, _ = sweep.mva(calibrate_alpha(), n_clients_max=4, device="cpu")
     assert x.shape == (1, 4)
+
+
+def test_serving_entry_points_default_to_cuda_and_raise_without_a_card(
+        monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models.convert import caches_from_jax, params_from_jax
+    from repro_torch.serving.scheduler import ContinuousBatcher
+    from repro_torch.serving.server import ServingDeployment
+
+    cfg = get_config("granite-3-2b").smoke()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: init_params(cfg, 0),
+                 lambda: init_cache(cfg, 1, 8),
+                 lambda: ServingDeployment(cfg),
+                 lambda: ContinuousBatcher(cfg, None),
+                 lambda: params_from_jax(cfg, {}),
+                 lambda: caches_from_jax(cfg, [])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # the explicit host run still works
+    params = init_params(cfg, 0, device="cpu")
+    assert params.device.type == "cpu"
+    ServingDeployment(cfg, device="cpu").push_weights(params)
+    ContinuousBatcher(cfg, params, device="cpu")
+
+
+def test_no_attention_library_call_in_the_port():
+    """The port's attention goes through its own kernels: no PyTorch
+    attention operator, no torch.compile."""
+    for path in PORT.rglob("*.py"):
+        text = path.read_text()
+        for banned in ("scaled_dot_product_attention", "torch.compile",
+                       "flash_attn", "xformers"):
+            assert banned not in text, (path, banned)

@@ -1,0 +1,200 @@
+"""The port's dense decoder against the JAX package on the same weights.
+
+The reference's ``init_params`` tree is carried into the port through
+numpy (``models/convert.py``); both packages then run ``forward``,
+``prefill`` and four teacher-forced ``decode_step``s on the same tokens.
+Float32 smoke configs on the CPU: logits and caches agree within 1e-4
+(the two frameworks sum in different orders; the observed gap is ~2e-6),
+and greedy tokens are equal.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro import configs as jconfigs  # noqa: E402
+from repro import models as jmodels  # noqa: E402
+from repro.models.attention import chunked_attention as j_chunked  # noqa: E402
+from repro_torch import configs  # noqa: E402
+from repro_torch.models import (  # noqa: E402
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    prefill,
+)
+from repro_torch.models.attention import chunked_attention  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    caches_from_jax,
+    caches_to_numpy,
+    params_from_jax,
+)
+
+DENSE = ["granite-3-2b", "phi3-medium-14b", "qwen1.5-32b", "nemotron-4-15b",
+         "qwen2-vl-72b"]
+NOT_PORTED = ["recurrentgemma-2b", "rwkv6-7b", "deepseek-moe-16b",
+              "qwen3-moe-30b-a3b", "whisper-tiny"]
+TOL = dict(rtol=1e-4, atol=1e-4)
+B, S, PROMPT = 2, 12, 8
+
+
+class _Pair:
+    """One arch's smoke config in both packages, on the same weights."""
+
+    def __init__(self, name):
+        self.jcfg = jconfigs.get_config(name).smoke()
+        self.cfg = configs.get_config(name).smoke()
+        self.jparams = jmodels.init_params(self.jcfg, jax.random.key(0))
+        self.params = params_from_jax(
+            self.cfg, jax.tree.map(np.asarray, self.jparams), device="cpu")
+        rng = np.random.default_rng(1)
+        self.tokens = rng.integers(0, self.cfg.vocab_size, (B, S)
+                                   ).astype(np.int32)
+
+
+_PAIRS = {}
+
+
+@pytest.fixture(params=DENSE)
+def pair(request):
+    if request.param not in _PAIRS:
+        _PAIRS[request.param] = _Pair(request.param)
+    return _PAIRS[request.param]
+
+
+def test_every_config_carries_the_reference_data():
+    mine, ref = configs.all_configs(), jconfigs.all_configs()
+    assert sorted(mine) == sorted(ref)
+    for name, cfg in mine.items():
+        for c, r in ((cfg, ref[name]), (cfg.smoke(), ref[name].smoke())):
+            assert dataclasses.asdict(c) == dataclasses.asdict(r), name
+            assert c.n_params() == r.n_params()
+            assert c.n_active_params() == r.n_active_params()
+            assert str(c.dtype()) == f"torch.{r.dtype()}"
+            assert str(c.cdtype()) == f"torch.{r.cdtype()}"
+            assert str(c.kv_dtype()) == f"torch.{r.kv_dtype()}"
+    assert ({k: dataclasses.asdict(v) for k, v in configs.SHAPES.items()}
+            == {k: dataclasses.asdict(v) for k, v in jconfigs.SHAPES.items()})
+
+
+def test_forward_logits_match_reference(pair):
+    jl, jaux = jmodels.forward(pair.jcfg, pair.jparams,
+                               jnp.asarray(pair.tokens))
+    logits, aux = forward(pair.cfg, pair.params,
+                          torch.from_numpy(pair.tokens))
+    assert logits.dtype == torch.float32
+    assert logits.shape == (B, S, pair.cfg.vocab_size)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    assert float(aux) == float(jaux) == 0.0
+
+
+def test_prefill_logits_and_caches_match_reference(pair):
+    toks = pair.tokens[:, :PROMPT]
+    jl, jc = jmodels.prefill(pair.jcfg, pair.jparams, jnp.asarray(toks),
+                             cache_len=S)
+    logits, caches = prefill(pair.cfg, pair.params, torch.from_numpy(toks),
+                             cache_len=S)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    mine = caches_to_numpy(pair.cfg, caches)
+    assert (jax.tree.structure(jax.tree.map(np.asarray, jc))
+            == jax.tree.structure(mine))
+    for a, b in zip(jax.tree.leaves(jc), jax.tree.leaves(mine)):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(b, np.asarray(a), **TOL)
+
+
+def test_decode_steps_match_reference(pair):
+    """Four teacher-forced steps from the prefill caches, and from the
+    reference's own caches carried over."""
+    toks = pair.tokens
+    jl, jc = jmodels.prefill(pair.jcfg, pair.jparams,
+                             jnp.asarray(toks[:, :PROMPT]), cache_len=S)
+    _, caches = prefill(pair.cfg, pair.params,
+                        torch.from_numpy(toks[:, :PROMPT]), cache_len=S)
+    carried = caches_from_jax(pair.cfg, jax.tree.map(np.asarray, jc),
+                              device="cpu")
+    for i in range(PROMPT, S):
+        step = toks[:, i:i + 1]
+        jl, jc = jmodels.decode_step(pair.jcfg, pair.jparams, jc,
+                                     jnp.asarray(step))
+        logits, caches = decode_step(pair.cfg, pair.params, caches,
+                                     torch.from_numpy(step))
+        logits2, carried = decode_step(pair.cfg, pair.params, carried,
+                                       torch.from_numpy(step))
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+        np.testing.assert_allclose(logits2.numpy(), np.asarray(jl), **TOL)
+    for a, b in zip(jax.tree.leaves(jc),
+                    jax.tree.leaves(caches_to_numpy(pair.cfg, caches))):
+        np.testing.assert_allclose(b, np.asarray(a), **TOL)
+
+
+def test_greedy_tokens_match_reference(pair):
+    prompt = pair.tokens[:1, :PROMPT]
+    _, jc = jmodels.prefill(pair.jcfg, pair.jparams, jnp.asarray(prompt),
+                            cache_len=PROMPT + 6)
+    _, caches = prefill(pair.cfg, pair.params, torch.from_numpy(prompt),
+                        cache_len=PROMPT + 6)
+    jtok = jnp.asarray(prompt[:, -1:])
+    tok = torch.from_numpy(prompt[:, -1:])
+    want, got = [], []
+    for _ in range(6):
+        jl, jc = jmodels.decode_step(pair.jcfg, pair.jparams, jc, jtok)
+        jtok = jnp.argmax(jl, -1).astype(jnp.int32)[:, None]
+        want.append(int(jtok[0, 0]))
+        logits, caches = decode_step(pair.cfg, pair.params, caches, tok)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        got.append(int(tok[0, 0]))
+    assert got == want
+
+
+def test_init_cache_matches_reference_layout(pair):
+    jc = jmodels.init_cache(pair.jcfg, B, 10)
+    mine = caches_to_numpy(pair.cfg, init_cache(pair.cfg, B, 10,
+                                                device="cpu"))
+    for a, b in zip(jax.tree.leaves(jc), jax.tree.leaves(mine)):
+        np.testing.assert_array_equal(b, np.asarray(a))
+
+
+@pytest.mark.parametrize("name", NOT_PORTED)
+def test_other_mixers_and_channels_raise_not_implemented(name):
+    cfg = configs.get_config(name).smoke()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        init_params(cfg, 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        init_cache(cfg, 1, 8, device="cpu")
+
+
+def test_chunked_attention_matches_reference_scan():
+    """The reference's model-path attention (a scan over query blocks) and
+    the port's (one flash call) on the same (B, S, H, d) inputs."""
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 96, 4, 32), dtype=np.float32)
+    k = rng.standard_normal((2, 96, 2, 32), dtype=np.float32)
+    v = rng.standard_normal((2, 96, 2, 32), dtype=np.float32)
+    want = np.asarray(j_chunked(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=True, q_block=32))
+    got = chunked_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_init_params_draws_the_reference_distributions():
+    cfg = dataclasses.replace(configs.get_config("granite-3-2b").smoke(),
+                              d_model=256, d_ff=512, vocab_size=512)
+    p = init_params(cfg, 3, device="cpu")
+    again = init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    w = p.layers[0].attn["w_q"]
+    assert w.shape == (256, cfg.n_heads * cfg.head_dim)
+    assert abs(float(w.std()) - 256 ** -0.5) < 0.1 * 256 ** -0.5
+    assert abs(float(p.embed["tokens"].std()) - 0.02) < 0.002
+    assert torch.equal(p.layers[0].ln1["scale"], torch.ones(256))
+    assert "unembed" not in p.embed  # granite ties its embeddings
+    for a, b in zip(p.parameters(), again.parameters()):
+        assert torch.equal(a, b)
+    assert not any(t.requires_grad for t in p.parameters())
+    n = sum(t.numel() for t in p.parameters())
+    assert n == cfg.n_params() + (2 * cfg.n_layers + 1) * cfg.d_model
