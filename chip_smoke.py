@@ -12,8 +12,11 @@ no result line):
    ``nvcc`` per source, all started together) and print ``-Xptxas -v``;
 3. kernels against their plain versions - small shapes and edge cases
    (the histogram exactly; flash attention and flash decode within
-   ``ATTN_TOL``), then the histogram on the execution
-   path's own full-size tensors, with its times and bound;
+   ``ATTN_TOL``, recurrentgemma's windowed head-dim-256 attention, its
+   group-10 decode and the RG-LRU scan from a zero and from a given
+   starting state, within ``SCAN_TOL``, too), then the
+   histogram on the execution path's own full-size tensors, with its
+   times and bound;
 4. the execution path - ``compile_sweep`` of the 32-config
    compartmentalized MultiPaxos grid (f = 1, 2x2 acceptor grid; the
    deployment family of the paper's ablation, arXiv 2012.15762 section 8,
@@ -34,8 +37,21 @@ no result line):
    full-width tensors the path handed them, with their times, the
    library call's and their bounds, and the path's prefill and decode
    times;
-7. the card against the CPU on the model - granite-3-2b's smoke config in
-   float32 on the same weights: logits agree and greedy tokens are equal.
+7. the recurrent serving path - recurrentgemma-2b at full width (26
+   layers: 18 RG-LRU of width 2560 and 8 local attention of 10/1 heads x
+   256 with a 2048-token window; d_model 2560, bf16, random seeded
+   weights on the card) behind the same fleet: 5 requests of 17-3000
+   prompt tokens x 16 new (3000 runs the window mask and the ring-buffer
+   roll, 2040 + 16 wraps the ring in decode) with v2 pushed after the
+   2nd, then ``ContinuousBatcher`` (8 slots, max_len 2048) over 16
+   requests of 512 tokens x 32 new; the same checks, with exactly 18
+   ``rglru_scan`` + 8 ``flash_attention`` launches per prefill and 18
+   ``rglru_scan`` + 8 ``flash_decode`` per decode step.  Then the three
+   kernels against their plain versions on the full-width tensors the
+   path handed them, with their times, bounds and the library call's;
+8. the card against the CPU on the models - granite-3-2b's and
+   recurrentgemma-2b's smoke configs in float32 on the same weights:
+   logits agree, greedy and served tokens are equal.
 
 The line before the last is the card's name and power limit; the line
 before it, a JSON object describing every kernel; the last line,
@@ -44,6 +60,7 @@ before it, a JSON object describing every kernel; the last line,
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import subprocess
 import sys
@@ -64,10 +81,6 @@ GRID = dict(variants=("compartmentalized",),
             n_proxy_leaders=(2, 3, 4, 5, 6, 7, 8, 10), grids=((2, 2),),
             n_replicas=(2, 3, 4, 6))
 EXECUTE = dict(n_commands=2048, seeds=8, n_clients=64, probe_n=96)
-SERVE_ARCH = "granite-3-2b"
-SERVE_PROMPTS = (17, 128, 256, 512, 1000, 1024, 2048, 2048)
-SERVE_NEW = 16
-BATCH = dict(n_slots=8, max_len=1024, n_requests=16, prompt=512, max_new=32)
 #: (atol, rtol) of each attention kernel against its plain version, by
 #: dtype.  float32 as in tests/test_kernels.py:21-23.  bfloat16: both sides
 #: round their output to bf16 (one ulp is at most 2^-7 of a value) and the
@@ -77,6 +90,42 @@ BATCH = dict(n_slots=8, max_len=1024, n_requests=16, prompt=512, max_new=32)
 ATTN_TOL = {"torch.float32": (2e-5, 2e-5), "torch.bfloat16": (4e-3, 1e-2)}
 #: keys per tile of both attention kernels; the planted fault drops one
 FAULT_TILE = 64
+#: The serving phases, in order: arch -> the fleet's prompt lengths, new
+#: tokens per request, the request before which weights v2 are pushed, and
+#: the batcher's run.  recurrentgemma-2b: 3000 runs the prefill's window
+#: mask and ring-buffer roll at full width, 2040 + 16 new tokens wraps the
+#: ring during decode, and max_len must reach the window (the prefill's
+#: ring buffer has `window` rows and init_cache min(window, max_len), and
+#: the two must splice).
+SERVE = {
+    "granite-3-2b": dict(
+        prompts=(17, 128, 256, 512, 1000, 1024, 2048, 2048), new=16,
+        push_at=4, batch=dict(n_slots=8, max_len=1024, n_requests=16,
+                              prompt=512, max_new=32)),
+    "recurrentgemma-2b": dict(
+        prompts=(17, 512, 2040, 2048, 3000), new=16, push_at=2,
+        batch=dict(n_slots=8, max_len=2048, n_requests=16, prompt=512,
+                   max_new=32)),
+}
+#: (atol, rtol) of rglru_scan against its plain version.  float32: the
+#: kernel's chunks multiply the same decays in another order than the
+#: serial loop, which moves the result by float32 rounding only
+#: (tests/test_torch_rglru_scan.py states the same 1e-5); bfloat16: one
+#: rounding of the output, as ATTN_TOL.
+SCAN_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (4e-3, 1e-2)}
+#: recurrentgemma's edge cases: rglru_scan (B, S, D); windowed flash
+#: attention (B, H, H_kv, S, d, window) past, at and short of the 2048
+#: window, with 64-row query blocks at exactly i = window (64, 128) and
+#: straddling it (1, 100); flash decode (B, H, H_kv, S_max, d)
+RG_SCAN_CASES = ([(b, s, 2560) for b in (1, 8) for s in (1, 17, 77, 4096)]
+                 + [(3, 129, 77), (1, 300, 1)])
+RG_WINDOW_CASES = ([(1, 10, 1, s, 256, 2048)
+                    for s in (1, 17, 2047, 2048, 2049, 3000)]
+                   + [(2, 4, 1, 300, 256, 64), (1, 8, 2, 257, 64, 128),
+                      (1, 6, 1, 77, 128, 1), (2, 10, 1, 500, 256, 100),
+                      (1, 10, 1, 1000, 256, None)])
+RG_DECODE_CASES = [(1, 10, 1, 2048, 256), (8, 10, 1, 2048, 256),
+                   (3, 10, 1, 17, 256), (2, 10, 1, 1000, 256)]
 
 
 def _mixes(P):
@@ -195,23 +244,24 @@ def _time_graph_ms(fn, flush, reps: int) -> float:
     return ms
 
 
-def _tol_ratio(got, want) -> float:
-    """Largest |got - want| / (atol + rtol |want|) at want's dtype
-    (``ATTN_TOL``): above 1 fails the check."""
-    atol, rtol = ATTN_TOL[str(want.dtype)]
+def _tol_ratio(got, want, tol=ATTN_TOL) -> float:
+    """Largest |got - want| / (atol + rtol |want|) at want's dtype in
+    ``tol`` (``ATTN_TOL`` or ``SCAN_TOL``): above 1 fails the check."""
+    atol, rtol = tol[str(want.dtype)]
     g, w = got.float(), want.float()
     return float(((g - w).abs() / (atol + rtol * w.abs())).max())
 
 
-def _close(name: str, got, want, what: str) -> float:
+def _close(name: str, got, want, what: str, tol=ATTN_TOL) -> float:
     """Max abs error of a kernel against its plain version; raises past
-    the dtype's tolerance (``ATTN_TOL``)."""
+    the dtype's tolerance in ``tol``."""
     import torch
     err = float((got.float() - want.float()).abs().max())
-    if not bool(torch.isfinite(got).all()) or _tol_ratio(got, want) > 1.0:
+    if not bool(torch.isfinite(got).all()) or _tol_ratio(got, want,
+                                                         tol) > 1.0:
         raise AssertionError(f"{name} differs from its plain version at "
                              f"{what}: max abs err {err:.3e}, (atol, rtol) "
-                             f"{ATTN_TOL[str(want.dtype)]}")
+                             f"{tol[str(want.dtype)]}")
     return err
 
 
@@ -287,6 +337,86 @@ def _attention_edge_cases(FA, FD, ref, dev):
     return n, {key: round(r, 3) for key, (r, _) in worst.items()}
 
 
+def _recurrent_edge_cases(FA, FD, RS, ref, dev):
+    """recurrentgemma-2b's three kernels against their plain versions at
+    the shapes its path can hand them, and around them (``RG_SCAN_CASES``,
+    ``RG_WINDOW_CASES``, ``RG_DECODE_CASES``), decode with cache lengths of
+    1, of S_max and different per row; float32 and bfloat16, contiguous
+    and strided.
+    Every case runs; then the worst case of a kernel and dtype past its
+    tolerance raises.  Returns the number of cases and, by kernel and
+    dtype, the largest share of the tolerance a case used."""
+    import torch
+    rng = np.random.default_rng(3)
+    n, worst = 0, {}
+
+    def close(name, got, want, what, tol):
+        ratio = (_tol_ratio(got, want, tol) if bool(torch.isfinite(got).all())
+                 else float("inf"))
+        key = f"{name} {want.dtype}"
+        if ratio >= worst.get(key, (0.0,))[0]:
+            err = float((got.float() - want.float()).abs().max())
+            worst[key] = (ratio, f"{name} at {what}, max abs err {err:.3e}",
+                          tol[str(want.dtype)])
+
+    def batch_strided(t):
+        return t.transpose(0, 1).contiguous().transpose(0, 1)
+
+    for B, S, D in RG_SCAN_CASES:
+        x32 = _randn(rng, (B, S, D), torch.float32, dev)
+        a32 = torch.from_numpy(rng.uniform(0.3, 0.9999, (B, S, D)).astype(
+            np.float32)).to(dev)
+        # a float32 starting state, as a view with a batch stride of 2 D
+        h0 = _randn(rng, (B, 2 * D), torch.float32, dev)[:, D:]
+        for dt in (torch.float32, torch.bfloat16):
+            x, a = x32.to(dt), a32.to(dt)
+            for start in (None, h0):
+                want = ref.ref_rglru(x, a, start)
+                for args in ((x, a), (batch_strided(x), batch_strided(a))):
+                    close("rglru_scan", RS.rglru_scan(*args, start), want,
+                          f"{(B, S, D)} {dt} h0="
+                          f"{'none' if start is None else 'given'}",
+                          SCAN_TOL)
+                    n += 1
+    for B, H, H_kv, S, D, window in RG_WINDOW_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = _randn(rng, (B, H, S, D), dt, dev)
+            k, v = (_randn(rng, (B, H_kv, S, D), dt, dev) for _ in "kv")
+            for causal in (True, False):
+                want = ref.ref_attention(q, k, v, causal=causal,
+                                         window=window)
+                for args in ((q, k, v), tuple(map(_strided, (q, k, v)))):
+                    got = FA.flash_attention(*args, causal=causal,
+                                             window=window)
+                    close("flash_attention", got, want,
+                          f"{(B, H, H_kv, S, D)} {dt} causal={causal} "
+                          f"window={window}", ATTN_TOL)
+                    n += 1
+    for B, H, H_kv, S, D in RG_DECODE_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            q = _randn(rng, (B, H, D), dt, dev)
+            k, v = (_randn(rng, (B, H_kv, S, D), dt, dev) for _ in "kv")
+            mixed = rng.integers(1, S + 1, size=B)
+            mixed[0] = S
+            for lens in (np.ones(B), np.full(B, S), mixed):
+                cl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+                want = ref.ref_decode(q, k, v, cl)
+                for kv in ((k, v), (_strided(k), _strided(v))):
+                    close("flash_decode", FD.flash_decode(q, *kv, cl), want,
+                          f"{(B, H, H_kv, S, D)} {dt} cache_len "
+                          f"{lens.tolist()}", ATTN_TOL)
+                    n += 1
+    torch.cuda.synchronize()
+    for key, (ratio, what, tol) in sorted(worst.items()):
+        print(f"  worst {key} case: {ratio:.3f} of the tolerance {tol}, "
+              f"{what}")
+    for key, (ratio, what, tol) in worst.items():
+        if ratio > 1.0:
+            raise AssertionError(f"{what}: past (atol, rtol) {tol} of its "
+                                 f"plain version")
+    return n, {key: round(r, 3) for key, (r, _, _) in worst.items()}
+
+
 def _attention_bound_ms(n_pairs: int, d: int, n_bytes: int, dtype):
     """Least time for attention on this card: 4 d flops per computed
     (query, key) pair at the dtype's peak rate (bf16 tensor cores, or
@@ -298,6 +428,18 @@ def _attention_bound_ms(n_pairs: int, d: int, n_bytes: int, dtype):
     t_ops = 4.0 * d * n_pairs / rate * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _scan_bound_ms(x, h0=None):
+    """Least time for the RG-LRU scan on this card: x and a read and h
+    written once, in x's dtype, and h0 read once, against two float32
+    flops per element."""
+    nbytes = 3 * x.numel() * x.element_size() + (
+        h0.numel() * h0.element_size() if h0 is not None else 0)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 2.0 * x.numel() / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
 
@@ -318,6 +460,164 @@ def _count_ops(fn) -> int:
     return Count.n
 
 
+def _serve_times(cfg, params, prompts, new: int, cb) -> str:
+    """The path's own times, off the counted run: prefill ms by prompt
+    length (the median of 3 after a warm-up), decode-step ms at batch 1
+    after the last prompt and at the batcher's slots from its caches, and
+    the operators one batch-1 step dispatches.  Returns the report."""
+    import torch
+    from repro_torch.models import decode_step, prefill
+    dev = params.device
+    pre_ms = {}
+    for p in prompts:
+        toks = torch.tensor([p], dtype=torch.int32, device=dev)
+        prefill(cfg, params, toks, cache_len=len(p) + new)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prefill(cfg, params, toks, cache_len=len(p) + new)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        pre_ms[len(p)] = sorted(times)[1]
+    toks = torch.tensor([prompts[-1]], dtype=torch.int32, device=dev)
+    _, caches = prefill(cfg, params, toks, cache_len=toks.shape[1] + 32)
+    tok = toks[:, -1:]
+    step_ms = {}
+    for c, t_in in ((caches, tok), (cb.caches, cb.tokens)):
+        c = [dict(e) for e in c]
+        decode_step(cfg, params, c, t_in)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(16):
+            _, c = decode_step(cfg, params, c, t_in)
+        torch.cuda.synchronize()
+        step_ms[t_in.shape[0]] = (time.perf_counter() - t) * 1e3 / 16
+    n_ops = _count_ops(lambda: decode_step(
+        cfg, params, [dict(e) for e in caches], tok))
+    nb = cb.n_slots
+    return (f"serve times (host clock, synchronized): prefill ms by prompt "
+            f"length {{{', '.join(f'{n}: {m:.2f}' for n, m in pre_ms.items())}"
+            f"}}; decode step {step_ms[1]:.2f} ms at batch 1 (after the "
+            f"{len(prompts[-1])}-token prompt), {step_ms[nb]:.2f} ms at batch "
+            f"{nb} (the batcher's caches) = {nb * 1e3 / step_ms[nb]:.1f} "
+            f"tokens/s; one batch-1 decode step dispatches {n_ops} PyTorch "
+            f"operators = {step_ms[1] * 1e3 / n_ops:.1f} us of host time each")
+
+
+def _decode_record(FD, ref, q, kc, vc, cl, flush) -> dict:
+    """``flash_decode`` on full-width tensors the path handed it: against
+    its plain version (and what a planted fault reads: each row's last,
+    partial KV tile skipped), with its times, the library call's and its
+    bound.  Returns the kernel's record."""
+    import torch
+    import torch.nn.functional as F
+    want = ref.ref_decode(q, kc, vc, cl)
+    got = FD.flash_decode(q, kc, vc, cl)
+    err = _close("flash_decode", got, want,
+                 f"full width {tuple(q.shape)} x {tuple(kc.shape)}")
+    n_valid = int(cl.sum())
+    H, H_kv, D = q.shape[1], kc.shape[1], q.shape[2]
+    nbytes = (2 * q.numel() + 2 * H_kv * D * n_valid) * q.element_size() \
+        + 4 * cl.numel()
+    bound, by = _attention_bound_ms(H * n_valid, D, nbytes, q.dtype)
+    mask = (torch.arange(kc.shape[2], device=q.device)[None, None, None, :]
+            < cl[:, None, None, None])
+    short = torch.clamp((cl - 1) // FAULT_TILE * FAULT_TILE, min=1)
+    used, fault = (_tol_ratio(got, want),
+                   _tol_ratio(ref.ref_decode(q, kc, vc, short), want))
+    rec = dict(
+        max_abs_err=err,
+        ms=_time_graph_ms(lambda: FD.flash_decode(q, kc, vc, cl), flush, 50),
+        plain_ms=_time_graph_ms(lambda: ref.ref_decode(q, kc, vc, cl), flush,
+                                20),
+        library_ms=_time_graph_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
+            flush, 50),
+        bound_ms=bound, bound_by=by)
+    print(f"kernel flash_decode at batch {q.shape[0]}: q {tuple(q.shape)}, "
+          f"caches {tuple(kc.shape)} {q.dtype}, cache_len {cl.tolist()}: "
+          f"max abs err {err:.3e} = {used:.3f} of the tolerance (the last KV "
+          f"tile skipped reads {fault:.3f}); device times (graph replay, "
+          f"cold L2) " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in rec.items()
+                                   if k_.endswith("ms")) + f" ({by})",
+          flush=True)
+    return rec
+
+
+def _prefill_record(FA, ref, q, k, v, causal, window, flush) -> dict:
+    """``flash_attention`` on the full-width tensors a prefill handed it:
+    against its plain version (and, without a window, what a planted
+    fault reads: the last KV tile skipped), with its times, the library
+    call's (SDPA, with a boolean band mask for a window) and its bound.
+    Returns the kernel's record."""
+    import torch
+    import torch.nn.functional as F
+    B, H, S, D = q.shape
+    want = ref.ref_attention(q, k, v, causal=causal, window=window)
+    got = FA.flash_attention(q, k, v, causal=causal, window=window)
+    err = _close("flash_attention", got, want,
+                 f"full width {tuple(q.shape)} window {window}")
+    if window is None:
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+        sdpa = dict(is_causal=causal)
+        # the planted fault: the last KV tile skipped, which under causal
+        # masking changes only the last query tile's rows
+        last, early = slice(S - FAULT_TILE, S), slice(0, S - FAULT_TILE)
+        faulty = ref.ref_attention(q[:, :, last], k[:, :, early],
+                                   v[:, :, early], causal=False)
+        fault = (f" (the last KV tile skipped reads "
+                 f"{_tol_ratio(faulty, want[:, :, last]):.3f})")
+    else:
+        pairs = B * H * sum(min(i + 1, window) for i in range(S))
+        pos = torch.arange(S, device=q.device)
+        gap = pos[:, None] - pos[None, :]
+        sdpa = dict(attn_mask=(gap >= 0) & (gap < window))
+        fault = ""
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound, by = _attention_bound_ms(pairs, D, nbytes, q.dtype)
+    rec = dict(
+        max_abs_err=err,
+        ms=_time_graph_ms(lambda: FA.flash_attention(
+            q, k, v, causal=causal, window=window), flush, 20),
+        plain_ms=_time_graph_ms(lambda: ref.ref_attention(
+            q, k, v, causal=causal, window=window), flush, 3),
+        library_ms=_time_graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True, **sdpa), flush, 20),
+        bound_ms=bound, bound_by=by)
+    print(f"kernel flash_attention at the prefill's {tuple(q.shape)} q, "
+          f"{tuple(k.shape)} k/v {q.dtype} causal={causal} window {window}: "
+          f"max abs err {err:.3e} = {_tol_ratio(got, want):.3f} of the "
+          f"tolerance{fault}; device times (graph replay, cold L2) " +
+          ", ".join(f"{key} {val:.4f}" for key, val in rec.items()
+                    if key.endswith("ms")) + f" ({by})", flush=True)
+    return rec
+
+
+def _scan_record(RS, ref, x, a, h0, flush) -> dict:
+    """``rglru_scan`` on full-width tensors the path handed it: against its
+    plain version, with its times and bound (no PyTorch call computes the
+    recurrence).  Returns the kernel's record."""
+    want = ref.ref_rglru(x, a, h0)
+    got = RS.rglru_scan(x, a, h0)
+    err = _close("rglru_scan", got, want, f"full width {tuple(x.shape)}",
+                 SCAN_TOL)
+    bound, by = _scan_bound_ms(x, h0)
+    rec = dict(
+        max_abs_err=err,
+        ms=_time_graph_ms(lambda: RS.rglru_scan(x, a, h0), flush, 20),
+        plain_ms=_time_graph_ms(lambda: ref.ref_rglru(x, a, h0), flush, 3),
+        library_ms=None, bound_ms=bound, bound_by=by)
+    print(f"kernel rglru_scan at {tuple(x.shape)} {x.dtype}, h0 "
+          f"{'none' if h0 is None else tuple(h0.shape)}: max abs err "
+          f"{err:.3e} = {_tol_ratio(got, want, SCAN_TOL):.3f} of the "
+          f"tolerance; device times (graph replay, cold L2) " +
+          ", ".join(f"{k_} {v_:.4f}" for k_, v_ in rec.items()
+                    if k_.endswith("ms") and v_ is not None) +
+          f" ({by}); no PyTorch call computes the recurrence", flush=True)
+    return rec
+
+
 def _greedy(cfg, params, prompt, max_new: int, device):
     """The serving state machine's decode, written out: prefill, then feed
     the last prompt token and each argmax back.  Returns the tokens."""
@@ -334,78 +634,107 @@ def _greedy(cfg, params, prompt, max_new: int, device):
     return torch.stack(out).tolist()
 
 
-def _serving_path(FA, FD, ref, dev):
-    """Phase 6: granite-3-2b at full width behind the compartmentalized
-    fleet, then the continuous batcher; the attention kernels' launches are
-    counted over exactly this run.  Returns the two kernels' records."""
+def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
+    """Phases 6 and 7: ``arch`` at full width behind the compartmentalized
+    fleet (weights v1, then one request per prompt length with v2 pushed
+    before request ``push_at``), then the continuous batcher.  Every
+    kernel's launches are counted over exactly this run and must be one
+    per layer that calls it per prefill and per decode step (from
+    ``cfg.layer_types()``).  ``kernels`` maps each op's name to its
+    kernel module.  Returns the records of the kernels the path ran."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import init_params
     from repro_torch.serving.scheduler import ContinuousBatcher, Request
     from repro_torch.serving.server import ServingDeployment
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
+    kinds = cfg.layer_types()
+    n_rec = kinds.count("rglru")
+    n_att = sum(k in ("attn", "local_attn") for k in kinds)
+
+    def expect(n_prefills, n_steps):
+        return {"rglru_scan": n_rec * (n_prefills + n_steps),
+                "flash_attention": n_att * n_prefills,
+                "flash_decode": n_att * n_steps}
+
     gen = torch.Generator(device=dev)
     t0 = time.perf_counter()
     v1 = init_params(cfg, gen.manual_seed(0), device=dev)
     v2 = init_params(cfg, gen.manual_seed(1), device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in v1.parameters())
-    print(f"serve: {cfg.name} full width ({cfg.n_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
-          f"{cfg.head_dim}, {cfg.dtype()}), {n_params:,} parameters "
-          f"({n_params * 2 / 1e9:.2f} GB) x 2 versions drawn on the card in "
+    n_bytes = sum(t.numel() * t.element_size() for t in v1.parameters())
+    layers = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+    print(f"serve: {cfg.name} full width ({cfg.n_layers} layers: {layers}; "
+          f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+          f"{cfg.head_dim}, window {cfg.attn_window}, rnn width "
+          f"{cfg.rnn_width if n_rec else None}, {cfg.mlp_kind} {cfg.d_ff}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype()}), {n_params:,} parameters "
+          f"({n_bytes / 1e9:.2f} GB) x 2 versions drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
-               for n in SERVE_PROMPTS]
-    batch_prompts = [rng.integers(0, cfg.vocab_size, BATCH["prompt"]).tolist()
-                     for _ in range(BATCH["n_requests"])]
+    texts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompts]
+    batch_prompts = [rng.integers(0, cfg.vocab_size, batch["prompt"]
+                                  ).tolist()
+                     for _ in range(batch["n_requests"])]
     dep = ServingDeployment(cfg, n_replicas=3, n_proxy_leaders=3,
                             grid=(2, 2), n_clients=2,
                             consistency="linearizable", device=dev)
 
     # catch the full-width tensors the path hands each kernel: the first
-    # prefill at the longest prompt, the last decode call at batch 1 (the
-    # longest cache, full) and at the batcher's 8 slots
+    # prefill call at the longest prompt, and the last decode call at
+    # batch 1 (the longest cache: full, or a wrapped ring buffer) and at
+    # the batcher's slots
     caught = {}
-    real_fa, real_fd = ops.flash_attention, ops.flash_decode
+    real = {name: getattr(ops, name) for name in kernels}
 
-    def catch_fa(q, k, v, *, causal=True):
-        if q.shape[2] == max(SERVE_PROMPTS) and "fa" not in caught:
-            caught["fa"] = (q, k, v, causal)
-        return real_fa(q, k, v, causal=causal)
+    def catch_rs(x, a, h0=None):
+        if x.shape[1] == 1:
+            caught[f"rglru_scan{x.shape[0]}"] = (x, a, h0)
+        elif x.shape[1] == max(prompts):
+            caught.setdefault("rglru_scan", (x, a, h0))
+        return real["rglru_scan"](x, a, h0)
+
+    def catch_fa(q, k, v, *, causal=True, window=None):
+        if q.shape[2] == max(prompts):
+            caught.setdefault("flash_attention", (q, k, v, causal, window))
+        return real["flash_attention"](q, k, v, causal=causal, window=window)
 
     def catch_fd(q, k_cache, v_cache, cache_len):
-        caught[f"fd{q.shape[0]}"] = (q, k_cache, v_cache, cache_len)
-        return real_fd(q, k_cache, v_cache, cache_len)
+        caught[f"flash_decode{q.shape[0]}"] = (q, k_cache, v_cache,
+                                               cache_len)
+        return real["flash_decode"](q, k_cache, v_cache, cache_len)
+
+    def launches():
+        return {name: getattr(mod, name).launches
+                for name, mod in kernels.items()}
 
     torch.cuda.reset_peak_memory_stats()
-    FA.flash_attention.launches = 0
-    FD.flash_decode.launches = 0
-    ops.flash_attention, ops.flash_decode = catch_fa, catch_fd
+    for name, mod in kernels.items():
+        getattr(mod, name).launches = 0
+    ops.rglru_scan, ops.flash_attention, ops.flash_decode = (
+        catch_rs, catch_fa, catch_fd)
     try:
         dep.push_weights(v1)
         served, req_s = [], []
-        for i, p in enumerate(prompts):
-            if i == 4:
+        for i, p in enumerate(texts):
+            if i == push_at:
                 dep.push_weights(v2)
             slot = dep.rsm.leader.next_slot
             torch.cuda.synchronize()
             t = time.perf_counter()
-            served.append(dep.infer(p, max_new=SERVE_NEW, client=i % 2))
+            served.append(dep.infer(p, max_new=new, client=i % 2))
             torch.cuda.synchronize()
             req_s.append(time.perf_counter() - t)
             if dep.rsm.leader.next_slot != slot:
                 raise AssertionError("an inference moved the leader's log: "
                                      "reads must be leaderless")
-        fa_dep = FA.flash_attention.launches
-        fd_dep = FD.flash_decode.launches
-        cb = ContinuousBatcher(cfg, v1, n_slots=BATCH["n_slots"],
-                               max_len=BATCH["max_len"], device=dev)
-        reqs = [Request(rid=i, prompt=p, max_new=BATCH["max_new"])
+        on_fleet = launches()
+        cb = ContinuousBatcher(cfg, v1, n_slots=batch["n_slots"],
+                               max_len=batch["max_len"], device=dev)
+        reqs = [Request(rid=i, prompt=p, max_new=batch["max_new"])
                 for i, p in enumerate(batch_prompts)]
         for r in reqs:
             cb.submit(r)
@@ -415,176 +744,87 @@ def _serving_path(FA, FD, ref, dev):
         torch.cuda.synchronize()
         batch_s = time.perf_counter() - t
     finally:
-        ops.flash_attention, ops.flash_decode = real_fa, real_fd
-    fa_launches = FA.flash_attention.launches
-    fd_launches = FD.flash_decode.launches
+        for name, fn in real.items():
+            setattr(ops, name, fn)
+    total = launches()
     peak_mem = torch.cuda.max_memory_allocated()
 
-    L = cfg.n_layers
     versions = [v for v, _ in served]
-    if versions != ["v1"] * 4 + ["v2"] * 4:
+    if versions != ["v1"] * push_at + ["v2"] * (len(texts) - push_at):
         raise AssertionError(f"served versions {versions}")
     for _, toks in served:
-        if len(toks) != SERVE_NEW or not all(0 <= t < cfg.vocab_size
-                                             for t in toks):
+        if len(toks) != new or not all(0 <= t < cfg.vocab_size
+                                       for t in toks):
             raise AssertionError(f"bad served tokens {toks}")
     loads = dep.replica_loads()
-    if sum(loads) != len(prompts) or max(loads) >= sum(loads):
+    if sum(loads) != len(texts) or max(loads) >= sum(loads):
         raise AssertionError(f"read loads {loads} not spread over replicas")
-    if (fa_dep, fd_dep) != (L * len(prompts), L * len(prompts) * SERVE_NEW):
-        raise AssertionError(f"fleet launched flash_attention {fa_dep} and "
-                             f"flash_decode {fd_dep} times, not {L} per "
-                             f"prefill and {L} per decode step")
-    if not all(r.done and len(r.out) == BATCH["max_new"] for r in reqs):
+    if not all(r.done and len(r.out) == batch["max_new"] for r in reqs):
         raise AssertionError("the continuous batcher did not drain")
-    if (fa_launches - fa_dep, fd_launches - fd_dep) != (
-            L * len(reqs), L * cb.steps_executed):
-        raise AssertionError("the batcher's launches are not 40 per prefill "
-                             "and 40 per decode step")
-    direct = _greedy(cfg, v1, prompts[0], SERVE_NEW, dev)
+    on_batcher = {k: total[k] - on_fleet[k] for k in total}
+    want_fleet = expect(len(texts), len(texts) * new)
+    want_batcher = expect(len(reqs), cb.steps_executed)
+    if on_fleet != want_fleet or on_batcher != want_batcher:
+        raise AssertionError(
+            f"launches: fleet {on_fleet}, batcher {on_batcher}; {n_rec} "
+            f"rglru_scan + {n_att} attention per prefill and per decode "
+            f"step give {want_fleet} and {want_batcher}")
+    ran = [name for name in kernels if total[name] > 0]
+    direct = _greedy(cfg, v1, texts[0], new, dev)
     if list(served[0][1]) != direct:
         raise AssertionError(f"request 0 served {served[0][1]}, a direct "
                              f"decode gives {direct}")
-    n_tok = BATCH["n_requests"] * BATCH["max_new"]
-    print(f"serve: 8 requests, versions {versions}, read loads {loads}, the "
-          f"leader's log unmoved by reads, request 0 == direct decode; "
-          f"request wall s {[round(x, 3) for x in req_s]} (prompt "
-          f"{list(SERVE_PROMPTS)} + {SERVE_NEW} tokens each); batcher "
-          f"{BATCH['n_requests']} x {BATCH['prompt']}-token prompts x "
-          f"{BATCH['max_new']} new in {BATCH['n_slots']} slots: "
-          f"{cb.steps_executed} steps, occupancy {cb.mean_occupancy:.2f}, "
-          f"{batch_s:.2f} s = {n_tok / batch_s:.1f} tokens/s with prefills; "
-          f"launches on the path: flash_attention {fa_launches}, "
-          f"flash_decode {fd_launches}; peak device memory "
-          f"{peak_mem / 2**30:.2f} GiB", flush=True)
+    n_tok = batch["n_requests"] * batch["max_new"]
+    print(f"serve: {len(texts)} requests, versions {versions}, read loads "
+          f"{loads}, the leader's log unmoved by reads, request 0 == direct "
+          f"decode; request wall s {[round(x, 3) for x in req_s]} (prompt "
+          f"{list(prompts)} + {new} tokens each); batcher "
+          f"{batch['n_requests']} x {batch['prompt']}-token prompts x "
+          f"{batch['max_new']} new in {batch['n_slots']} slots of max_len "
+          f"{batch['max_len']}: {cb.steps_executed} steps, occupancy "
+          f"{cb.mean_occupancy:.2f}, {batch_s:.2f} s = "
+          f"{n_tok / batch_s:.1f} tokens/s with prefills; launches on the "
+          f"fleet {on_fleet}, in all {total} = exactly {n_rec} rglru_scan + "
+          f"{n_att} attention per prefill and per decode step; peak device "
+          f"memory {peak_mem / 2**30:.2f} GiB", flush=True)
 
-    # the path's own times, off the counted run
-    pre_ms = {}
-    for n in sorted(set(SERVE_PROMPTS)):
-        toks = torch.tensor([prompts[SERVE_PROMPTS.index(n)]],
-                            dtype=torch.int32, device=dev)
-        prefill(cfg, v1, toks, cache_len=n + SERVE_NEW)
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            prefill(cfg, v1, toks, cache_len=n + SERVE_NEW)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-        pre_ms[n] = sorted(times)[1]
-    toks = torch.tensor([prompts[-1]], dtype=torch.int32, device=dev)
-    _, caches = prefill(cfg, v1, toks, cache_len=toks.shape[1] + 32)
-    tok = toks[:, -1:]
-    step_ms = {}
-    for b, state in ((1, (caches, tok)), (BATCH["n_slots"],
-                                          (cb.caches, cb.tokens))):
-        c, t_in = state
-        c = [dict(e) for e in c]
-        decode_step(cfg, v1, c, t_in)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(16):
-            _, c = decode_step(cfg, v1, c, t_in)
-        torch.cuda.synchronize()
-        step_ms[b] = (time.perf_counter() - t) * 1e3 / 16
-    n_ops = _count_ops(lambda: decode_step(cfg, v1, [dict(e) for e in caches],
-                                           tok))
-    print(f"serve times (host clock, synchronized): prefill ms by prompt "
-          f"length {{{', '.join(f'{n}: {m:.2f}' for n, m in pre_ms.items())}"
-          f"}}; decode step {step_ms[1]:.2f} ms at batch 1 (cache "
-          f"{max(SERVE_PROMPTS)}+), "
-          f"{step_ms[BATCH['n_slots']]:.2f} ms at batch "
-          f"{BATCH['n_slots']} (cache ~{BATCH['prompt'] + 2 * BATCH['max_new']}"
-          f") = {BATCH['n_slots'] * 1e3 / step_ms[BATCH['n_slots']]:.1f} "
-          f"tokens/s; {L} flash_attention launches per prefill, {L} "
-          f"flash_decode per step; one batch-1 decode step dispatches "
-          f"{n_ops} PyTorch operators = {step_ms[1] * 1e3 / n_ops:.1f} us of "
-          f"host time each", flush=True)
+    # the path's own times, off the counted run; the prompts' lengths
+    # rise, so the last is the longest
+    print(_serve_times(cfg, v1, list({len(p): p for p in texts}.values()),
+                       new, cb), flush=True)
 
-    # both kernels on the full-width tensors the path handed them
+    # each kernel on the full-width tensors the path handed it; of the
+    # decode calls the batch-1 one, the fleet's, is recorded, and of the
+    # scans the prefill's, the longest
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     records = {}
-    q, k, v, causal = caught["fa"]
-    B, H, S, D = q.shape
-    want = ref.ref_attention(q, k, v, causal=causal)
-    got = FA.flash_attention(q, k, v, causal=causal)
-    err = _close("flash_attention", got, want, f"full width {tuple(q.shape)}")
-    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound, by = _attention_bound_ms(pairs, D, nbytes, q.dtype)
-    # the planted fault: the last KV tile skipped, which under causal masking
-    # changes only the last query tile's rows
-    last = slice(S - FAULT_TILE, S)
-    early = slice(0, S - FAULT_TILE)
-    faulty = ref.ref_attention(q[:, :, last], k[:, :, early], v[:, :, early],
-                               causal=False)
-    used, fault = (_tol_ratio(got, want),
-                   _tol_ratio(faulty, want[:, :, last]))
-    records["flash_attention"] = dict(
-        max_abs_err=err,
-        ms=_time_graph_ms(lambda: FA.flash_attention(q, k, v, causal=causal),
-                          flush, 20),
-        plain_ms=_time_graph_ms(
-            lambda: ref.ref_attention(q, k, v, causal=causal), flush, 3),
-        library_ms=_time_graph_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True), flush, 20),
-        bound_ms=bound, bound_by=by)
-    print(f"kernel flash_attention at the prefill's {tuple(q.shape)} q, "
-          f"{tuple(k.shape)} k/v {q.dtype} causal={causal}: max abs err "
-          f"{err:.3e} = {used:.3f} of the tolerance (the last KV tile "
-          f"skipped reads {fault:.3f}); device times (graph replay, cold L2) "
-          + ", ".join(f"{key} {val:.4f}" for key, val in
-                      records["flash_attention"].items()
-                      if key.endswith("ms")) + f" ({by})", flush=True)
-    for key in (f"fd{BATCH['n_slots']}", "fd1"):
-        q, kc, vc, cl = caught[key]
-        want = ref.ref_decode(q, kc, vc, cl)
-        got = FD.flash_decode(q, kc, vc, cl)
-        err = _close("flash_decode", got, want,
-                     f"full width {tuple(q.shape)} x {tuple(kc.shape)}")
-        n_valid = int(cl.sum())
-        H, H_kv, D = q.shape[1], kc.shape[1], q.shape[2]
-        nbytes = (2 * q.numel() + 2 * H_kv * D * n_valid) * q.element_size() \
-            + 4 * cl.numel()
-        bound, by = _attention_bound_ms(H * n_valid, D, nbytes, q.dtype)
-        mask = (torch.arange(kc.shape[2], device=dev)[None, None, None, :]
-                < cl[:, None, None, None])
-        # the planted fault: each row's last (partial) KV tile skipped
-        short = torch.clamp((cl - 1) // FAULT_TILE * FAULT_TILE, min=1)
-        used, fault = (_tol_ratio(got, want),
-                       _tol_ratio(ref.ref_decode(q, kc, vc, short), want))
-        rec = dict(
-            max_abs_err=err,
-            ms=_time_graph_ms(lambda: FD.flash_decode(q, kc, vc, cl), flush,
-                              50),
-            plain_ms=_time_graph_ms(lambda: ref.ref_decode(q, kc, vc, cl),
-                                    flush, 20),
-            library_ms=_time_graph_ms(lambda: F.scaled_dot_product_attention(
-                q[:, :, None], kc, vc, attn_mask=mask, enable_gqa=True),
-                flush, 50),
-            bound_ms=bound, bound_by=by)
-        print(f"kernel flash_decode at batch {q.shape[0]}: q "
-              f"{tuple(q.shape)}, caches {tuple(kc.shape)} {q.dtype}, "
-              f"cache_len {cl.tolist()}: max abs err {err:.3e} = "
-              f"{used:.3f} of the tolerance (the last KV tile skipped reads "
-              f"{fault:.3f}); device times (graph replay, cold L2) " +
-              ", ".join(f"{k_} {v_:.4f}" for k_, v_ in rec.items()
-                        if k_.endswith("ms")) + f" ({by})", flush=True)
-        records["flash_decode"] = rec  # the batch-1 call, the fleet's
-    records["flash_attention"]["launches"] = fa_launches
-    records["flash_decode"]["launches"] = fd_launches
+    if "rglru_scan" in ran:
+        for key in (f"rglru_scan{batch['n_slots']}", "rglru_scan1",
+                    "rglru_scan"):
+            records["rglru_scan"] = _scan_record(
+                kernels["rglru_scan"], ref, *caught[key], flush)
+    records["flash_attention"] = _prefill_record(
+        kernels["flash_attention"], ref, *caught["flash_attention"], flush)
+    for key in (f"flash_decode{batch['n_slots']}", "flash_decode1"):
+        records["flash_decode"] = _decode_record(
+            kernels["flash_decode"], ref, *caught[key], flush)
+    for name in records:
+        records[name]["launches"] = total[name]
     return records
 
 
-def _model_cuda_vs_cpu(dev) -> None:
-    """Phase 7: the smoke config in float32 on the same weights, on the
-    card and on the host: logits agree, greedy and served tokens equal."""
+def _model_cuda_vs_cpu(dev, arch: str) -> None:
+    """Phase 8: an arch's smoke config in float32 on the same weights, on
+    the card and on the host: logits agree, greedy and served tokens
+    equal.  recurrentgemma-2b's smoke window of 8 is shorter than the
+    40-token prompt, so the window mask, the ring-buffer roll and its
+    wrap in decode all run."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params
     from repro_torch.serving.server import ServingDeployment
 
-    cfg = get_config(SERVE_ARCH).smoke()
+    cfg = get_config(arch).smoke()
     on_cpu = init_params(cfg, 0, device="cpu")
     on_gpu = copy.deepcopy(on_cpu).to(dev)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
@@ -616,6 +856,7 @@ def _model_cuda_vs_cpu(dev) -> None:
 
 def main() -> int:
     import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -626,6 +867,7 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import latency_hist as LH
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rglru_scan as RS
     dev = torch.device("cuda")
     # float32 products in full float32 on the card (no TF32), as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -640,7 +882,7 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     kernels = (("latency_hist.cu", LH), ("flash_attention.cu", FA),
-               ("decode_attention.cu", FD))
+               ("decode_attention.cu", FD), ("rglru_scan.cu", RS))
     with ThreadPoolExecutor(len(kernels)) as pool:
         logs = list(pool.map(lambda kv: kv[1].build(), kernels))
     print(f"build: {', '.join(k for k, _ in kernels)} in "
@@ -669,6 +911,12 @@ def main() -> int:
           f"using at most {used} of it "
           f"(S 1-2048, d 64/128, groups 1/4/6/8, causal and not, strided, "
           f"cache_len 1 / S_max / per row)", flush=True)
+    n_rec, used = _recurrent_edge_cases(FA, FD, RS, ref, dev)
+    print(f"kernel check: recurrentgemma's rglru_scan (SCAN_TOL {SCAN_TOL}),"
+          f" windowed head-dim-256 flash_attention and group-10 "
+          f"head-dim-256 flash_decode (ATTN_TOL) within tolerance of their "
+          f"plain versions in {n_rec} edge cases, using at most {used} of "
+          f"it", flush=True)
 
     sweep = P.compile_sweep(P.SweepSpec(**GRID))
     if len(sweep) != 32:
@@ -767,25 +1015,41 @@ def main() -> int:
           "makespans, msgs/cmd exact; mean latency rtol 1e-9; MVA rtol "
           "1e-5); exponential service drains on the card")
 
-    # -- 6. the serving path ----------------------------------------------
-    attn = _serving_path(FA, FD, ref, dev)
+    # -- 6. and 7. the serving paths ---------------------------------------
+    served = {}
+    for arch, plan in SERVE.items():
+        served[arch] = _serve_phase(
+            arch, **plan, kernels=dict(rglru_scan=RS, flash_attention=FA,
+                                       flash_decode=FD), ref=ref, dev=dev)
+        # the fleet's protocol objects refer to each other, so its weights
+        # are freed by the collector, not when the phase returns; without
+        # this the next phase's peak memory would count them
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    # -- 7. the card against the CPU on the model ---------------------------
-    _model_cuda_vs_cpu(dev)
+    # -- 8. the card against the CPU on the models --------------------------
+    for arch in SERVE:
+        _model_cuda_vs_cpu(dev, arch)
+    print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
+          f" s", flush=True)
 
-    print(json.dumps({"kernels": [
-        dict(name="latency_hist", route="cuda",
-             source="src/repro_torch/kernels/csrc/latency_hist.cu",
-             replaces="src/repro/kernels/latency_hist.py:23",
-             launches=launches, library_ms=None, **record),
-        dict(name="flash_attention", route="cuda",
-             source="src/repro_torch/kernels/csrc/flash_attention.cu",
-             replaces="src/repro/kernels/flash_attention.py:34",
-             **attn["flash_attention"]),
-        dict(name="flash_decode", route="cuda",
-             source="src/repro_torch/kernels/csrc/decode_attention.cu",
-             replaces="src/repro/kernels/decode_attention.py:31",
-             **attn["flash_decode"])]}))
+    where = {
+        "rglru_scan": ("rglru_scan.cu", "rglru_scan.py:23"),
+        "flash_attention": ("flash_attention.cu", "flash_attention.py:34"),
+        "flash_decode": ("decode_attention.cu", "decode_attention.py:31")}
+    rows = [dict(name="latency_hist", route="cuda",
+                 source="src/repro_torch/kernels/csrc/latency_hist.cu",
+                 replaces="src/repro/kernels/latency_hist.py:23",
+                 path="execution", launches=launches, library_ms=None,
+                 **record)]
+    for arch, records in served.items():
+        for name, rec in records.items():
+            src, tpu = where[name]
+            rows.append(dict(name=name, route="cuda",
+                             source=f"src/repro_torch/kernels/csrc/{src}",
+                             replaces=f"src/repro/kernels/{tpu}", path=arch,
+                             **rec))
+    print(json.dumps({"kernels": rows}))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

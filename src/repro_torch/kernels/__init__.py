@@ -4,11 +4,14 @@
                     execution plane's p50/p99 surfaces (CUDA C++,
                     ``csrc/latency_hist.cu``)
   flash_attention - attention forward over a whole sequence, causal or
-                    not, with GQA: the models' prefill (CUDA C++,
-                    ``csrc/flash_attention.cu``)
+                    not, windowed or not, with GQA: the models' prefill
+                    (CUDA C++, ``csrc/flash_attention.cu``)
   flash_decode    - split-KV attention of one query token per sequence
                     against its KV cache: the models' decode step (CUDA
                     C++, ``csrc/decode_attention.cu``)
+  rglru_scan      - the RG-LRU linear recurrence h_t = a_t h_{t-1} + x_t
+                    over a sequence, chunked: recurrentgemma's recurrent
+                    layers (CUDA C++, ``csrc/rglru_scan.cu``)
 
 Each ships with a wrapper that launches the kernel on CUDA tensors and
 runs the plain version (``ref.py``) on CPU tensors; ``ops.py`` is the

@@ -7,7 +7,8 @@
 // with query head h reading kv head h / (H / H_kv).  Scores, maxima and
 // sums are float32; masked scores are -1e30; the output is
 // acc / max(l, 1e-30) in the input type.  Inputs are float32 or bfloat16,
-// head dim 16, 32, 64 or 128, group * d <= 2048.  Each tensor comes with
+// head dim 16, 32, 64, 128 or 256, group * d <= 2560 (recurrentgemma's
+// 10 query heads over one KV head of 256).  Each tensor comes with
 // its own strides (last dimension contiguous), so the model hands in
 // transposed views of its (B, S_max, H_kv, d) caches without a copy.
 // Contract: 1 <= cache_len[b] <= S_max (the model always satisfies it);
@@ -27,9 +28,11 @@
 //     a block handles all `group` query heads of its kv head over one
 //     split of the cache, in 64-key tiles staged in shared memory as
 //     float32: scores for every (head, key) pair, a per-head softmax
-//     update by one warp per head, then the P.V update of the block's
-//     group x d float32 accumulator, held in registers (at most 8
-//     outputs per thread).  It writes (acc, m, l) of its split to a
+//     update by one warp per head (a warp takes a second head where the
+//     group has more than the block's 8 warps), then the P.V update of
+//     the block's group x d float32 accumulator, held in registers (at
+//     most 10 outputs per thread; at group 10, d 256 the block's shared
+//     memory is 141 KB).  It writes (acc, m, l) of its split to a
 //     float32 workspace.  A split that starts at or past cache_len[b]
 //     returns at once and is never read;
 //   * flash_decode_merge_kernel: grid (H, B), d threads; merges the
@@ -46,7 +49,7 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int TK = 64;       // keys per tile; the softmax reads 2 per lane
-constexpr int MAXACC = 8;    // accumulator outputs per thread
+constexpr int MAXACC = 10;   // accumulator outputs per thread
 constexpr int MAX_OUT = THREADS * MAXACC;  // group * d at most
 constexpr float NEG = -1e30f;
 
@@ -257,6 +260,7 @@ int launch_d(int d, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, cache_len, ws, o, B, H, H_kv, S_max, n_splits, split_len, scale, st, stream);
     case 64: return launch<T, 64>(q, k, v, cache_len, ws, o, B, H, H_kv, S_max, n_splits, split_len, scale, st, stream);
     case 128: return launch<T, 128>(q, k, v, cache_len, ws, o, B, H, H_kv, S_max, n_splits, split_len, scale, st, stream);
+    case 256: return launch<T, 256>(q, k, v, cache_len, ws, o, B, H, H_kv, S_max, n_splits, split_len, scale, st, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

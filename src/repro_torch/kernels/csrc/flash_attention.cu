@@ -4,10 +4,13 @@
 // _flash_kernel.  For q (B, H, S, d) and k, v (B, H_kv, S, d), query head h
 // reading kv head h / (H / H_kv):
 //   o[b, h, i] = sum_j softmax_j(q_i . k_j * d^-1/2) v_j
-// over j <= i when causal, over all j otherwise.  Scores, running max and
-// running sum are float32; masked scores are -1e30 (the reference's
+// over j <= i when causal, over all j otherwise, and with a window w > 0
+// only over i - j < w besides (the reference's local attention,
+// src/repro/models/attention.py:chunked_attention).  Scores, running max
+// and running sum are float32; masked scores are -1e30 (the reference's
 // value, not -inf); the output is acc / max(l, 1e-30) in the input type.
-// Inputs are float32 or bfloat16, head dim 16, 32, 64 or 128, and any S:
+// Inputs are float32 or bfloat16, head dim 16, 32, 64, 128 or 256, and
+// any S:
 // the ragged last tile is masked here (the TPU kernel asserted that S
 // divides by its 128-row blocks).  Each tensor comes with its own strides
 // (the last dimension contiguous), so the model hands in transposed views
@@ -22,26 +25,39 @@
 // and (m, l, acc) live in VMEM across its steps.  On Hopper blocks run in
 // parallel and in no order, so the KV loop moves inside the block: one
 // block per (b, h, 64-query tile), causal blocks with more tiles to walk
-// launched first.  The block walks the K/V tiles (64 keys each) from 0 up
-// to the diagonal, so a row's first tile always holds a valid key (key 0)
-// and the -1e30 masking cannot leave exp(0) terms behind.  Two kernels:
+// launched first.  The block walks the K/V tiles (64 keys each) from the
+// first tile any of its rows can see (tile 0 without a window, the tile
+// of key q0 - w + 1 with one) up to the diagonal; tiles wholly below the
+// window of all its rows are skipped.  Without a window a row's first
+// tile holds a valid key (key 0).  With one, a 64-row block can straddle
+// the window's start, and a row's first tile (or two, when w is no
+// multiple of 64) may hold no key it sees: its scores are all -1e30, its
+// running max stays -1e30, and exp(0) = 1 terms enter l and acc.  They
+// are wiped at the row's first tile with a valid key, whose rescale is
+// exp(-1e30 - m) = 0, and every row reaches one (the key of its own
+// position, in the diagonal tile, at the latest).  Two kernels:
 //   * bfloat16 (the serving path's type): `mma.sync` m16n8k16 on the
 //     tensor cores with float32 accumulation, FlashAttention-2 style.
 //     Four warps of 16 query rows each; a warp keeps its Q rows as A
-//     fragments in registers, reads K (row-major) and V (stored transposed)
-//     as B fragments from shared memory, rows padded by 8 halves so the
-//     fragment loads are free of bank conflicts, and turns its S
-//     accumulators straight into the A fragments of P for P.V.  The row
-//     statistics live in registers and are reduced over the 4 lanes that
-//     share a row.  P enters the product rounded to bf16 (the row sums
+//     fragments in registers (up to head dim 128; at 256, 64 more
+//     registers beside the 128 of its 32 output n-tiles and the 32 of its
+//     8 score tiles would spill, so the fragments are read from the Q
+//     tile in shared memory at each k-step instead), reads K (row-major)
+//     and V (stored transposed) as B fragments from shared memory, rows
+//     padded by 8 halves so the fragment loads are free of bank
+//     conflicts, and turns its S accumulators straight into the A
+//     fragments of P for P.V.  The row statistics live in registers and
+//     are reduced over the 4 lanes that share a row.  P enters the product rounded to bf16 (the row sums
 //     stay float32), within the bf16 tolerance 2e-2.
 //   * float32: exact float32 FMAs on the CUDA cores (no TF32), to hold
-//     2e-5.  256 threads; thread (ty, tx) of a 16 x 16 arrangement owns
-//     query rows 4ty..4ty+3 and keys tx + 16j (j < 4) of the tile's
-//     64 x 64 score block, read as float4 vectors from rows padded to
-//     d + 4 floats (free of bank conflicts); row maxima and sums are
-//     reduced over the 16 lanes of a row with shuffles; probabilities go
-//     through shared memory for the P.V product.
+//     2e-5 (at head dim 256 its tiles take 217 KB of the 227 KB of
+//     shared memory: one block per SM).  256 threads; thread (ty, tx) of
+//     a 16 x 16 arrangement owns query rows 4ty..4ty+3 and keys tx + 16j
+//     (j < 4) of the tile's 64 x 64 score block, read as float4 vectors
+//     from rows padded to d + 4 floats (free of bank conflicts); row
+//     maxima and sums are reduced over the 16 lanes of a row with
+//     shuffles; probabilities go through shared memory for the P.V
+//     product.
 // Tiles are copied in element by element, with no cp.async, TMA or
 // pipelining: those, `wgmma` and warp specialisation are later work.
 // Offsets are 64-bit.
@@ -83,8 +99,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int group, int S, float scale, int causal, Strides qs,
-                       Strides ks, Strides vs, Strides os) {
+                       int group, int S, float scale, int causal, int window,
+                       Strides qs, Strides ks, Strides vs, Strides os) {
   constexpr int LD = D + 4;  // padded row, float4-aligned
   constexpr int NC = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
@@ -115,7 +131,8 @@ flash_attention_kernel(const float* __restrict__ q,
 
   const int n_kt_all = (S + BK - 1) / BK;
   const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / BK + 1) : n_kt_all;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  for (int kt = kt_lo; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     load_tile<D, LD>(sk, kb, ks, k0, S);
     load_tile<D, LD>(sv, vb, vs, k0, S);
@@ -155,7 +172,8 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < S && (!causal || kpos <= qpos);
+        const bool ok = kpos < S && (!causal || kpos <= qpos) &&
+                        (window <= 0 || qpos - kpos < window);
         s[i][j] = ok ? s[i][j] * scale : NEG;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -249,13 +267,14 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            __nv_bfloat16* __restrict__ o, int group, int S,
-                           float scale, int causal, Strides qs, Strides ks,
-                           Strides vs, Strides os) {
+                           float scale, int causal, int window, Strides qs,
+                           Strides ks, Strides vs, Strides os) {
   constexpr int LDQ = D + 8;   // halves per Q / K row in shared memory
   constexpr int LDV = BK + 8;  // halves per row of V transposed
   constexpr int KS = D / 16;   // k-steps of Q.K^T over the head dim
   constexpr int NO = D / 8;    // n-tiles of the output
   constexpr int NT = BK / 8;   // n-tiles of the score block
+  constexpr bool Q_REGS = D <= 128;  // Q fragments held in registers
   extern __shared__ float4 smem4[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem4);  // BQ x LDQ
   __nv_bfloat16* sk = sq + BQ * LDQ;                             // BK x LDQ
@@ -275,15 +294,19 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     sq[r * LDQ + c] = row < S ? qb[(long long)row * qs.s + c] : zero;
   }
   __syncthreads();
-  uint32_t qa[KS][4];
   const int r0 = warp * 16;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
+  // the A fragment of Q's rows r0..r0+15 at k-step kk
+  auto load_qa = [&](uint32_t (&f)[4], int kk) {
     const __nv_bfloat16* p = sq + (r0 + g) * LDQ + kk * 16 + tig * 2;
-    qa[kk][0] = ld32(p);
-    qa[kk][1] = ld32(p + 8 * LDQ);
-    qa[kk][2] = ld32(p + 8);
-    qa[kk][3] = ld32(p + 8 * LDQ + 8);
+    f[0] = ld32(p);
+    f[1] = ld32(p + 8 * LDQ);
+    f[2] = ld32(p + 8);
+    f[3] = ld32(p + 8 * LDQ + 8);
+  };
+  uint32_t qa[Q_REGS ? KS : 1][4];
+  if constexpr (Q_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) load_qa(qa[kk], kk);
   }
   const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
@@ -298,7 +321,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int n_kt_all = (S + BK - 1) / BK;
   const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / BK + 1) : n_kt_all;
-  for (int kt = 0; kt < n_kt; ++kt) {
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  for (int kt = kt_lo; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's fragments are read
     for (int idx = threadIdx.x; idx < BK * D; idx += MMA_THREADS) {
@@ -309,15 +333,30 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     __syncthreads();
 
+    // s[n] sums over the k-steps in ascending order either way
     float s[NT][4];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if constexpr (Q_REGS) {
 #pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          const __nv_bfloat16* p = sk + (n * 8 + g) * LDQ + kk * 16 + tig * 2;
+          mma_bf16(s[n], qa[kk], ld32(p), ld32(p + 8));
+        }
+    } else {
+#pragma unroll 2
       for (int kk = 0; kk < KS; ++kk) {
-        const __nv_bfloat16* p = sk + (n * 8 + g) * LDQ + kk * 16 + tig * 2;
-        mma_bf16(s[n], qa[kk], ld32(p), ld32(p + 8));
+        uint32_t qf[4];
+        load_qa(qf, kk);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const __nv_bfloat16* p = sk + (n * 8 + g) * LDQ + kk * 16 + tig * 2;
+          mma_bf16(s[n], qf, ld32(p), ld32(p + 8));
+        }
       }
     }
 
@@ -330,7 +369,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + n * 8 + tig * 2 + (e & 1);
         const int row = e < 2 ? row_a : row_b;
-        const bool ok = key < S && (!causal || key <= row);
+        const bool ok = key < S && (!causal || key <= row) &&
+                        (window <= 0 || row - key < window);
         s[n][e] = ok ? s[n][e] * scale : NEG;
         if (e < 2) mx_a = fmaxf(mx_a, s[n][e]);
         else mx_b = fmaxf(mx_b, s[n][e]);
@@ -403,7 +443,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int H_kv, int S, int causal, float scale,
+               int H, int H_kv, int S, int causal, int window, float scale,
                const long long* st, cudaStream_t stream) {
   constexpr size_t shmem =
       sizeof(__nv_bfloat16) * (size_t)((BQ + BK) * (D + 8) + D * (BK + 8));
@@ -419,7 +459,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   flash_attention_mma_kernel<D><<<grid, MMA_THREADS, shmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H / H_kv, S, scale, causal, Strides{st[0], st[1], st[2]},
+      H / H_kv, S, scale, causal, window, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]});
   return (int)cudaGetLastError();
@@ -427,7 +467,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int H_kv, int S, int causal, float scale,
+               int H, int H_kv, int S, int causal, int window, float scale,
                const long long* st, cudaStream_t stream) {
   constexpr size_t shmem =
       sizeof(float) * (size_t)(BQ * (D + 4) + 2 * BK * (D + 4) + BQ * LDP);
@@ -443,7 +483,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
   flash_attention_kernel<D><<<grid, THREADS, shmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), H / H_kv, S,
-      scale, causal, Strides{st[0], st[1], st[2]},
+      scale, causal, window, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]});
   return (int)cudaGetLastError();
@@ -453,24 +493,27 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 
 // C entry point: launches on `stream` and returns cudaGetLastError().
 // is_bf16 selects bfloat16 (1, the tensor-core kernel) or float32 (0, the
-// CUDA-core kernel) for q, k, v and o alike.  strides: 12 element
+// CUDA-core kernel) for q, k, v and o alike.  window: 0 for none, else
+// query i sees key j only where i - j < window.  strides: 12 element
 // strides, (batch, head, seq) of q, k, v, o in turn.
 extern "C" int flash_attention_launch(int is_bf16, int d, const void* q,
                                       const void* k, const void* v, void* o,
                                       int B, int H, int H_kv, int S,
-                                      int causal, float scale,
+                                      int causal, int window, float scale,
                                       const long long* strides, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_ARGS q, k, v, o, B, H, H_kv, S, causal, scale, strides, st
+#define FA_ARGS q, k, v, o, B, H, H_kv, S, causal, window, scale, strides, st
   switch (d * 2 + (is_bf16 ? 1 : 0)) {
     case 16 * 2: return launch_f32<16>(FA_ARGS);
     case 32 * 2: return launch_f32<32>(FA_ARGS);
     case 64 * 2: return launch_f32<64>(FA_ARGS);
     case 128 * 2: return launch_f32<128>(FA_ARGS);
+    case 256 * 2: return launch_f32<256>(FA_ARGS);
     case 16 * 2 + 1: return launch_mma<16>(FA_ARGS);
     case 32 * 2 + 1: return launch_mma<32>(FA_ARGS);
     case 64 * 2 + 1: return launch_mma<64>(FA_ARGS);
     case 128 * 2 + 1: return launch_mma<128>(FA_ARGS);
+    case 256 * 2 + 1: return launch_mma<256>(FA_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FA_ARGS

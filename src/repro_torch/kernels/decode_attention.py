@@ -29,10 +29,10 @@ import torch
 from ._build import build_library
 from .ref import ref_decode
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64          # keys per tile in the kernel; a split is whole tiles
-MAX_OUT = 2048     # group * d the kernel's registers hold
+MAX_OUT = 2560     # group * d the kernel's registers hold
 BLOCKS_PER_SM = 2  # splits are sized to fill the card about twice over
 
 _lib: Optional[ctypes.CDLL] = None
@@ -148,8 +148,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     would wait on the device; the kernel clamps it to S_max).  Returns
     (B, H, d) in q's dtype.
 
-    CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128);
-    CPU tensors run the plain version.  Any other device raises."""
+    CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128,
+    256; group x head dim at most 2560); CPU tensors run the plain
+    version.  Any other device raises."""
     _check(q, k_cache, v_cache, cache_len)
     if q.device.type == "cpu":
         return ref_decode(q, k_cache, v_cache, cache_len)

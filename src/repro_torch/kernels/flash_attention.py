@@ -3,8 +3,9 @@ wrapper.
 
 Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py:
 _flash_kernel``.  The CUDA source is ``csrc/flash_attention.cu``: one
-block per (batch, head, 64-query tile) walks the K/V tiles from 0 up to the
-diagonal with an online softmax in float32 registers - bfloat16 inputs on
+block per (batch, head, 64-query tile) walks the K/V tiles from the first
+its rows can see (0, or the window's start) up to the diagonal with an
+online softmax in float32 registers - bfloat16 inputs on
 the tensor cores (``mma.sync``, float32 accumulation), float32 inputs in
 float32 FMAs on the CUDA cores.  At the serving path's shapes it is bound
 by operations (see the source's note).
@@ -28,7 +29,7 @@ import torch
 from ._build import build_library
 from .ref import ref_attention
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _lib: Optional[ctypes.CDLL] = None
@@ -46,14 +47,15 @@ def build() -> str:
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
     return _build_log
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: Optional[int]) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q (B, H, S, d) and k/v (B, H_kv, S, d) expected: "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
@@ -71,10 +73,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"tensors on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or at least 1: {window}")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
+            causal: bool, window: Optional[int]) -> torch.Tensor:
     B, H, S, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
@@ -92,7 +96,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = _lib.flash_attention_launch(
             int(q.dtype == torch.bfloat16), D, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), B, H, k.shape[1], S, int(causal),
-            1.0 / math.sqrt(D), strides, stream)
+            window or 0, 1.0 / math.sqrt(D), strides, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
@@ -101,19 +105,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, S, d); k/v: (B, H_kv, S, d), H % H_kv == 0, float32 or
-    bfloat16.  Returns (B, H, S, d) in q's dtype.
+    bfloat16.  Returns (B, H, S, d) in q's dtype.  With a ``window``, query
+    i sees key j only where ``i - j < window`` (local attention).
 
-    CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128);
-    CPU tensors run the plain version.  Any other device raises."""
-    _check(q, k, v)
+    CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128,
+    256); CPU tensors run the plain version.  Any other device raises."""
+    _check(q, k, v, window)
     if q.device.type == "cpu":
-        return ref_attention(q, k, v, causal=causal)
+        return ref_attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    return _launch(q, k, v, causal)
+    return _launch(q, k, v, causal, window)
 
 
 flash_attention.launches = 0

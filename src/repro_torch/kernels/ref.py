@@ -3,11 +3,13 @@
 Small, obviously-correct implementations that follow the reference's own
 definitions.  The CPU path runs them, the tests hold them against the JAX
 package, and the card's kernels are held against them: the histogram bit
-for bit, attention within the float tolerance its test states.
+for bit, attention and the RG-LRU recurrence within the float tolerance
+its test states.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -42,18 +44,27 @@ def ref_latency_hist(samples: torch.Tensor, valid: torch.Tensor,
 
 
 def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
+                  causal: bool = True,
+                  window: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, S, d); k/v: (B, H_kv, S, d), H % H_kv == 0 (query head h
     reads kv head h // (H / H_kv)).  Full-softmax attention with float32
-    scores, a -1e30 causal mask and float32 softmax; the output has q's
-    dtype.  Any strides are taken."""
+    scores, a -1e30 mask and float32 softmax; the output has q's dtype.
+    Query i sees key j where ``j <= i`` (causal) and, with a ``window``,
+    where ``i - j < window`` too (the reference's local-attention mask,
+    ``models/attention.py:chunked_attention``).  Any strides are taken."""
     B, H, S, D = q.shape
     H_kv = k.shape[1]
     group = H // H_kv
     qg = q.reshape(B, H_kv, group, S, D).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(D)
-    if causal:
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    if causal or window is not None:
+        pos = torch.arange(S, device=q.device)
+        diff = pos[:, None] - pos[None, :]  # query minus key position
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= diff >= 0
+        if window is not None:
+            mask &= diff < window
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
@@ -77,3 +88,17 @@ def ref_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def ref_rglru(x: torch.Tensor, a: torch.Tensor,
+              h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Serial ``h_t = a_t h_{t-1} + x_t`` from ``h = h0`` (B, D), or 0.
+    x/a: (B, S, D).  The carry is float32; the output has x's dtype.  Any
+    strides are taken."""
+    xf, af = x.float(), a.float()
+    h = h0.float() if h0 is not None else torch.zeros_like(xf[:, 0])
+    out = torch.empty(xf.shape, dtype=torch.float32, device=x.device)
+    for t in range(x.shape[1]):
+        h = af[:, t] * h + xf[:, t]
+        out[:, t] = h
+    return out.to(x.dtype)

@@ -10,13 +10,14 @@ views of the (B, S, H, d) activations and (B, S_max, H_kv, d) caches: no
 copy per layer per token.
 
 Caches are updated in place (the reference returns new arrays): a decode
-step writes its key and value into row ``pos`` of the cache it is given.
-``pos`` is a 0-d int32 tensor on the cache's device, so a step never waits
-on the device for it.
+step writes its key and value into row ``pos`` of the cache it is given,
+or, for a windowed (local-attention) cache, into row ``pos % S_max`` of
+its ring buffer.  ``pos`` is a 0-d int32 tensor on the cache's device, so
+a step never waits on the device for it.
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
@@ -49,12 +50,15 @@ def _rope_qk(q, k, positions, rope_mode: str, theta: float, mrope_sections):
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      causal: bool = True) -> torch.Tensor:
+                      causal: bool = True,
+                      window: Optional[int] = None) -> torch.Tensor:
     """q: (B, S, H, d); k/v: (B, S, H_kv, d) with H % H_kv == 0.  Returns
-    (B, S, H, d).  The flash kernel walks the whole sequence itself, so the
-    reference's query-block scan has no counterpart."""
+    (B, S, H, d); with a ``window``, query i sees key j only where
+    ``i - j < window``.  The flash kernel walks the whole sequence itself,
+    so the reference's query-block scan has no counterpart."""
     out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                              v.transpose(1, 2), causal=causal)
+                              v.transpose(1, 2), causal=causal,
+                              window=window)
     return out.transpose(1, 2)
 
 
@@ -74,11 +78,14 @@ def decode_attention_block(params: Mapping[str, torch.Tensor],
                            n_kv_heads: int, d_head: int,
                            rope_mode: str = "rope",
                            rope_theta: float = 10_000.0,
-                           mrope_sections=(16, 24, 24)
+                           mrope_sections=(16, 24, 24),
+                           window: Optional[int] = None,
                            ) -> Tuple[torch.Tensor, dict]:
     """One decode step.  cache: {"k": (B, S_max, H_kv, d), "v": ...,
-    "pos": () int32}; "k" and "v" are written in place at row pos.
-    Returns (output (B, 1, d_model), the cache with "pos" advanced)."""
+    "pos": () int32}; "k" and "v" are written in place at row pos, or with
+    a ``window`` at row pos % S_max (the cache is then a ring buffer of
+    the last S_max positions).  Returns (output (B, 1, d_model), the cache
+    with "pos" advanced)."""
     B = x.shape[0]
     pos = cache["pos"]
     q, k, v = qkv_project(params, x, n_heads, n_kv_heads, d_head)
@@ -88,9 +95,12 @@ def decode_attention_block(params: Mapping[str, torch.Tensor],
 
     k_cache, v_cache = cache["k"], cache["v"]
     S_max = k_cache.shape[1]
-    # past the end the reference's dynamic_update_slice clamps to the last
-    # row; clamping here keeps that and never indexes out of bounds
-    slot = torch.clamp(pos, max=S_max - 1).reshape(1).long()
+    if window is not None:
+        slot = torch.remainder(pos, S_max).reshape(1).long()
+    else:
+        # past the end the reference's dynamic_update_slice clamps to the
+        # last row; clamping here keeps that and never indexes out of bounds
+        slot = torch.clamp(pos, max=S_max - 1).reshape(1).long()
     k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
     cache_len = torch.clamp(pos + 1, max=S_max).to(torch.int32).expand(B)

@@ -10,7 +10,7 @@ side), never JAX arrays: the port imports no JAX.
 """
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Any, Dict, List, Tuple
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,14 +30,15 @@ def _layer_slots(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
             for p in range(len(seg.pattern))]
 
 
-def _to_tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
-    # through float32: numpy has no bfloat16 of its own, and every
-    # bfloat16 value is exact in float32
-    arr = np.asarray(a)
-    if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
+def _to_tensor(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
+    """A copy of ``a`` as a tensor in ``dtype`` (``None``: its own)."""
+    arr = np.array(a)  # a writable copy: the port writes caches in place
+    if arr.dtype.name == "bfloat16":
+        # through float32: numpy has no bfloat16 of its own, and every
+        # bfloat16 value is exact in float32
+        dtype = dtype or torch.bfloat16
         arr = arr.astype(np.float32)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(dtype=dtype,
-                                                         device=device)
+    return torch.from_numpy(arr).to(dtype=dtype, device=device)
 
 
 def _assign(module: torch.nn.Module, tree: Dict[str, Any], where: str) -> None:
@@ -75,30 +76,29 @@ def _take(tree, r: int):
 
 def caches_from_jax(cfg: ModelConfig, caches, device=None) -> List[dict]:
     """The port's per-layer caches from the reference's stacked ones (as
-    numpy arrays), on ``device`` (``None`` means cuda)."""
+    numpy arrays), on ``device`` (``None`` means cuda): {"k", "v", "pos"}
+    for attention layers (a ring buffer for ``local_attn``), {"h",
+    "conv"} for recurrent ones, each entry in the reference's dtype."""
     dev = resolve_device(device)
     out = []
     for si, r, p in _layer_slots(cfg):
         entry = _take(caches[si][p], r)
-        out.append({
-            "k": _to_tensor(entry["k"], cfg.kv_dtype(), dev),
-            "v": _to_tensor(entry["v"], cfg.kv_dtype(), dev),
-            "pos": _to_tensor(entry["pos"], torch.int32, dev),
-        })
+        out.append({name: _to_tensor(value, None, dev)
+                    for name, value in entry.items()})
     return out
 
 
 def caches_to_numpy(cfg: ModelConfig, caches: List[dict]) -> List[tuple]:
     """The port's caches in the reference's layout: a list over segments of
-    tuples over pattern positions of {"k", "v", "pos"} stacked on a
-    leading (repeats,) axis; float32 numpy arrays."""
+    tuples over pattern positions of each layer's dict ({"k", "v", "pos"}
+    or {"h", "conv"}) stacked on a leading (repeats,) axis; floating
+    entries as float32 numpy arrays."""
     segs = build_segments(cfg)
-    out = [[{"k": [], "v": [], "pos": []} for _ in seg.pattern]
-           for seg in segs]
+    out = [[{} for _ in seg.pattern] for seg in segs]
     for entry, (si, r, p) in zip(caches, _layer_slots(cfg)):
-        for name in ("k", "v", "pos"):
-            t = entry[name].detach().cpu()
-            out[si][p][name].append(
-                t.float().numpy() if name != "pos" else t.numpy())
+        for name, t in entry.items():
+            t = t.detach().cpu()
+            out[si][p].setdefault(name, []).append(
+                t.float().numpy() if t.is_floating_point() else t.numpy())
     return [tuple({name: np.stack(vals) for name, vals in d.items()}
                   for d in seg) for seg in out]

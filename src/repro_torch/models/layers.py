@@ -16,6 +16,23 @@ from typing import Mapping, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+
+class ParamModule(nn.Module):
+    """A module whose own parameters carry the reference's names and index
+    like its dicts: ``m["w_q"]``, ``"b_q" in m``.  Parameters are for
+    inference (``requires_grad=False``); training is a later slice."""
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self._parameters[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters
+
+    def add(self, name: str, value: torch.Tensor) -> None:
+        self.register_parameter(name, nn.Parameter(value, requires_grad=False))
+
 
 # ---------------------------------------------------------------------------
 # init helpers (the reference's distributions; the draws come from a

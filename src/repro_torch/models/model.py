@@ -1,8 +1,9 @@
-"""Model assembly for the dense decoder (port of ``models/model.py``).
+"""Model assembly (port of ``models/model.py``).
 
 ``init_params`` builds a :class:`Transformer`: an embedding, an
-``nn.ModuleList`` of :class:`DecoderBlock` (norm, :class:`Attention`, norm,
-:class:`MLP`) and a final norm.  Every module keeps the JAX package's
+``nn.ModuleList`` of :class:`DecoderBlock` (norm, a mixer - :class:`Attention`
+or :class:`~repro_torch.models.rglru.RecurrentBlock` - norm, :class:`MLP`)
+and a final norm.  Every module keeps the JAX package's
 parameter names and ``(in, out)`` layouts, so its parameters index like
 the reference's dicts (``block.attn["w_q"]``) and
 :mod:`repro_torch.models.convert` can carry the reference's weights over
@@ -14,12 +15,15 @@ Layers run as a Python loop; the reference's segments (stacked
 ``lax.scan`` bodies) are a JAX compile-time device and are kept only to map
 its stacked weights and caches onto layers (:func:`build_segments`).
 
-This slice covers the dense decoder: mixer ``"attn"``, channel ``"mlp"``
-(all five kinds), rmsnorm or layernorm, rope, M-RoPE or none, optional QKV
-bias, tied or untied embeddings - granite-3-2b, phi3-medium-14b,
-qwen1.5-32b, nemotron-4-15b and the qwen2-vl-72b text backbone.  Other
-mixers and channels raise ``NotImplementedError`` naming their
-``ROADMAP.md`` item.  Caches are updated in place by ``decode_step``.
+The port covers mixers ``"attn"``, ``"local_attn"`` (windowed, with a
+ring-buffer cache) and ``"rglru"`` (the RG-LRU recurrent block, whose
+cache is its state), channel ``"mlp"`` (all five kinds), rmsnorm or
+layernorm, rope, M-RoPE or none, optional QKV bias, tied or untied
+embeddings - granite-3-2b, phi3-medium-14b, qwen1.5-32b, nemotron-4-15b,
+the qwen2-vl-72b text backbone and recurrentgemma-2b.  Other mixers and
+channels raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
+``decode_step`` writes the attention layers' K/V caches in place and
+returns new recurrent states.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from ..core.device import resolve_device
 from . import attention as attn_lib
 from .layers import (
     MLP_KINDS,
+    ParamModule,
     apply_mlp,
     dense_init,
     embed_init,
@@ -42,17 +47,17 @@ from .layers import (
     text_mrope_positions,
     unembed,
 )
+from .rglru import RecurrentBlock
 
 if TYPE_CHECKING:  # configs.base imports models.moe
     from ..configs.base import ModelConfig
 
 LayerSig = Tuple[str, str]  # (mixer, channel): ("attn", "mlp"), ...
 
-#: Where each part of the model zoo that this slice leaves out is queued.
+CHANNELS = ("mlp",)
+
+#: Where each part of the model zoo that the port leaves out is queued.
 _NOT_PORTED = {
-    "local_attn": "ROADMAP.md queue 1, item 12 (recurrentgemma-2b serving)",
-    "rglru": "ROADMAP.md queue 1, item 12 (recurrentgemma-2b serving, with "
-             "rglru_scan: queue 2, item 4)",
     "rwkv6": "ROADMAP.md queue 1, item 12 (rwkv6-7b serving, with wkv6: "
              "queue 2, item 5)",
     "xattn": "ROADMAP.md queue 1, item 12 (whisper encoder-decoder)",
@@ -109,7 +114,7 @@ def check_supported(cfg: ModelConfig) -> None:
                 raise NotImplementedError(f"{cfg.name}: {part!r} layers are "
                                           f"not ported yet: "
                                           f"{_NOT_PORTED[part]}")
-        if mixer != "attn" or channel != "mlp":
+        if mixer not in MIXERS or channel not in CHANNELS:
             raise ValueError(f"{cfg.name}: unknown layer {mixer}/{channel}")
     if cfg.mlp_kind not in MLP_KINDS:
         raise ValueError(f"{cfg.name}: unknown mlp kind {cfg.mlp_kind!r}")
@@ -118,21 +123,6 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 # modules
 # ---------------------------------------------------------------------------
-
-
-class ParamModule(nn.Module):
-    """A module whose own parameters carry the reference's names and index
-    like its dicts: ``m["w_q"]``, ``"b_q" in m``.  Parameters are for
-    inference (``requires_grad=False``); training is a later slice."""
-
-    def __getitem__(self, name: str) -> torch.Tensor:
-        return self._parameters[name]
-
-    def __contains__(self, name: str) -> bool:
-        return name in self._parameters
-
-    def add(self, name: str, value: torch.Tensor) -> None:
-        self.register_parameter(name, nn.Parameter(value, requires_grad=False))
 
 
 def _dense(gen, in_dim, out_dim, dtype, device) -> torch.Tensor:
@@ -156,8 +146,18 @@ class Norm(ParamModule):
 
 
 class Attention(ParamModule):
-    def __init__(self, cfg: ModelConfig, gen, dtype, device) -> None:
+    """Self-attention under the reference's parameter names; with a
+    ``window`` (``local_attn``) query i sees key j only where
+    ``i - j < window``, and the cache is a ring buffer of ``window`` rows.
+
+    Like every mixer it runs a whole sequence (``forward``), one decode
+    step (``step``) and makes its empty cache (``empty_cache``)."""
+
+    def __init__(self, cfg: ModelConfig, gen, dtype, device,
+                 window: Optional[int] = None) -> None:
         super().__init__()
+        self.cfg = cfg
+        self.window = window
         d, H, H_kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.add("w_q", _dense(gen, d, H * dh, dtype, device))
         self.add("w_k", _dense(gen, d, H_kv * dh, dtype, device))
@@ -168,6 +168,67 @@ class Attention(ParamModule):
                                 ("b_v", H_kv * dh)):
                 self.add(name, torch.zeros((width,), dtype=dtype,
                                            device=device))
+
+    def _akw(self) -> dict:
+        cfg = self.cfg
+        return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                    d_head=cfg.head_dim)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """Whole sequence.  With ``cache_len`` it also returns the KV cache
+        with ``pos`` = S: padded to ``max(cache_len, S)`` rows, or with a
+        window the reference's ring buffer of ``window`` rows (position p
+        at row p % window)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        q, k, v = attn_lib.qkv_project(self, x, **self._akw())
+        q, k = attn_lib._rope_qk(q, k, positions, cfg.rope_mode,
+                                 cfg.rope_theta, cfg.mrope_sections)
+        out = attn_lib.chunked_attention(q, k, v, causal=True,
+                                         window=self.window)
+        out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ self["w_o"]
+        if cache_len is None:
+            return out, None
+        entry = {"pos": torch.full((), S, dtype=torch.int32,
+                                   device=x.device)}
+        w = self.window
+        for name, t in (("k", k), ("v", v)):
+            if w is not None and S >= w:
+                entry[name] = torch.roll(t[:, -w:], S % w, dims=1)
+                continue
+            rows = w if w is not None else max(cache_len, S)
+            buf = t.new_zeros((B, rows) + t.shape[2:])
+            buf[:, :S] = t
+            entry[name] = buf
+        return out, entry
+
+    def step(self, x: torch.Tensor, cache: dict) -> Tuple[torch.Tensor, dict]:
+        """One decode step.  x: (B, 1, d_model); the cache's K/V are
+        written in place."""
+        cfg = self.cfg
+        return attn_lib.decode_attention_block(
+            self, x, cache, rope_mode=cfg.rope_mode,
+            rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
+            window=self.window, **self._akw())
+
+    @staticmethod
+    def empty_cache(cfg: ModelConfig, batch: int, cache_len: int, device,
+                    window: Optional[int] = None) -> dict:
+        """``cache_len`` rows of zeros, or ``min(window, cache_len)``."""
+        rows = min(window, cache_len) if window is not None else cache_len
+        return attn_lib.init_kv_cache(batch, rows, cfg.n_kv_heads,
+                                      cfg.head_dim, cfg.kv_dtype(), device)
+
+
+#: The mixers the port runs: mixer -> (the reference's name for its
+#: parameters, its module, the module's keyword arguments from the config).
+MIXERS = {
+    "attn": ("attn", Attention, lambda cfg: {}),
+    "local_attn": ("attn", Attention, lambda cfg: {"window": cfg.attn_window}),
+    "rglru": ("rec", RecurrentBlock, lambda cfg: {}),
+}
 
 
 class MLP(ParamModule):
@@ -185,55 +246,39 @@ class MLP(ParamModule):
 
 
 class DecoderBlock(nn.Module):
-    """Pre-norm decoder layer: x + attn(ln1(x)), then + mlp(ln2(x))."""
+    """Pre-norm decoder layer: x + mixer(ln1(x)), then + mlp(ln2(x)).  The
+    mixer (:data:`MIXERS`) sits under the reference's name for it:
+    ``attn`` (an :class:`Attention`, windowed for ``local_attn``) or
+    ``rec`` (a :class:`RecurrentBlock`)."""
 
-    def __init__(self, cfg: ModelConfig, gen, device) -> None:
+    def __init__(self, cfg: ModelConfig, mixer: str, gen, device) -> None:
         super().__init__()
         dtype = cfg.dtype()
-        self.cfg = cfg
+        name, module, kwargs = MIXERS[mixer]
+        self.mixer_name = name
         self.ln1 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.attn = Attention(cfg, gen, dtype, device)
+        self.add_module(name, module(cfg, gen, dtype, device, **kwargs(cfg)))
         self.ln2 = Norm(cfg.norm, cfg.d_model, dtype, device)
         self.mlp = MLP(cfg.d_model, cfg.d_ff_dense or cfg.d_ff, cfg.mlp_kind,
                        gen, dtype, device)
 
-    def _akw(self) -> dict:
-        cfg = self.cfg
-        return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-                    d_head=cfg.head_dim)
+    @property
+    def mix(self) -> nn.Module:
+        return getattr(self, self.mixer_name)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Whole-sequence step (forward, prefill).  With ``cache_len`` it
-        also returns the layer's KV cache, padded to ``max(cache_len, S)``
-        rows, with ``pos`` = S."""
-        cfg = self.cfg
-        B, S, _ = x.shape
-        q, k, v = attn_lib.qkv_project(self.attn, self.ln1(x), **self._akw())
-        q, k = attn_lib._rope_qk(q, k, positions, cfg.rope_mode,
-                                 cfg.rope_theta, cfg.mrope_sections)
-        out = attn_lib.chunked_attention(q, k, v, causal=True)
-        x = x + out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ self.attn["w_o"]
-        entry = None
-        if cache_len is not None:
-            rows = max(cache_len, S)
-            entry = {"pos": torch.full((), S, dtype=torch.int32,
-                                       device=x.device)}
-            for name, t in (("k", k), ("v", v)):
-                buf = t.new_zeros((B, rows) + t.shape[2:])
-                buf[:, :S] = t
-                entry[name] = buf
+        also returns the layer's cache (the mixer's)."""
+        out, entry = self.mix(self.ln1(x), positions, cache_len)
+        x = x + out
         return x + self.mlp(self.ln2(x)), entry
 
     def decode(self, x: torch.Tensor, cache: dict
                ) -> Tuple[torch.Tensor, dict]:
         """One-token step.  x: (B, 1, d_model)."""
-        cfg = self.cfg
-        out, new_cache = attn_lib.decode_attention_block(
-            self.attn, self.ln1(x), cache, rope_mode=cfg.rope_mode,
-            rope_theta=cfg.rope_theta, mrope_sections=cfg.mrope_sections,
-            **self._akw())
+        out, new_cache = self.mix.step(self.ln1(x), cache)
         x = x + out
         return x + self.mlp(self.ln2(x)), new_cache
 
@@ -256,8 +301,8 @@ class Transformer(nn.Module):
             self.embed.add("unembed", _dense(gen, cfg.d_model,
                                              cfg.vocab_size, dtype, device))
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.layers = nn.ModuleList(DecoderBlock(cfg, gen, device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(DecoderBlock(cfg, mixer, gen, device)
+                                    for mixer in cfg.layer_types())
 
     @property
     def device(self) -> torch.device:
@@ -336,23 +381,30 @@ def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
             cache_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, List[dict]]:
-    """Forward + KV cache collection.  Returns (last logits (B, V), caches);
-    ``cache_len`` reserves room for later decode steps (default S + 128)."""
+    """Forward + cache collection.  Returns (last logits (B, V), caches);
+    ``cache_len`` reserves room in the full-attention KV caches for later
+    decode steps (default S + 128)."""
     return params(tokens, cache_len=cache_len or (tokens.shape[1] + 128))
 
 
 def decode_step(cfg: ModelConfig, params: Transformer, caches: List[dict],
                 token: torch.Tensor) -> Tuple[torch.Tensor, List[dict]]:
     """One decode step.  token: (B, 1) integer.  Returns (logits (B, V)
-    float32, caches); the caches' K/V buffers are written in place."""
+    float32, caches); the caches' K/V buffers are written in place, the
+    recurrent states are new tensors."""
     return params.decode(caches, token)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device=None) -> List[dict]:
-    """Zeroed per-layer caches at ``pos`` 0."""
+    """Zeroed per-layer caches at ``pos`` 0: ``cache_len`` rows of K/V for
+    ``attn``, ``min(window, cache_len)`` for ``local_attn``, and a zero
+    state for ``rglru``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [attn_lib.init_kv_cache(batch, cache_len, cfg.n_kv_heads,
-                                   cfg.head_dim, cfg.kv_dtype(), dev)
-            for _ in range(cfg.n_layers)]
+    caches = []
+    for mixer in cfg.layer_types():
+        _, module, kwargs = MIXERS[mixer]
+        caches.append(module.empty_cache(cfg, batch, cache_len, dev,
+                                         **kwargs(cfg)))
+    return caches

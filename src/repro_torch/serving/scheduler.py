@@ -115,12 +115,15 @@ def _splice_slot(batch_cache: List[dict], single_cache: List[dict],
                  slot: int) -> List[dict]:
     """Copy a 1-sequence cache into batch position ``slot``, in place.
 
-    K/V rows of the slot are overwritten; the per-layer "pos" is the
-    maximum of the two (the reference's rule: all slots share absolute
+    The slot's rows of every per-sequence entry (K/V, and a recurrent
+    layer's "h" and "conv" state) are overwritten; the per-layer "pos" is
+    the maximum of the two (the reference's rule: all slots share absolute
     positions, and a shorter slot's rows are masked by cache_len at
     attention time)."""
     for b, s in zip(batch_cache, single_cache):
-        for name in ("k", "v"):
-            b[name][slot:slot + 1] = s[name].to(b[name].dtype)
-        b["pos"] = torch.maximum(b["pos"], s["pos"])
+        for name, value in s.items():
+            if name == "pos":
+                b["pos"] = torch.maximum(b["pos"], value)
+            else:
+                b[name][slot:slot + 1] = value.to(b[name].dtype)
     return batch_cache

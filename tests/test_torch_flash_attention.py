@@ -2,9 +2,11 @@
 
 On the CPU the wrapper runs its plain version, which must agree with the
 reference's Pallas kernel (interpret mode) and its jnp oracle at the
-kernel tests' tolerances (float32 2e-5, bfloat16 2e-2); on a card
+kernel tests' tolerances (float32 2e-5, bfloat16 2e-2), and, windowed
+(local attention), with the reference's model-path
+``chunked_attention(window=)`` at the same tolerances; on a card
 (``-m gpu``) the CUDA kernel must agree with the plain version at the same
-tolerances.  The card's machine has no JAX, so the reference is imported
+tolerances, windowed and at head dim 256 too.  The card's machine has no JAX, so the reference is imported
 only by the tests that compare with it: there run
 ``python -m pytest --noconftest -m gpu tests/test_torch_flash_attention.py``.
 """
@@ -23,6 +25,8 @@ ATTN_SHAPES = [
     (1, 8, 1, 64, 16, 64, 16),    # MQA
     (2, 2, 2, 96, 32, 32, 32),    # S not a power of two
     (1, 6, 1, 64, 16, 32, 32),    # GQA group 6 (nemotron-4-15b's)
+    (1, 10, 1, 64, 256, 32, 32),  # MQA group 10 at head dim 256
+                                  # (recurrentgemma-2b's)
 ]
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -75,6 +79,42 @@ def test_plain_version_matches_pallas_kernel(shape, dtype, causal):
     np.testing.assert_allclose(out.float().numpy(), oracle, **tol(dt))
 
 
+# (B, H, H_kv, S, D, window, q_block): windows shorter than S (the mask
+# runs), one of 1 (the diagonal only), and recurrentgemma-2b's MQA at
+# head dim 256
+WINDOW_CASES = [
+    (2, 4, 1, 12, 16, 8, 16),
+    (1, 4, 2, 40, 32, 1, 16),
+    (2, 6, 2, 96, 32, 17, 32),
+    (1, 10, 1, 80, 256, 32, 32),
+]
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES), ids=list(DTYPES))
+def test_windowed_plain_version_matches_reference_chunked_attention(case,
+                                                                    dtype):
+    import jax.numpy as jnp
+    from repro.models.attention import chunked_attention
+
+    B, H, H_kv, S, D, window, q_block = case
+    dt = DTYPES[dtype]
+    arrays = _inputs(B, H, H_kv, S, D, seed=window)
+    jd = jnp.bfloat16 if dt == torch.bfloat16 else jnp.float32
+    # the model path's (B, S, H, d) layout on the reference's side
+    q, k, v = (jnp.asarray(a.transpose(0, 2, 1, 3), jd) for a in arrays)
+    want = np.asarray(chunked_attention(q, k, v, causal=True, window=window,
+                                        q_block=q_block), np.float32)
+    out = flash_attention(*_torch(arrays, dt), causal=True, window=window)
+    assert out.dtype == dt and out.shape == (B, H, S, D)
+    np.testing.assert_allclose(out.float().numpy().transpose(0, 2, 1, 3),
+                               want, **tol(dt))
+    # a window of S or more is no window
+    full = flash_attention(*_torch(arrays, dt), causal=True, window=S)
+    torch.testing.assert_close(full, flash_attention(*_torch(arrays, dt)),
+                               rtol=0, atol=0)
+
+
 def test_strided_views_match_contiguous_inputs():
     """The model hands in transposed views of (B, S, H, d) activations."""
     B, H, H_kv, S, D = 2, 8, 2, 40, 32
@@ -108,6 +148,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k[:, :, :8], v[:, :, :8])
     with pytest.raises(ValueError):
         flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, window=0)
 
 
 # (B, H, H_kv, S, D): the edge shapes of the card check - S of 1, a ragged
@@ -142,4 +184,41 @@ def test_cuda_kernel_matches_plain_version():
                     np.testing.assert_allclose(
                         got.float().cpu().numpy(), expect.numpy(), **tol(dt),
                         err_msg=f"{(B, H, H_kv, S, D)} {dt} causal={causal}")
+    assert flash_attention.launches == before + n
+
+
+# (B, H, H_kv, S, D, window): recurrentgemma-2b's MQA at head dim 256 with
+# its window of 2048 past it and short of it; blocks at exactly i = window
+# (windows of 64 and 128, a multiple of the 64-row block) and straddling
+# it (windows of 1, 100 and 200)
+GPU_WINDOW_CASES = [
+    (1, 10, 1, 3000, 256, 2048), (1, 10, 1, 2047, 256, 2048),
+    (2, 4, 1, 300, 256, 64), (1, 8, 2, 257, 64, 128),
+    (1, 6, 1, 77, 128, 1), (2, 10, 1, 500, 256, 100),
+    (1, 4, 4, 200, 16, 200),
+]
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_windowed_and_head_dim_256_match_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    before = flash_attention.launches
+    n = 0
+    for i, (B, H, H_kv, S, D, window) in enumerate(GPU_WINDOW_CASES):
+        arrays = _inputs(B, H, H_kv, S, D, seed=30 + i)
+        for dt in DTYPES.values():
+            host = _torch(arrays, dt)
+            dev = [t.cuda().transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in host]
+            for causal in (True, False):
+                expect = ref.ref_attention(*host, causal=causal,
+                                           window=window).float()
+                got = flash_attention(*dev, causal=causal, window=window)
+                torch.cuda.synchronize()
+                n += 1
+                np.testing.assert_allclose(
+                    got.float().cpu().numpy(), expect.numpy(), **tol(dt),
+                    err_msg=f"{(B, H, H_kv, S, D)} {dt} causal={causal} "
+                            f"window={window}")
     assert flash_attention.launches == before + n

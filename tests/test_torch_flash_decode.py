@@ -3,7 +3,7 @@
 On the CPU the wrapper runs its plain version, which must agree with the
 reference's Pallas kernel (interpret mode) and its jnp oracle at the
 kernel tests' tolerances (float32 2e-5, bfloat16 2e-2), with a different
-cache length per row; on a card (``-m gpu``) the CUDA kernel must agree
+cache length per row, head dims up to 256 and groups up to 10; on a card (``-m gpu``) the CUDA kernel must agree
 with the plain version at the same tolerances.  There run
 ``python -m pytest --noconftest -m gpu tests/test_torch_flash_decode.py``.
 """
@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
+    _launch,
     flash_decode,
     split_plan,
 )
@@ -24,6 +25,8 @@ DECODE_SHAPES = [
     (1, 8, 1, 256, 64, 64),
     (3, 4, 4, 64, 16, 16),
     (2, 6, 1, 128, 16, 32),   # GQA group 6 (nemotron-4-15b's)
+    (2, 10, 1, 128, 256, 64),  # MQA group 10 at head dim 256
+                               # (recurrentgemma-2b's)
 ]
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -125,14 +128,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         flash_decode(q.to("meta"), k.to("meta"), v.to("meta"),
                      lens.to("meta"))
+    # 12 heads x 256 over one kv head: past the kernel's 2560 outputs
+    q, k, v, lens = _torch(_inputs(1, 12, 1, 16, 256), torch.float32)
+    with pytest.raises(ValueError, match="2560"):
+        _launch(q, k, v, lens)
 
 
 # (B, H, H_kv, S_max, D): cache lengths of 1, of S_max and different per
-# row; head dims 16 to 128; groups 1, 4, 6 and 8
+# row; head dims 16 to 256; groups 1, 4, 6, 8 and 10 (recurrentgemma-2b's
+# 2048-row ring buffer at batch 1 and 8)
 GPU_SHAPES = [
     (1, 32, 8, 2064, 64), (8, 32, 8, 1024, 64), (3, 8, 8, 17, 128),
     (2, 48, 8, 1000, 128), (4, 6, 1, 300, 16), (2, 4, 2, 64, 32),
-    (1, 64, 8, 4096, 128),
+    (1, 64, 8, 4096, 128), (1, 10, 1, 2048, 256), (8, 10, 1, 2048, 256),
 ]
 
 

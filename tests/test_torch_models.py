@@ -1,11 +1,16 @@
-"""The port's dense decoder against the JAX package on the same weights.
+"""The port's models against the JAX package on the same weights.
 
 The reference's ``init_params`` tree is carried into the port through
 numpy (``models/convert.py``); both packages then run ``forward``,
 ``prefill`` and four teacher-forced ``decode_step``s on the same tokens.
 Float32 smoke configs on the CPU: logits and caches agree within 1e-4
 (the two frameworks sum in different orders; the observed gap is ~2e-6),
-and greedy tokens are equal.
+and greedy tokens are equal.  The dense decoders, and recurrentgemma-2b
+(RG-LRU and local-attention layers): its smoke window of 8 is shorter than
+S = 12, so ``forward`` runs the window mask, and the decode steps past
+PROMPT = 8 wrap the ring-buffer caches.  Its 8-layer variant,
+``(rglru, rglru, local_attn) x 2 + (rglru, rglru)``, splits into two
+segments as the full 26-layer model does.
 """
 import dataclasses
 
@@ -37,8 +42,10 @@ from repro_torch.models.convert import (  # noqa: E402
 
 DENSE = ["granite-3-2b", "phi3-medium-14b", "qwen1.5-32b", "nemotron-4-15b",
          "qwen2-vl-72b"]
-NOT_PORTED = ["recurrentgemma-2b", "rwkv6-7b", "deepseek-moe-16b",
-              "qwen3-moe-30b-a3b", "whisper-tiny"]
+#: "<arch>/<n> layers" is the arch's smoke config cut or grown to n layers
+COMPARED = DENSE + ["recurrentgemma-2b", "recurrentgemma-2b/8 layers"]
+NOT_PORTED = ["rwkv6-7b", "deepseek-moe-16b", "qwen3-moe-30b-a3b",
+              "whisper-tiny"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, PROMPT = 2, 12, 8
 
@@ -47,8 +54,13 @@ class _Pair:
     """One arch's smoke config in both packages, on the same weights."""
 
     def __init__(self, name):
-        self.jcfg = jconfigs.get_config(name).smoke()
-        self.cfg = configs.get_config(name).smoke()
+        arch, _, layers = name.partition("/")
+        self.jcfg = jconfigs.get_config(arch).smoke()
+        self.cfg = configs.get_config(arch).smoke()
+        if layers:
+            n = int(layers.split()[0])
+            self.jcfg = dataclasses.replace(self.jcfg, n_layers=n)
+            self.cfg = dataclasses.replace(self.cfg, n_layers=n)
         self.jparams = jmodels.init_params(self.jcfg, jax.random.key(0))
         self.params = params_from_jax(
             self.cfg, jax.tree.map(np.asarray, self.jparams), device="cpu")
@@ -60,7 +72,7 @@ class _Pair:
 _PAIRS = {}
 
 
-@pytest.fixture(params=DENSE)
+@pytest.fixture(params=COMPARED)
 def pair(request):
     if request.param not in _PAIRS:
         _PAIRS[request.param] = _Pair(request.param)

@@ -144,7 +144,11 @@ def test_push_weights_rejects_weights_on_another_device(smoke_model):
 # ---------------------------------------------------------------------------
 
 
-def test_both_packages_serve_the_same_tokens():
+@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b"])
+def test_both_packages_serve_the_same_tokens(arch):
+    """Fleet and batcher of both packages on carried weights.  The longest
+    prompts and their decode steps pass recurrentgemma's smoke window of 8:
+    the prefill rolls its ring buffer, and decode wraps it."""
     jax = pytest.importorskip("jax")
     from repro.configs import get_config as jget
     from repro.models import init_params as jinit
@@ -153,14 +157,15 @@ def test_both_packages_serve_the_same_tokens():
     from repro.serving.server import ServingDeployment as JDeployment
     from repro_torch.models.convert import params_from_jax
 
-    jcfg = jget("granite-3-2b").smoke()
-    cfg = get_config("granite-3-2b").smoke()
+    jcfg = jget(arch).smoke()
+    cfg = get_config(arch).smoke()
     v1, v2 = jinit(jcfg, jax.random.key(0)), jinit(jcfg, jax.random.key(1))
     p1, p2 = (params_from_jax(cfg, jax.tree.map(np.asarray, p), device=CPU)
               for p in (v1, v2))
     jdep = JDeployment(jcfg, n_replicas=3, n_clients=2)
     dep = ServingDeployment(cfg, n_replicas=3, n_clients=2, device=CPU)
-    prompts = [[5, 6, 7, 8], [1, 2, 3], [9, 10, 11, 12, 13], [4, 4]]
+    prompts = [[5, 6, 7, 8], [1, 2, 3], [9, 10, 11, 12, 13], [4, 4],
+               list(range(20, 30))]
     want, got = [], []
     for weights, d in ((v1, jdep), (p1, dep)):
         d.push_weights(weights)
@@ -171,7 +176,7 @@ def test_both_packages_serve_the_same_tokens():
         want.append(jdep.infer(p, max_new=4, client=i % 2))
         got.append(dep.infer(p, max_new=4, client=i % 2))
     assert got == want
-    assert [v for v, _ in got] == ["v1", "v1", "v2", "v2"]
+    assert [v for v, _ in got] == ["v1", "v1", "v2", "v2", "v2"]
     assert dep.replica_loads() == jdep.replica_loads()
 
     # continuous batching over equal-length prompts, slots reused
@@ -179,9 +184,9 @@ def test_both_packages_serve_the_same_tokens():
     cb = ContinuousBatcher(cfg, p1, n_slots=2, max_len=16, device=CPU)
     rng = np.random.default_rng(3)
     for rid in range(5):
-        prompt = rng.integers(0, cfg.vocab_size, 4).tolist()
-        jcb.submit(JRequest(rid=rid, prompt=prompt, max_new=3))
-        cb.submit(Request(rid=rid, prompt=prompt, max_new=3))
+        prompt = rng.integers(0, cfg.vocab_size, 7).tolist()
+        jcb.submit(JRequest(rid=rid, prompt=prompt, max_new=4))
+        cb.submit(Request(rid=rid, prompt=prompt, max_new=4))
     jreqs, reqs = list(jcb.queue), list(cb.queue)
     jcb.run_until_drained()
     cb.run_until_drained()
@@ -189,11 +194,12 @@ def test_both_packages_serve_the_same_tokens():
     assert cb.steps_executed == jcb.steps_executed
 
 
-def test_serve_launcher_runs_on_the_host(capsys):
+@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b"])
+def test_serve_launcher_runs_on_the_host(arch, capsys):
     from repro_torch.launch import serve
 
-    serve.main(["--device", "cpu", "--requests", "4", "--max-new", "2",
-                "--push-update-midway"])
+    serve.main(["--arch", arch, "--device", "cpu", "--requests", "4",
+                "--max-new", "2", "--push-update-midway"])
     out = capsys.readouterr().out
     assert "weights v1 installed" in out and "v2 committed" in out
     assert out.count("served at weights") == 4
