@@ -14,9 +14,9 @@ no result line):
    (the histogram exactly; flash attention and flash decode within
    ``ATTN_TOL``, recurrentgemma's windowed head-dim-256 attention, its
    group-10 decode and the RG-LRU scan from a zero and from a given
-   starting state, within ``SCAN_TOL``, too), then the
-   histogram on the execution path's own full-size tensors, with its
-   times and bound;
+   starting state, within ``SCAN_TOL``, too, and the WKV recurrence
+   within ``WKV_TOL``), then the histogram on the execution path's own
+   full-size tensors, with its times and bound;
 4. the execution path - ``compile_sweep`` of the 32-config
    compartmentalized MultiPaxos grid (f = 1, 2x2 acceptor grid; the
    deployment family of the paper's ablation, arXiv 2012.15762 section 8,
@@ -49,9 +49,18 @@ no result line):
    ``rglru_scan`` + 8 ``flash_decode`` per decode step.  Then the three
    kernels against their plain versions on the full-width tensors the
    path handed them, with their times, bounds and the library call's;
-8. the card against the CPU on the models - granite-3-2b's and
-   recurrentgemma-2b's smoke configs in float32 on the same weights:
-   logits agree, greedy and served tokens are equal.
+8. the attention-free serving path - rwkv6-7b at full width (32 layers of
+   RWKV-6 time mix, 64 heads x 64, and channel mix 14336; d_model 4096,
+   vocab 65,536, bf16, random seeded weights on the card) behind the same
+   fleet: 5 requests of 17-4096 prompt tokens x 16 new with v2 pushed
+   before the 3rd, then ``ContinuousBatcher`` (8 slots, max_len 1024)
+   over 16 requests of 512 tokens x 32 new; the same checks, with exactly
+   32 ``wkv6`` launches per prefill and per decode step.  Then the kernel
+   against its plain version on the full-width tensors the path handed
+   it, with its times and bound;
+9. the card against the CPU on the models - the three models' smoke
+   configs in float32 on the same weights: logits agree, greedy and
+   served tokens are equal.
 
 The line before the last is the card's name and power limit; the line
 before it, a JSON object describing every kernel; the last line,
@@ -96,7 +105,9 @@ FAULT_TILE = 64
 #: mask and ring-buffer roll at full width, 2040 + 16 new tokens wraps the
 #: ring during decode, and max_len must reach the window (the prefill's
 #: ring buffer has `window` rows and init_cache min(window, max_len), and
-#: the two must splice).
+#: the two must splice).  rwkv6-7b: 100 is no multiple of the reference's
+#: 32-step chunk, and 4096 shows that the state does not grow with the
+#: prompt.
 SERVE = {
     "granite-3-2b": dict(
         prompts=(17, 128, 256, 512, 1000, 1024, 2048, 2048), new=16,
@@ -105,6 +116,10 @@ SERVE = {
     "recurrentgemma-2b": dict(
         prompts=(17, 512, 2040, 2048, 3000), new=16, push_at=2,
         batch=dict(n_slots=8, max_len=2048, n_requests=16, prompt=512,
+                   max_new=32)),
+    "rwkv6-7b": dict(
+        prompts=(17, 100, 512, 2048, 4096), new=16, push_at=2,
+        batch=dict(n_slots=8, max_len=1024, n_requests=16, prompt=512,
                    max_new=32)),
 }
 #: (atol, rtol) of rglru_scan against its plain version.  float32: the
@@ -126,6 +141,20 @@ RG_WINDOW_CASES = ([(1, 10, 1, s, 256, 2048)
                       (1, 10, 1, 1000, 256, None)])
 RG_DECODE_CASES = [(1, 10, 1, 2048, 256), (8, 10, 1, 2048, 256),
                    (3, 10, 1, 17, 256), (2, 10, 1, 1000, 256)]
+#: (atol, rtol) of wkv6 against its plain version, the atol relative to
+#: max(1, max |want|) (``_wkv_ratio``): both sum in float32 in different
+#: orders, and a sum's rounding error grows with its terms - with logw
+#: = 0 the state, and y with it, grows with S (|y| ~ 2,800 at S = 4096,
+#: where the serial float32 recurrence is 3.2e-3 off in float64).
+#: float32 rtol as atol; bfloat16 one rounding of the output (at most 2^-7
+#: of it).  As tests/test_torch_wkv6.py.
+WKV_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (1e-5, 1e-2)}
+#: rwkv6-7b's WKV edge cases: (B, S) at its 64 heads of 64 - decode, S
+#: short of, at and past the kernel's 32-step stage, ragged, the longest
+#: prompt; each from a zero and a given state, with logw from the
+#: model's range, at its -5 clamp everywhere and at 0 (no decay: the
+#: state grows with S)
+WKV_CASES = [(b, s) for b in (1, 8) for s in (1, 31, 32, 33, 100, 4096)]
 
 
 def _mixes(P):
@@ -618,6 +647,130 @@ def _scan_record(RS, ref, x, a, h0, flush) -> dict:
     return rec
 
 
+def _wkv_ratio(got, want) -> float:
+    """Largest |got - want| / (atol max(1, max|want|) + rtol |want|) at
+    want's dtype in ``WKV_TOL``: above 1 fails the check."""
+    atol, rtol = WKV_TOL[str(want.dtype)]
+    g, w = got.float(), want.float()
+    scale = max(1.0, float(w.abs().max()))
+    return float(((g - w).abs() / (atol * scale + rtol * w.abs())).max())
+
+
+def _wkv_inputs(gen, B, S, dtype, dev, logw=None):
+    """rwkv6-7b's WKV inputs at its 64 heads of 64: r, k, v (B, S, H, d)
+    in ``dtype`` and logw float32 as strided views
+    of (B, H, S, d) storage, u (H, d), and a given state s0 (B, H, d, d)
+    as a view with a batch stride of 2 H d^2, drawn on the card from
+    ``gen``; logw from the model's range (-exp(N(0, 1) - 1) clamped at
+    -5), or the constant given."""
+    import torch
+    H = D = 64
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = (draw(B, H, S, D).to(dtype).transpose(1, 2) for _ in "rkv")
+    if logw is None:
+        lw = torch.clamp(-torch.exp(draw(B, H, S, D) - 1.0), min=-5.0)
+    else:
+        lw = torch.full((B, H, S, D), logw, device=dev)
+    u = draw(H, D) * 0.1
+    s0 = draw(B, 2 * H, D, D)[:, H:]
+    return r, k, v, lw.transpose(1, 2), u, s0
+
+
+def _wkv_edge_cases(WK, ref, dev):
+    """``wkv6`` against its plain version at ``WKV_CASES`` x (zero and a
+    given s0) x (logw from the model's range, -5 everywhere, 0 everywhere)
+    x (float32, bfloat16) x (strided views, contiguous tensors), y and
+    s_last.  Every case runs; then the worst case of a dtype past its
+    tolerance raises.  Returns the number of cases and, by dtype, the
+    largest share of the tolerance a case used."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, worst = 0, {}
+
+    def close(got, want, what):
+        ratio = (_wkv_ratio(got, want) if bool(torch.isfinite(got).all())
+                 else float("inf"))
+        key = str(want.dtype)
+        if ratio >= worst.get(key, (0.0,))[0]:
+            err = float((got.float() - want.float()).abs().max())
+            worst[key] = (ratio, f"{what}, max abs err {err:.3e}")
+
+    for B, S in WKV_CASES:
+        for logw in (None, -5.0, 0.0):
+            for dt in (torch.float32, torch.bfloat16):
+                r, k, v, lw, u, s0 = _wkv_inputs(gen, B, S, dt, dev, logw)
+                for start in (None, s0):
+                    want_y, want_s = ref.ref_wkv6(r, k, v, lw, u, start)
+                    for args in ((r, k, v, lw),
+                                 tuple(t.contiguous() for t in (r, k, v,
+                                                                lw))):
+                        y, s_last = WK.wkv6(*args, u, start)
+                        what = (f"wkv6 at {(B, S)} {dt} logw="
+                                f"{'model' if logw is None else logw} s0="
+                                f"{'none' if start is None else 'given'} "
+                                f"{'strided' if args[0] is r else 'dense'}")
+                        close(y, want_y, what)
+                        close(s_last, want_s, what + " (s_last)")
+                        n += 1
+    torch.cuda.synchronize()
+    for key, (ratio, what) in sorted(worst.items()):
+        print(f"  worst {key} case: {ratio:.3f} of the tolerance "
+              f"{WKV_TOL[key]}, {what}")
+    for key, (ratio, what) in worst.items():
+        if ratio > 1.0:
+            raise AssertionError(f"{what}: past (atol, rtol) {WKV_TOL[key]} "
+                                 f"of its plain version")
+    return n, {key: round(r, 3) for key, (r, _) in worst.items()}
+
+
+def _wkv_bound_ms(r, s0):
+    """Least time for the WKV recurrence on this card: r, k, v and logw
+    read, u and s0 read, y and s_last written once, against 5 d^2 + 5 d
+    float32 flops per token and head (the state update's product and FMA,
+    the read-out's FMA, the bonus term)."""
+    B, S, H, D = r.shape
+    nbytes = (B * S * H * D * (3 * r.element_size() + 4 + r.element_size())
+              + 4 * H * D + 4 * B * H * D * D * (2 if s0 is not None else 1))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (5.0 * D * D + 5.0 * D) * B * S * H / PEAK_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _wkv_record(WK, ref, r, k, v, logw, u, s0, flush) -> dict:
+    """``wkv6`` on full-width tensors the path handed it: against its plain
+    version, with its times and bound (no PyTorch call computes the
+    recurrence).  Returns the kernel's record."""
+    import torch
+    want_y, want_s = ref.ref_wkv6(r, k, v, logw, u, s0)
+    y, s_last = WK.wkv6(r, k, v, logw, u, s0)
+    used = max(_wkv_ratio(y, want_y), _wkv_ratio(s_last, want_s))
+    err = float((y.float() - want_y.float()).abs().max())
+    if used > 1.0 or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"wkv6 differs from its plain version at full "
+                             f"width {tuple(r.shape)}: max abs err "
+                             f"{err:.3e}, {used:.3f} of (atol, rtol) "
+                             f"{WKV_TOL[str(y.dtype)]}")
+    bound, by = _wkv_bound_ms(r, s0)
+    rec = dict(
+        max_abs_err=err,
+        ms=_time_graph_ms(lambda: WK.wkv6(r, k, v, logw, u, s0), flush, 20),
+        plain_ms=_time_graph_ms(lambda: ref.ref_wkv6(r, k, v, logw, u, s0),
+                                flush, 3),
+        library_ms=None, bound_ms=bound, bound_by=by)
+    print(f"kernel wkv6 at {tuple(r.shape)} {r.dtype}, s0 "
+          f"{'none' if s0 is None else tuple(s0.shape)}: max abs err "
+          f"{err:.3e} = {used:.3f} of the tolerance; device times (graph "
+          f"replay, cold L2) " +
+          ", ".join(f"{k_} {v_:.4f}" for k_, v_ in rec.items()
+                    if k_.endswith("ms") and v_ is not None) +
+          f" ({by}); no PyTorch call computes the recurrence", flush=True)
+    return rec
+
+
 def _greedy(cfg, params, prompt, max_new: int, device):
     """The serving state machine's decode, written out: prefill, then feed
     the last prompt token and each argmax back.  Returns the tokens."""
@@ -635,7 +788,7 @@ def _greedy(cfg, params, prompt, max_new: int, device):
 
 
 def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
-    """Phases 6 and 7: ``arch`` at full width behind the compartmentalized
+    """Phases 6-8: ``arch`` at full width behind the compartmentalized
     fleet (weights v1, then one request per prompt length with v2 pushed
     before request ``push_at``), then the continuous batcher.  Every
     kernel's launches are counted over exactly this run and must be one
@@ -652,10 +805,12 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
     cfg = get_config(arch)
     kinds = cfg.layer_types()
     n_rec = kinds.count("rglru")
+    n_wkv = kinds.count("rwkv6")
     n_att = sum(k in ("attn", "local_attn") for k in kinds)
 
     def expect(n_prefills, n_steps):
         return {"rglru_scan": n_rec * (n_prefills + n_steps),
+                "wkv6": n_wkv * (n_prefills + n_steps),
                 "flash_attention": n_att * n_prefills,
                 "flash_decode": n_att * n_steps}
 
@@ -697,6 +852,13 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
             caught.setdefault("rglru_scan", (x, a, h0))
         return real["rglru_scan"](x, a, h0)
 
+    def catch_wkv(r, k, v, logw, u, s0=None):
+        if r.shape[1] == 1:
+            caught[f"wkv6{r.shape[0]}"] = (r, k, v, logw, u, s0)
+        elif r.shape[1] == max(prompts):
+            caught.setdefault("wkv6", (r, k, v, logw, u, s0))
+        return real["wkv6"](r, k, v, logw, u, s0)
+
     def catch_fa(q, k, v, *, causal=True, window=None):
         if q.shape[2] == max(prompts):
             caught.setdefault("flash_attention", (q, k, v, causal, window))
@@ -714,8 +876,10 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
     torch.cuda.reset_peak_memory_stats()
     for name, mod in kernels.items():
         getattr(mod, name).launches = 0
-    ops.rglru_scan, ops.flash_attention, ops.flash_decode = (
-        catch_rs, catch_fa, catch_fd)
+    catchers = dict(rglru_scan=catch_rs, wkv6=catch_wkv,
+                    flash_attention=catch_fa, flash_decode=catch_fd)
+    for name in kernels:
+        setattr(ops, name, catchers[name])
     try:
         dep.push_weights(v1)
         served, req_s = [], []
@@ -764,11 +928,13 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
     on_batcher = {k: total[k] - on_fleet[k] for k in total}
     want_fleet = expect(len(texts), len(texts) * new)
     want_batcher = expect(len(reqs), cb.steps_executed)
+    per_layer = " and ".join(
+        f"{ {k: n for k, n in expect(*one).items() if n} } per {what}"
+        for one, what in (((1, 0), "prefill"), ((0, 1), "decode step")))
     if on_fleet != want_fleet or on_batcher != want_batcher:
         raise AssertionError(
-            f"launches: fleet {on_fleet}, batcher {on_batcher}; {n_rec} "
-            f"rglru_scan + {n_att} attention per prefill and per decode "
-            f"step give {want_fleet} and {want_batcher}")
+            f"launches: fleet {on_fleet}, batcher {on_batcher}; "
+            f"{per_layer} give {want_fleet} and {want_batcher}")
     ran = [name for name in kernels if total[name] > 0]
     direct = _greedy(cfg, v1, texts[0], new, dev)
     if list(served[0][1]) != direct:
@@ -784,9 +950,8 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
           f"{batch['max_len']}: {cb.steps_executed} steps, occupancy "
           f"{cb.mean_occupancy:.2f}, {batch_s:.2f} s = "
           f"{n_tok / batch_s:.1f} tokens/s with prefills; launches on the "
-          f"fleet {on_fleet}, in all {total} = exactly {n_rec} rglru_scan + "
-          f"{n_att} attention per prefill and per decode step; peak device "
-          f"memory {peak_mem / 2**30:.2f} GiB", flush=True)
+          f"fleet {on_fleet}, in all {total} = exactly {per_layer}; peak "
+          f"device memory {peak_mem / 2**30:.2f} GiB", flush=True)
 
     # the path's own times, off the counted run; the prompts' lengths
     # rise, so the last is the longest
@@ -795,30 +960,34 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
 
     # each kernel on the full-width tensors the path handed it; of the
     # decode calls the batch-1 one, the fleet's, is recorded, and of the
-    # scans the prefill's, the longest
+    # recurrences the prefill's, the longest
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     records = {}
-    if "rglru_scan" in ran:
-        for key in (f"rglru_scan{batch['n_slots']}", "rglru_scan1",
-                    "rglru_scan"):
-            records["rglru_scan"] = _scan_record(
-                kernels["rglru_scan"], ref, *caught[key], flush)
-    records["flash_attention"] = _prefill_record(
-        kernels["flash_attention"], ref, *caught["flash_attention"], flush)
-    for key in (f"flash_decode{batch['n_slots']}", "flash_decode1"):
-        records["flash_decode"] = _decode_record(
-            kernels["flash_decode"], ref, *caught[key], flush)
+    for name, record in (("rglru_scan", _scan_record),
+                         ("wkv6", _wkv_record)):
+        if name in ran:
+            for key in (f"{name}{batch['n_slots']}", f"{name}1", name):
+                records[name] = record(kernels[name], ref, *caught[key],
+                                       flush)
+    if "flash_attention" in ran:
+        records["flash_attention"] = _prefill_record(
+            kernels["flash_attention"], ref, *caught["flash_attention"],
+            flush)
+        for key in (f"flash_decode{batch['n_slots']}", "flash_decode1"):
+            records["flash_decode"] = _decode_record(
+                kernels["flash_decode"], ref, *caught[key], flush)
     for name in records:
         records[name]["launches"] = total[name]
     return records
 
 
 def _model_cuda_vs_cpu(dev, arch: str) -> None:
-    """Phase 8: an arch's smoke config in float32 on the same weights, on
+    """Phase 9: an arch's smoke config in float32 on the same weights, on
     the card and on the host: logits agree, greedy and served tokens
     equal.  recurrentgemma-2b's smoke window of 8 is shorter than the
     40-token prompt, so the window mask, the ring-buffer roll and its
-    wrap in decode all run."""
+    wrap in decode all run; rwkv6-7b's 40 tokens pass the kernel's 32-step
+    stage, at head dim 16."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params
@@ -868,6 +1037,7 @@ def main() -> int:
     from repro_torch.kernels import latency_hist as LH
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.kernels import wkv6 as WK
     dev = torch.device("cuda")
     # float32 products in full float32 on the card (no TF32), as on the CPU
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -882,7 +1052,8 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     kernels = (("latency_hist.cu", LH), ("flash_attention.cu", FA),
-               ("decode_attention.cu", FD), ("rglru_scan.cu", RS))
+               ("decode_attention.cu", FD), ("rglru_scan.cu", RS),
+               ("wkv6.cu", WK))
     with ThreadPoolExecutor(len(kernels)) as pool:
         logs = list(pool.map(lambda kv: kv[1].build(), kernels))
     print(f"build: {', '.join(k for k, _ in kernels)} in "
@@ -917,6 +1088,12 @@ def main() -> int:
           f"head-dim-256 flash_decode (ATTN_TOL) within tolerance of their "
           f"plain versions in {n_rec} edge cases, using at most {used} of "
           f"it", flush=True)
+    n_wkv, used = _wkv_edge_cases(WK, ref, dev)
+    print(f"kernel check: wkv6 (WKV_TOL {WKV_TOL}, atol relative to the "
+          f"output's scale) within tolerance of its plain version in "
+          f"{n_wkv} edge cases (B 1/8, S 1-4096, logw model/-5/0, s0 zero "
+          f"and given, strided and dense; y and s_last), using at most "
+          f"{used} of it", flush=True)
 
     sweep = P.compile_sweep(P.SweepSpec(**GRID))
     if len(sweep) != 32:
@@ -1015,19 +1192,20 @@ def main() -> int:
           "makespans, msgs/cmd exact; mean latency rtol 1e-9; MVA rtol "
           "1e-5); exponential service drains on the card")
 
-    # -- 6. and 7. the serving paths ---------------------------------------
+    # -- 6., 7. and 8. the serving paths -----------------------------------
     served = {}
     for arch, plan in SERVE.items():
         served[arch] = _serve_phase(
-            arch, **plan, kernels=dict(rglru_scan=RS, flash_attention=FA,
-                                       flash_decode=FD), ref=ref, dev=dev)
+            arch, **plan, kernels=dict(rglru_scan=RS, wkv6=WK,
+                                       flash_attention=FA, flash_decode=FD),
+            ref=ref, dev=dev)
         # the fleet's protocol objects refer to each other, so its weights
         # are freed by the collector, not when the phase returns; without
         # this the next phase's peak memory would count them
         gc.collect()
         torch.cuda.empty_cache()
 
-    # -- 8. the card against the CPU on the models --------------------------
+    # -- 9. the card against the CPU on the models --------------------------
     for arch in SERVE:
         _model_cuda_vs_cpu(dev, arch)
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
@@ -1035,6 +1213,7 @@ def main() -> int:
 
     where = {
         "rglru_scan": ("rglru_scan.cu", "rglru_scan.py:23"),
+        "wkv6": ("wkv6.cu", "rwkv6_scan.py:24"),
         "flash_attention": ("flash_attention.cu", "flash_attention.py:34"),
         "flash_decode": ("decode_attention.cu", "decode_attention.py:31")}
     rows = [dict(name="latency_hist", route="cuda",

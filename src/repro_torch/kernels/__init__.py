@@ -12,6 +12,9 @@
   rglru_scan      - the RG-LRU linear recurrence h_t = a_t h_{t-1} + x_t
                     over a sequence, chunked: recurrentgemma's recurrent
                     layers (CUDA C++, ``csrc/rglru_scan.cu``)
+  wkv6            - the RWKV-6 WKV recurrence over a d x d state per
+                    head, from a given state: rwkv6's time mix (CUDA
+                    C++, ``csrc/wkv6.cu``)
 
 Each ships with a wrapper that launches the kernel on CUDA tensors and
 runs the plain version (``ref.py``) on CPU tensors; ``ops.py`` is the

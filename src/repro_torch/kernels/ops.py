@@ -6,7 +6,8 @@ dispatch is by the device of the tensors the caller passes, never a
 fallback.  Core and model code call these entry points.  The JAX
 package's pad-to-128 of the head dim (a TPU lane-width matter) is not
 carried: the CUDA kernels take head dims 16, 32, 64, 128 and 256 as they
-are, and the RG-LRU kernel any width and length.
+are, the RG-LRU kernel any width and length, and the WKV kernel head dims
+16, 32, 64 and 128 at any length.
 """
 from __future__ import annotations
 
@@ -14,5 +15,7 @@ from .decode_attention import flash_decode
 from .flash_attention import flash_attention
 from .latency_hist import latency_hist
 from .rglru_scan import rglru_scan
+from .wkv6 import wkv6
 
-__all__ = ["flash_attention", "flash_decode", "latency_hist", "rglru_scan"]
+__all__ = ["flash_attention", "flash_decode", "latency_hist", "rglru_scan",
+           "wkv6"]

@@ -3,8 +3,8 @@
 Small, obviously-correct implementations that follow the reference's own
 definitions.  The CPU path runs them, the tests hold them against the JAX
 package, and the card's kernels are held against them: the histogram bit
-for bit, attention and the RG-LRU recurrence within the float tolerance
-its test states.
+for bit, attention and the RG-LRU and WKV recurrences within the float
+tolerance its test states.
 """
 from __future__ import annotations
 
@@ -102,3 +102,25 @@ def ref_rglru(x: torch.Tensor, a: torch.Tensor,
         h = af[:, t] * h + xf[:, t]
         out[:, t] = h
     return out.to(x.dtype)
+
+
+def ref_wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor,
+             s0: Optional[torch.Tensor] = None):
+    """Serial RWKV-6 recurrence in the model's layout.  r/k/v/logw:
+    (B, S, H, d); u: (H, d); s0: (B, H, d, d) or None (zero).  Per (b, h)
+    ``y_t = r_t (S + diag(u) k_t^T v_t)`` and
+    ``S <- diag(exp(logw_t)) S + k_t^T v_t``, the carry in float32.
+    Returns (y (B, S, H, d) in r's dtype, s_last (B, H, d, d) float32);
+    s0 is not written.  Any strides are taken."""
+    rf, kf, vf, lw = r.float(), k.float(), v.float(), logw.float()
+    B, S, H, K = k.shape
+    s = (torch.zeros((B, H, K, v.shape[-1]), dtype=torch.float32,
+                     device=r.device) if s0 is None else s0.float())
+    uf = u.float()[None, :, :, None]
+    y = torch.empty(vf.shape, dtype=torch.float32, device=r.device)
+    for t in range(S):
+        kv = kf[:, t, :, :, None] * vf[:, t, :, None, :]  # (B, H, K, V)
+        y[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf * kv)
+        s = torch.exp(lw[:, t])[..., None] * s + kv
+    return y.to(r.dtype), s

@@ -1,0 +1,128 @@
+"""RWKV-6 WKV recurrence: the hand-written CUDA kernel and its wrapper.
+
+Replaces the Pallas kernel ``src/repro/kernels/rwkv6_scan.py:
+_wkv6_kernel``.  The CUDA source is ``csrc/wkv6.cu``: a block owns
+(batch, head, 16 value columns of the d x d state), 8 threads share a
+column with its rows in registers, and the sequence is walked step by
+step in stages staged through shared memory.  It is bound by its float32
+operations (see the source's note).
+
+The wrapper takes the model's layout: r, k, v (B, S, H, d), float32 or
+bfloat16 alike, logw (B, S, H, d) float32, as strided views whose last
+dimension is contiguous; u (H, d) float32; an optional float32 starting
+state s0 (B, H, d, d).  It returns ``(y, s_last)``: y a dense (B, S, H, d)
+tensor in r's dtype, s_last a new dense float32 (B, H, d, d) tensor (s0
+is never written: the serving code reads caches again after a step).  A
+decode step (S = 1) is one launch from s0.  A CUDA tensor launches the
+kernel (or the call raises); a CPU tensor runs the plain version
+:func:`repro_torch.kernels.ref.ref_wkv6`.  ``wkv6.launches`` counts
+launches, and only those.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ._build import build_library
+from .ref import ref_wkv6
+
+DTYPES = (torch.float32, torch.bfloat16)
+HEAD_DIMS = (16, 32, 64, 128)
+
+_lib: Optional[ctypes.CDLL] = None
+_build_log = ""
+
+
+def build() -> str:
+    """Compile ``csrc/wkv6.cu`` (once per source and flags) and load it.
+    Returns ``nvcc``'s ``-Xptxas -v`` report."""
+    global _lib, _build_log
+    if _lib is not None:
+        return _build_log
+    lib, _build_log = build_library("wkv6.cu")
+    fn = lib.wkv6_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _lib = lib
+    return _build_log
+
+
+def _check(r, k, v, logw, u, s0) -> None:
+    if r.dim() != 4 or not (r.shape == k.shape == v.shape == logw.shape):
+        raise ValueError(f"r, k, v and logw must all be (B, S, H, d): "
+                         f"{[tuple(t.shape) for t in (r, k, v, logw)]}")
+    B, _, H, D = r.shape
+    if not (r.dtype == k.dtype == v.dtype) or r.dtype not in DTYPES:
+        raise TypeError(f"r, k and v must share float32 or bfloat16: "
+                        f"{r.dtype}, {k.dtype}, {v.dtype}")
+    if logw.dtype != torch.float32 or u.dtype != torch.float32:
+        raise TypeError(f"logw and u must be float32: {logw.dtype}, "
+                        f"{u.dtype}")
+    if u.shape != (H, D):
+        raise ValueError(f"u must be (H, d) = {(H, D)}: {tuple(u.shape)}")
+    tensors = [r, k, v, logw, u]
+    if s0 is not None:
+        if s0.shape != (B, H, D, D):
+            raise ValueError(f"s0 must be (B, H, d, d) = {(B, H, D, D)}: "
+                             f"{tuple(s0.shape)}")
+        if s0.dtype != torch.float32:
+            raise TypeError(f"s0 must be float32: {s0.dtype}")
+        tensors.append(s0)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"tensors on different devices: "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+def _launch(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, S, H, D = r.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the wkv6 kernel takes head dims {HEAD_DIMS}: {D}")
+    r, k, v, logw = (t if t.stride(-1) == 1 else t.contiguous()
+                     for t in (r, k, v, logw))
+    u = u.contiguous()
+    if s0 is not None and (s0.stride(-1) != 1 or s0.stride(-2) != D):
+        s0 = s0.contiguous()
+    y = torch.empty((B, S, H, D), dtype=r.dtype, device=r.device)
+    s_last = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    build()
+    st = [x for t in (r, k, v, logw) for x in t.stride()[:3]]
+    st += list(s0.stride()[:2]) if s0 is not None else [0, 0]
+    strides = (ctypes.c_longlong * 14)(*st)
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib.wkv6_launch(
+            int(r.dtype == torch.bfloat16), D, r.data_ptr(), k.data_ptr(),
+            v.data_ptr(), logw.data_ptr(), u.data_ptr(),
+            s0.data_ptr() if s0 is not None else None, y.data_ptr(),
+            s_last.data_ptr(), B, S, H, strides, stream)
+    if err != 0:
+        raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
+    wkv6.launches += 1
+    return y, s_last
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor,
+         s0: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v: (B, S, H, d), float32 or bfloat16 alike; logw: (B, S, H, d)
+    float32; u: (H, d) float32; s0: (B, H, d, d) float32 or None.  Returns
+    (y (B, S, H, d) in r's dtype, s_last (B, H, d, d) float32) of the
+    serial recurrence ``y_t = r_t (S + diag(u) k_t^T v_t)``,
+    ``S <- diag(exp(logw_t)) S + k_t^T v_t`` from ``S = s0`` (or 0).
+
+    CUDA tensors run the hand-written kernel; CPU tensors run the plain
+    version.  Any other device raises."""
+    _check(r, k, v, logw, u, s0)
+    if r.device.type == "cpu":
+        return ref_wkv6(r, k, v, logw, u, s0)
+    if r.device.type != "cuda":
+        raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    return _launch(r, k, v, logw, u, s0)
+
+
+wkv6.launches = 0

@@ -9,8 +9,8 @@ inference requests as leaderless reads.  The model runs on ``--device``
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --requests 12 --replicas 3 --consistency linearizable --device cpu
 
-``--arch`` takes any config the port runs (``models/model.py:MIXERS``),
-recurrentgemma-2b among them.
+``--arch`` takes any config the port runs (``models/model.py:MIXERS`` and
+``CHANNELS``), recurrentgemma-2b and rwkv6-7b among them.
 """
 from __future__ import annotations
 

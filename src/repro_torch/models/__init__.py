@@ -1,4 +1,4 @@
-"""PyTorch model zoo of the port: the dense decoder for now."""
+"""PyTorch model zoo of the port: the decoder models of ``model.py``."""
 from .model import (
     Transformer,
     build_segments,

@@ -78,27 +78,39 @@ def caches_from_jax(cfg: ModelConfig, caches, device=None) -> List[dict]:
     """The port's per-layer caches from the reference's stacked ones (as
     numpy arrays), on ``device`` (``None`` means cuda): {"k", "v", "pos"}
     for attention layers (a ring buffer for ``local_attn``), {"h",
-    "conv"} for recurrent ones, each entry in the reference's dtype."""
+    "conv"} for recurrent ones, {"tm": {"shift", "wkv"}, "cm": {"shift"}}
+    for rwkv6 ones, each entry in the reference's dtype."""
     dev = resolve_device(device)
-    out = []
-    for si, r, p in _layer_slots(cfg):
-        entry = _take(caches[si][p], r)
-        out.append({name: _to_tensor(value, None, dev)
-                    for name, value in entry.items()})
-    return out
+
+    def carry(tree):
+        if isinstance(tree, dict):
+            return {name: carry(value) for name, value in tree.items()}
+        return _to_tensor(tree, None, dev)
+
+    return [carry(_take(caches[si][p], r)) for si, r, p in _layer_slots(cfg)]
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return t.float().numpy() if t.is_floating_point() else t.numpy()
+
+
+def _stack(entries: List[Any]):
+    """Layers' cache trees stacked leaf by leaf on a leading axis."""
+    if isinstance(entries[0], dict):
+        return {name: _stack([e[name] for e in entries])
+                for name in entries[0]}
+    return np.stack([_to_numpy(t) for t in entries])
 
 
 def caches_to_numpy(cfg: ModelConfig, caches: List[dict]) -> List[tuple]:
     """The port's caches in the reference's layout: a list over segments of
-    tuples over pattern positions of each layer's dict ({"k", "v", "pos"}
-    or {"h", "conv"}) stacked on a leading (repeats,) axis; floating
-    entries as float32 numpy arrays."""
+    tuples over pattern positions of each layer's cache tree ({"k", "v",
+    "pos"}, {"h", "conv"} or {"tm": {...}, "cm": {...}}), stacked leaf by
+    leaf on a leading (repeats,) axis; floating entries as float32 numpy
+    arrays."""
     segs = build_segments(cfg)
-    out = [[{} for _ in seg.pattern] for seg in segs]
+    out = [[[] for _ in seg.pattern] for seg in segs]
     for entry, (si, r, p) in zip(caches, _layer_slots(cfg)):
-        for name, t in entry.items():
-            t = t.detach().cpu()
-            out[si][p].setdefault(name, []).append(
-                t.float().numpy() if t.is_floating_point() else t.numpy())
-    return [tuple({name: np.stack(vals) for name, vals in d.items()}
-                  for d in seg) for seg in out]
+        out[si][p].append(entry)
+    return [tuple(_stack(layers) for layers in seg) for seg in out]

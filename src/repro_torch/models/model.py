@@ -1,9 +1,11 @@
 """Model assembly (port of ``models/model.py``).
 
 ``init_params`` builds a :class:`Transformer`: an embedding, an
-``nn.ModuleList`` of :class:`DecoderBlock` (norm, a mixer - :class:`Attention`
-or :class:`~repro_torch.models.rglru.RecurrentBlock` - norm, :class:`MLP`)
-and a final norm.  Every module keeps the JAX package's
+``nn.ModuleList`` of :class:`DecoderBlock` (norm, a mixer - :class:`Attention`,
+:class:`~repro_torch.models.rglru.RecurrentBlock` or
+:class:`~repro_torch.models.rwkv6.TimeMix` - norm, a channel -
+:class:`MLP` or :class:`~repro_torch.models.rwkv6.ChannelMix`) and a final
+norm.  Every module keeps the JAX package's
 parameter names and ``(in, out)`` layouts, so its parameters index like
 the reference's dicts (``block.attn["w_q"]``) and
 :mod:`repro_torch.models.convert` can carry the reference's weights over
@@ -16,14 +18,16 @@ Layers run as a Python loop; the reference's segments (stacked
 its stacked weights and caches onto layers (:func:`build_segments`).
 
 The port covers mixers ``"attn"``, ``"local_attn"`` (windowed, with a
-ring-buffer cache) and ``"rglru"`` (the RG-LRU recurrent block, whose
-cache is its state), channel ``"mlp"`` (all five kinds), rmsnorm or
-layernorm, rope, M-RoPE or none, optional QKV bias, tied or untied
-embeddings - granite-3-2b, phi3-medium-14b, qwen1.5-32b, nemotron-4-15b,
-the qwen2-vl-72b text backbone and recurrentgemma-2b.  Other mixers and
-channels raise ``NotImplementedError`` naming their ``ROADMAP.md`` item.
-``decode_step`` writes the attention layers' K/V caches in place and
-returns new recurrent states.
+ring-buffer cache), ``"rglru"`` (the RG-LRU recurrent block, whose cache
+is its state) and ``"rwkv6"`` (RWKV-6's time mix, likewise), channels
+``"mlp"`` (all five kinds) and ``"rwkv_cm"`` (RWKV-6's channel mix, whose
+state joins the mixer's in the layer's cache), rmsnorm or layernorm,
+rope, M-RoPE or none, optional QKV bias, tied or untied embeddings -
+granite-3-2b, phi3-medium-14b, qwen1.5-32b, nemotron-4-15b, the
+qwen2-vl-72b text backbone, recurrentgemma-2b and rwkv6-7b.  Other mixers
+and channels raise ``NotImplementedError`` naming their ``ROADMAP.md``
+item.  ``decode_step`` writes the attention layers' K/V caches in place
+and returns new recurrent states.
 """
 from __future__ import annotations
 
@@ -48,21 +52,17 @@ from .layers import (
     unembed,
 )
 from .rglru import RecurrentBlock
+from .rwkv6 import ChannelMix, TimeMix
 
 if TYPE_CHECKING:  # configs.base imports models.moe
     from ..configs.base import ModelConfig
 
 LayerSig = Tuple[str, str]  # (mixer, channel): ("attn", "mlp"), ...
 
-CHANNELS = ("mlp",)
-
 #: Where each part of the model zoo that the port leaves out is queued.
 _NOT_PORTED = {
-    "rwkv6": "ROADMAP.md queue 1, item 12 (rwkv6-7b serving, with wkv6: "
-             "queue 2, item 5)",
     "xattn": "ROADMAP.md queue 1, item 12 (whisper encoder-decoder)",
     "moe": "ROADMAP.md queue 1, item 12 (models/moe.py)",
-    "rwkv_cm": "ROADMAP.md queue 1, item 12 (rwkv6-7b serving)",
 }
 
 
@@ -228,59 +228,102 @@ MIXERS = {
     "attn": ("attn", Attention, lambda cfg: {}),
     "local_attn": ("attn", Attention, lambda cfg: {"window": cfg.attn_window}),
     "rglru": ("rec", RecurrentBlock, lambda cfg: {}),
+    "rwkv6": ("tm", TimeMix, lambda cfg: {}),
 }
 
 
 class MLP(ParamModule):
-    def __init__(self, d_model: int, d_ff: int, kind: str, gen, dtype,
-                 device) -> None:
+    """The dense feed-forward channel; it has no state, so its
+    ``forward`` returns None for one and its ``empty_cache`` is None."""
+
+    has_state = False
+
+    def __init__(self, cfg: ModelConfig, gen, dtype, device) -> None:
         super().__init__()
-        self.kind = kind
-        if kind in ("swiglu", "geglu"):
+        d_model, d_ff = cfg.d_model, cfg.d_ff_dense or cfg.d_ff
+        self.kind = cfg.mlp_kind
+        if self.kind in ("swiglu", "geglu"):
             self.add("w_gate", _dense(gen, d_model, d_ff, dtype, device))
         self.add("w_up", _dense(gen, d_model, d_ff, dtype, device))
         self.add("w_down", _dense(gen, d_ff, d_model, dtype, device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_mlp(self, x, self.kind)
+    def forward(self, x: torch.Tensor, state=None
+                ) -> Tuple[torch.Tensor, None]:
+        return apply_mlp(self, x, self.kind), None
+
+    @staticmethod
+    def empty_cache(cfg: ModelConfig, batch: int, device) -> None:
+        return None
+
+
+#: The channels the port runs: channel -> (the reference's name for its
+#: parameters, its module).  A channel runs ``forward(x, state)`` and
+#: returns its new state, or None if it has none (``empty_cache``).
+CHANNELS = {
+    "mlp": ("mlp", MLP),
+    "rwkv_cm": ("cm", ChannelMix),
+}
+
+
+def _layer_cache(names: Tuple[str, str], mixer_entry, channel_entry):
+    """A layer's cache: the mixer's, or, for a channel with a state, both
+    under the two modules' names (the reference's {"tm": ..., "cm": ...})."""
+    if channel_entry is None:
+        return mixer_entry
+    return {names[0]: mixer_entry, names[1]: channel_entry}
 
 
 class DecoderBlock(nn.Module):
-    """Pre-norm decoder layer: x + mixer(ln1(x)), then + mlp(ln2(x)).  The
-    mixer (:data:`MIXERS`) sits under the reference's name for it:
-    ``attn`` (an :class:`Attention`, windowed for ``local_attn``) or
-    ``rec`` (a :class:`RecurrentBlock`)."""
+    """Pre-norm decoder layer: x + mixer(ln1(x)), then + channel(ln2(x)).
+    The mixer (:data:`MIXERS`) and the channel (:data:`CHANNELS`) sit under
+    the reference's names for them: ``attn`` (an :class:`Attention`,
+    windowed for ``local_attn``), ``rec`` (a :class:`RecurrentBlock`) or
+    ``tm`` (a :class:`TimeMix`); ``mlp`` (an :class:`MLP`) or ``cm`` (a
+    :class:`ChannelMix`)."""
 
-    def __init__(self, cfg: ModelConfig, mixer: str, gen, device) -> None:
+    def __init__(self, cfg: ModelConfig, mixer: str, channel: str, gen,
+                 device) -> None:
         super().__init__()
         dtype = cfg.dtype()
         name, module, kwargs = MIXERS[mixer]
-        self.mixer_name = name
+        cname, cmodule = CHANNELS[channel]
+        self.names = (name, cname)
         self.ln1 = Norm(cfg.norm, cfg.d_model, dtype, device)
         self.add_module(name, module(cfg, gen, dtype, device, **kwargs(cfg)))
         self.ln2 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff_dense or cfg.d_ff, cfg.mlp_kind,
-                       gen, dtype, device)
+        self.add_module(cname, cmodule(cfg, gen, dtype, device))
 
     @property
     def mix(self) -> nn.Module:
-        return getattr(self, self.mixer_name)
+        return getattr(self, self.names[0])
+
+    @property
+    def channel(self) -> nn.Module:
+        return getattr(self, self.names[1])
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache_len: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         """Whole-sequence step (forward, prefill).  With ``cache_len`` it
-        also returns the layer's cache (the mixer's)."""
+        also returns the layer's cache."""
         out, entry = self.mix(self.ln1(x), positions, cache_len)
         x = x + out
-        return x + self.mlp(self.ln2(x)), entry
+        out, c_entry = self.channel(self.ln2(x))
+        if cache_len is None:
+            return x + out, None
+        return x + out, _layer_cache(self.names, entry, c_entry)
 
     def decode(self, x: torch.Tensor, cache: dict
                ) -> Tuple[torch.Tensor, dict]:
         """One-token step.  x: (B, 1, d_model)."""
+        if self.channel.has_state:
+            cache, c_state = cache[self.names[0]], cache[self.names[1]]
+        else:
+            c_state = None
         out, new_cache = self.mix.step(self.ln1(x), cache)
         x = x + out
-        return x + self.mlp(self.ln2(x)), new_cache
+        out, c_new = self.channel(self.ln2(x), c_state)
+        return x + out, _layer_cache(self.names, new_cache, c_new)
 
 
 class Transformer(nn.Module):
@@ -301,8 +344,9 @@ class Transformer(nn.Module):
             self.embed.add("unembed", _dense(gen, cfg.d_model,
                                              cfg.vocab_size, dtype, device))
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.layers = nn.ModuleList(DecoderBlock(cfg, mixer, gen, device)
-                                    for mixer in cfg.layer_types())
+        self.layers = nn.ModuleList(
+            DecoderBlock(cfg, mixer, channel, gen, device)
+            for mixer, channel in layer_signatures(cfg))
 
     @property
     def device(self) -> torch.device:
@@ -399,12 +443,15 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                device=None) -> List[dict]:
     """Zeroed per-layer caches at ``pos`` 0: ``cache_len`` rows of K/V for
     ``attn``, ``min(window, cache_len)`` for ``local_attn``, and a zero
-    state for ``rglru``."""
+    state for ``rglru`` and ``rwkv6`` (with the ``rwkv_cm`` channel's)."""
     check_supported(cfg)
     dev = resolve_device(device)
     caches = []
-    for mixer in cfg.layer_types():
-        _, module, kwargs = MIXERS[mixer]
-        caches.append(module.empty_cache(cfg, batch, cache_len, dev,
-                                         **kwargs(cfg)))
+    for mixer, channel in layer_signatures(cfg):
+        name, module, kwargs = MIXERS[mixer]
+        cname, cmodule = CHANNELS[channel]
+        caches.append(_layer_cache(
+            (name, cname),
+            module.empty_cache(cfg, batch, cache_len, dev, **kwargs(cfg)),
+            cmodule.empty_cache(cfg, batch, dev)))
     return caches

@@ -115,15 +115,21 @@ def _splice_slot(batch_cache: List[dict], single_cache: List[dict],
                  slot: int) -> List[dict]:
     """Copy a 1-sequence cache into batch position ``slot``, in place.
 
-    The slot's rows of every per-sequence entry (K/V, and a recurrent
-    layer's "h" and "conv" state) are overwritten; the per-layer "pos" is
-    the maximum of the two (the reference's rule: all slots share absolute
-    positions, and a shorter slot's rows are masked by cache_len at
-    attention time)."""
+    The slot's rows of every per-sequence entry (K/V, a recurrent layer's
+    "h" and "conv" state, an rwkv6 layer's nested "tm" and "cm" states)
+    are overwritten; the per-layer "pos" is the maximum of the two (the
+    reference's rule: all slots share absolute positions, and a shorter
+    slot's rows are masked by cache_len at attention time)."""
     for b, s in zip(batch_cache, single_cache):
-        for name, value in s.items():
-            if name == "pos":
-                b["pos"] = torch.maximum(b["pos"], value)
-            else:
-                b[name][slot:slot + 1] = value.to(b[name].dtype)
+        _splice_entry(b, s, slot)
     return batch_cache
+
+
+def _splice_entry(b: dict, s: dict, slot: int) -> None:
+    for name, value in s.items():
+        if isinstance(value, dict):
+            _splice_entry(b[name], value, slot)
+        elif name == "pos":
+            b["pos"] = torch.maximum(b["pos"], value)
+        else:
+            b[name][slot:slot + 1] = value.to(b[name].dtype)

@@ -26,6 +26,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.decode_attention\n"
         "import repro_torch.kernels.rglru_scan, repro_torch.models.rglru\n"
+        "import repro_torch.kernels.wkv6, repro_torch.models.rwkv6\n"
         "import repro_torch.configs, repro_torch.models\n"
         "import repro_torch.models.convert\n"
         "import repro_torch.serving.scheduler, repro_torch.serving.server\n"

@@ -10,7 +10,12 @@ and greedy tokens are equal.  The dense decoders, and recurrentgemma-2b
 S = 12, so ``forward`` runs the window mask, and the decode steps past
 PROMPT = 8 wrap the ring-buffer caches.  Its 8-layer variant,
 ``(rglru, rglru, local_attn) x 2 + (rglru, rglru)``, splits into two
-segments as the full 26-layer model does.
+segments as the full 26-layer model does.  rwkv6-7b (time mix and channel
+mix, whose nested {"tm", "cm"} states are the caches) and a 4-layer
+variant: the reference's prefill evaluates the WKV in its chunked form
+and its decode step serially, the port both through ``ops.wkv6``; besides
+the shared tests, a 40-token prefill (two 32-step chunks, the second
+ragged) and 8 decode steps are held to the reference at every step.
 """
 import dataclasses
 
@@ -43,9 +48,9 @@ from repro_torch.models.convert import (  # noqa: E402
 DENSE = ["granite-3-2b", "phi3-medium-14b", "qwen1.5-32b", "nemotron-4-15b",
          "qwen2-vl-72b"]
 #: "<arch>/<n> layers" is the arch's smoke config cut or grown to n layers
-COMPARED = DENSE + ["recurrentgemma-2b", "recurrentgemma-2b/8 layers"]
-NOT_PORTED = ["rwkv6-7b", "deepseek-moe-16b", "qwen3-moe-30b-a3b",
-              "whisper-tiny"]
+RWKV = ["rwkv6-7b", "rwkv6-7b/4 layers"]
+COMPARED = DENSE + ["recurrentgemma-2b", "recurrentgemma-2b/8 layers"] + RWKV
+NOT_PORTED = ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "whisper-tiny"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, PROMPT = 2, 12, 8
 
@@ -170,6 +175,46 @@ def test_init_cache_matches_reference_layout(pair):
                                                 device="cpu"))
     for a, b in zip(jax.tree.leaves(jc), jax.tree.leaves(mine)):
         np.testing.assert_array_equal(b, np.asarray(a))
+
+
+@pytest.mark.parametrize("name", RWKV)
+def test_rwkv6_long_prefill_and_decode_match_reference(name):
+    """A 40-token prefill (not a multiple of the reference's 32-step chunk)
+    and 8 decode steps: logits and the ``tm.shift``, ``tm.wkv`` and
+    ``cm.shift`` states at every step."""
+    if name not in _PAIRS:
+        _PAIRS[name] = _Pair(name)
+    pair = _PAIRS[name]
+    prompt, n_steps = 40, 8
+    toks = np.random.default_rng(4).integers(
+        0, pair.cfg.vocab_size, (B, prompt + n_steps)).astype(np.int32)
+    jl, jc = jmodels.prefill(pair.jcfg, pair.jparams,
+                             jnp.asarray(toks[:, :prompt]))
+    logits, caches = prefill(pair.cfg, pair.params,
+                             torch.from_numpy(toks[:, :prompt]))
+
+    def same(logits, caches, jl, jc):
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+        mine = caches_to_numpy(pair.cfg, caches)
+        for seg, jseg in zip(mine, jc):
+            for entry, jentry in zip(seg, jseg):
+                assert sorted(entry) == ["cm", "tm"]
+                for part, names in (("tm", ("shift", "wkv")),
+                                    ("cm", ("shift",))):
+                    assert sorted(entry[part]) == sorted(names)
+                    for n in names:
+                        np.testing.assert_allclose(
+                            entry[part][n], np.asarray(jentry[part][n]),
+                            **TOL)
+
+    same(logits, caches, jl, jc)
+    for i in range(prompt, prompt + n_steps):
+        step = toks[:, i:i + 1]
+        jl, jc = jmodels.decode_step(pair.jcfg, pair.jparams, jc,
+                                     jnp.asarray(step))
+        logits, caches = decode_step(pair.cfg, pair.params, caches,
+                                     torch.from_numpy(step))
+        same(logits, caches, jl, jc)
 
 
 @pytest.mark.parametrize("name", NOT_PORTED)

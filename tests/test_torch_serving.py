@@ -144,7 +144,8 @@ def test_push_weights_rejects_weights_on_another_device(smoke_model):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b",
+                                  "rwkv6-7b"])
 def test_both_packages_serve_the_same_tokens(arch):
     """Fleet and batcher of both packages on carried weights.  The longest
     prompts and their decode steps pass recurrentgemma's smoke window of 8:
@@ -194,7 +195,8 @@ def test_both_packages_serve_the_same_tokens(arch):
     assert cb.steps_executed == jcb.steps_executed
 
 
-@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b",
+                                  "rwkv6-7b"])
 def test_serve_launcher_runs_on_the_host(arch, capsys):
     from repro_torch.launch import serve
 
