@@ -9,7 +9,8 @@ no result line):
 1. device - the card's name and count, and ``nvidia-smi``'s name and
    power limit; without a card the run fails at once;
 2. build - compile every CUDA kernel of the port from ``src/`` (one
-   ``nvcc`` per source, all started together) and print ``-Xptxas -v``;
+   ``nvcc`` per source, all started together) and print ``-Xptxas -v``
+   (registers and spills) and the bf16 attention kernels' tiles;
 3. kernels against their plain versions - small shapes and edge cases
    (the histogram exactly; flash attention and flash decode within
    ``ATTN_TOL``, recurrentgemma's windowed head-dim-256 attention, its
@@ -97,8 +98,9 @@ EXECUTE = dict(n_commands=2048, seeds=8, n_clients=64, probe_n=96)
 #: check holds it to about one output ulp plus that; the CPU tests' 2e-2 is
 #: for the JAX kernel, whose rounding differs.
 ATTN_TOL = {"torch.float32": (2e-5, 2e-5), "torch.bfloat16": (4e-3, 1e-2)}
-#: keys per tile of both attention kernels; the planted fault drops one
-FAULT_TILE = 64
+#: The planted fault drops one whole key tile of the kernel that runs the
+#: path: ``flash_attention.key_tile(d)`` keys at a prefill (64, or 32 at
+#: head dim 256), ``decode_attention.TILE`` (64) at decode.
 #: The serving phases, in order: arch -> the fleet's prompt lengths, new
 #: tokens per request, the request before which weights v2 are pushed, and
 #: the batcher's run.  recurrentgemma-2b: 3000 runs the prefill's window
@@ -246,9 +248,10 @@ def _hist_bound_ms(samples, mask, edges, n_valid: int):
 def _time_graph_ms(fn, flush, reps: int) -> float:
     """Device time of ``fn``: its launches captured once in a CUDA graph and
     replayed ``reps`` times, each after an L2 flush, between CUDA events.
-    The host's Python is outside the window (the replay is queued while
-    the flush runs), so a kernel of a few microseconds is timed as itself,
-    not as its wrapper's overhead."""
+    The host's Python is outside the window: every replay is queued behind
+    a sleep on the card before the first runs, so a kernel of a few
+    microseconds is timed as itself, not as the host's pace of queueing
+    replays."""
     import torch
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -258,6 +261,10 @@ def _time_graph_ms(fn, flush, reps: int) -> float:
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         fn()
+    # hold the card for 20 ms so the host queues every replay before the
+    # first one starts: the card then never waits on the host inside a
+    # timed window
+    torch.cuda._sleep(40_000_000)
     events = []
     for _ in range(reps):
         flush.zero_()
@@ -552,12 +559,17 @@ def _decode_record(FD, ref, q, kc, vc, cl, flush) -> dict:
     bound, by = _attention_bound_ms(H * n_valid, D, nbytes, q.dtype)
     mask = (torch.arange(kc.shape[2], device=q.device)[None, None, None, :]
             < cl[:, None, None, None])
-    short = torch.clamp((cl - 1) // FAULT_TILE * FAULT_TILE, min=1)
+    short = torch.clamp((cl - 1) // FD.TILE * FD.TILE, min=1)
     used, fault = (_tol_ratio(got, want),
                    _tol_ratio(ref.ref_decode(q, kc, vc, short), want))
+    ms = _time_graph_ms(lambda: FD.flash_decode(q, kc, vc, cl), flush, 50)
+    # the replays left the arrival counters at zero: an eager call after
+    # them gives the same bits
+    if not torch.equal(FD.flash_decode(q, kc, vc, cl), got):
+        raise AssertionError("flash_decode after its graph replays differs "
+                             "from its first call")
     rec = dict(
-        max_abs_err=err,
-        ms=_time_graph_ms(lambda: FD.flash_decode(q, kc, vc, cl), flush, 50),
+        max_abs_err=err, ms=ms,
         plain_ms=_time_graph_ms(lambda: ref.ref_decode(q, kc, vc, cl), flush,
                                 20),
         library_ms=_time_graph_ms(lambda: F.scaled_dot_product_attention(
@@ -566,11 +578,12 @@ def _decode_record(FD, ref, q, kc, vc, cl, flush) -> dict:
         bound_ms=bound, bound_by=by)
     print(f"kernel flash_decode at batch {q.shape[0]}: q {tuple(q.shape)}, "
           f"caches {tuple(kc.shape)} {q.dtype}, cache_len {cl.tolist()}: "
-          f"max abs err {err:.3e} = {used:.3f} of the tolerance (the last KV "
-          f"tile skipped reads {fault:.3f}); device times (graph replay, "
-          f"cold L2) " + ", ".join(f"{k_} {v_:.4f}" for k_, v_ in rec.items()
-                                   if k_.endswith("ms")) + f" ({by})",
-          flush=True)
+          f"max abs err {err:.3e} = {used:.3f} of the tolerance (the last "
+          f"{FD.TILE}-key tile skipped reads {fault:.3f}); bitwise the same "
+          f"after 50 graph replays; device times (graph replay, cold L2) " +
+          ", ".join(f"{k_} {v_:.4f}" for k_, v_ in rec.items()
+                    if k_.endswith("ms")) + f" ({by}); "
+          f"{rec['ms'] / rec['library_ms']:.2f}x SDPA's time", flush=True)
     return rec
 
 
@@ -590,12 +603,13 @@ def _prefill_record(FA, ref, q, k, v, causal, window, flush) -> dict:
     if window is None:
         pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
         sdpa = dict(is_causal=causal)
-        # the planted fault: the last KV tile skipped, which under causal
-        # masking changes only the last query tile's rows
-        last, early = slice(S - FAULT_TILE, S), slice(0, S - FAULT_TILE)
+        # the planted fault: the last key tile skipped, which under causal
+        # masking changes only the rows of the last tile's queries
+        tile = FA.key_tile(D)
+        last, early = slice(S - tile, S), slice(0, S - tile)
         faulty = ref.ref_attention(q[:, :, last], k[:, :, early],
                                    v[:, :, early], causal=False)
-        fault = (f" (the last KV tile skipped reads "
+        fault = (f" (the last {tile}-key tile skipped reads "
                  f"{_tol_ratio(faulty, want[:, :, last]):.3f})")
     else:
         pairs = B * H * sum(min(i + 1, window) for i in range(S))
@@ -619,7 +633,8 @@ def _prefill_record(FA, ref, q, k, v, causal, window, flush) -> dict:
           f"max abs err {err:.3e} = {_tol_ratio(got, want):.3f} of the "
           f"tolerance{fault}; device times (graph replay, cold L2) " +
           ", ".join(f"{key} {val:.4f}" for key, val in rec.items()
-                    if key.endswith("ms")) + f" ({by})", flush=True)
+                    if key.endswith("ms")) + f" ({by}); "
+          f"{rec['ms'] / rec['library_ms']:.2f}x SDPA's time", flush=True)
     return rec
 
 
@@ -1061,6 +1076,13 @@ def main() -> int:
     for (src, _), log in zip(kernels, logs):
         for line in log.splitlines():
             print(f"  ptxas {src}: {line.strip()}")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  bf16 flash_attention tiles, head dim -> (query rows, keys): "
+          f"{FA.MMA_TILES}, two-stage cp.async ring; bf16 flash_decode: "
+          f"{FD.TILE}-key tiles, 16 per warp, one launch, splits "
+          f"{FD.split_plan(1, 8, 2064, n_sms)} at granite batch 1 and "
+          f"{FD.split_plan(1, 1, 2048, n_sms)} at recurrentgemma batch 1 "
+          f"(n_splits, keys) on {n_sms} SMs", flush=True)
 
     # -- 3. kernels against their plain versions ---------------------------
     cases = _hist_cases(np.random.default_rng(0))

@@ -3,8 +3,9 @@
 Each kernel module calls :func:`build_library` on first use: ``nvcc``
 compiles the source for ``sm_90a`` with a plain C interface (no PyTorch
 headers, so a build takes seconds) into ``build/`` beside this file, keyed
-by a hash of the source and the flags, and the library is loaded with
-``ctypes``.  Nothing is built when a module is imported.
+by a hash of the source, the ``csrc/*.cuh`` headers and the flags, and
+the library is loaded with ``ctypes``.  Nothing is built when a module is
+imported.
 """
 from __future__ import annotations
 
@@ -41,7 +42,9 @@ def build_library(source: str) -> Tuple[ctypes.CDLL, str]:
     Returns the library and ``nvcc``'s ``-Xptxas -v`` report (registers,
     shared memory, spills) of the build that produced it."""
     path = CSRC / source
-    src = path.read_bytes()
+    # the source and the headers it may include
+    src = path.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join((ARCH,) + FLAGS).encode()
                          ).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -10,57 +10,82 @@
 // and running sum are float32; masked scores are -1e30 (the reference's
 // value, not -inf); the output is acc / max(l, 1e-30) in the input type.
 // Inputs are float32 or bfloat16, head dim 16, 32, 64, 128 or 256, and
-// any S:
-// the ragged last tile is masked here (the TPU kernel asserted that S
-// divides by its 128-row blocks).  Each tensor comes with its own strides
-// (the last dimension contiguous), so the model hands in transposed views
-// of its (B, S, H, d) activations without a copy.
+// any S: the ragged last tile is masked here (the TPU kernel asserted that
+// S divides by its 128-row blocks).  Each tensor comes with its own
+// strides (the last dimension contiguous), so the model hands in
+// transposed views of its (B, S, H, d) activations without a copy.  The
+// bfloat16 kernel copies rows in 16-byte pieces, so its base pointers are
+// 16-byte aligned and its strides multiples of 8 elements: the wrapper
+// copies a view that is not (flash_attention.py:aligned_rows).
 //
-// Bound: at the serving path's prefill shapes the work is about 4*d flops
-// per (query, key) pair against a few bytes per element moved, so the
-// kernel is bound by operations: at the tensor cores' bf16 rate for bf16
-// inputs, at the float32 rate for float32 inputs.
+// Bound: operations.  About 4 d flops per computed (query, key) pair
+// against a few bytes per element moved: at granite-3-2b's 2048-token
+// causal prefill, q (1, 32, 2048, 64), 17.2 GFLOP take 0.0174 ms at the
+// tensor cores' dense bf16 rate of 989 TFLOP/s; float32 inputs run at the
+// 67 TFLOP/s of the CUDA cores.
 //
-// Design.  On the TPU the KV axis is the innermost, sequential grid axis
-// and (m, l, acc) live in VMEM across its steps.  On Hopper blocks run in
-// parallel and in no order, so the KV loop moves inside the block: one
-// block per (b, h, 64-query tile), causal blocks with more tiles to walk
-// launched first.  The block walks the K/V tiles (64 keys each) from the
-// first tile any of its rows can see (tile 0 without a window, the tile
-// of key q0 - w + 1 with one) up to the diagonal; tiles wholly below the
-// window of all its rows are skipped.  Without a window a row's first
-// tile holds a valid key (key 0).  With one, a 64-row block can straddle
-// the window's start, and a row's first tile (or two, when w is no
-// multiple of 64) may hold no key it sees: its scores are all -1e30, its
-// running max stays -1e30, and exp(0) = 1 terms enter l and acc.  They
-// are wiped at the row's first tile with a valid key, whose rescale is
-// exp(-1e30 - m) = 0, and every row reaches one (the key of its own
-// position, in the diagonal tile, at the latest).  Two kernels:
-//   * bfloat16 (the serving path's type): `mma.sync` m16n8k16 on the
-//     tensor cores with float32 accumulation, FlashAttention-2 style.
-//     Four warps of 16 query rows each; a warp keeps its Q rows as A
-//     fragments in registers (up to head dim 128; at 256, 64 more
-//     registers beside the 128 of its 32 output n-tiles and the 32 of its
-//     8 score tiles would spill, so the fragments are read from the Q
-//     tile in shared memory at each k-step instead), reads K (row-major)
-//     and V (stored transposed) as B fragments from shared memory, rows
-//     padded by 8 halves so the fragment loads are free of bank
-//     conflicts, and turns its S accumulators straight into the A
-//     fragments of P for P.V.  The row statistics live in registers and
-//     are reduced over the 4 lanes that share a row.  P enters the product rounded to bf16 (the row sums
-//     stay float32), within the bf16 tolerance 2e-2.
-//   * float32: exact float32 FMAs on the CUDA cores (no TF32), to hold
-//     2e-5 (at head dim 256 its tiles take 217 KB of the 227 KB of
-//     shared memory: one block per SM).  256 threads; thread (ty, tx) of
-//     a 16 x 16 arrangement owns query rows 4ty..4ty+3 and keys tx + 16j
-//     (j < 4) of the tile's 64 x 64 score block, read as float4 vectors
-//     from rows padded to d + 4 floats (free of bank conflicts); row
-//     maxima and sums are reduced over the 16 lanes of a row with
-//     shuffles; probabilities go through shared memory for the P.V
-//     product.
-// Tiles are copied in element by element, with no cp.async, TMA or
-// pipelining: those, `wgmma` and warp specialisation are later work.
+// The walk.  On the TPU the KV axis is the innermost, sequential grid
+// axis and (m, l, acc) live in VMEM across its steps.  On Hopper blocks
+// run in parallel and in no order, so the KV loop moves inside the block:
+// one block per (b, h, query tile); with a causal mask the grid's slowest
+// axis walks the query tiles from the last, so the blocks with the most
+// key tiles start first.  A block walks the key tiles from the first any
+// of its rows can see (tile 0 without a window, the tile of key
+// q0 - w + 1 with one) up to the diagonal.  Without a window a row's
+// first tile holds a valid key (key 0).  With one, a block can straddle
+// the window's start, and a row's first tile (or two) may hold no key it
+// sees: its scores are all -1e30, its running max stays -1e30, and
+// exp(0) = 1 terms enter l and acc.  They are wiped at the row's first
+// tile with a valid key, whose rescale is exp(-1e30 - m) = 0, and every
+// row reaches one (the key of its own position, in the diagonal tile, at
+// the latest).  The argument holds for any tile size, and so for the
+// tiles below.
+//
+// bfloat16 (the serving path's type): FlashAttention-2 on `mma.sync`
+// m16n8k16 with float32 accumulation.
+//   * Tiles by head dim, each warp owning 16 query rows: d = 64, 8 warps
+//     and 128 query rows; d = 16, 32, 128, 4 warps and 64 rows; 64-key
+//     tiles; d = 256, 4 warps, 64 rows and 32-key tiles.  Shared memory
+//     holds the Q tile and a two-stage ring of K and V tiles: 55 KB at
+//     d = 64, 87 KB at 128, 101 KB at 256, so two blocks fit an SM.
+//   * Copies: every tile comes in by 16-byte `cp.async.cg` copies, rows
+//     past S zero-filled through the copy's source size.  Key tile kt+1 is
+//     in flight while tile kt is multiplied: one wait_group and one
+//     __syncthreads() per tile, after which the ring's other stage is free
+//     to refill.
+//   * Fragments: Q and K as A and B fragments by `ldmatrix.x4`; V stays
+//     row-major and its B fragments for P.V come from `ldmatrix.x4.trans`.
+//     Rows are padded by 8 halves (16 bytes), so the 8 rows an ldmatrix
+//     phase reads, and the 16-byte copies of a row, fall in distinct
+//     banks; no swizzle.  Up to d = 128 a warp keeps its Q fragments in
+//     registers; at d = 256 (128 accumulator registers for the output) it
+//     reads them from the Q tile at each k-step.
+//   * Softmax: scores are scaled by d^-1/2 log2(e) (inside the
+//     exponent's FMA on interior tiles) and exponentiated with ex2; the
+//     causal and window mask is applied only where a tile crosses the
+//     warp's diagonal, the window's start or S, and a warp skips a tile
+//     none of its rows can see.  The accumulators are rescaled only when a
+//     row maximum of the warp moved.  Each lane keeps its part of the row
+//     sums and reduces them over the 4 lanes of a row once, at the end.
+//     P enters P.V rounded to bf16 straight from the S accumulators (the
+//     row sums stay float32).
+//   * The output goes through the warp's own rows of the Q tile and out
+//     in 16-byte stores.
+// What is left: `wgmma` on warpgroups fed by TMA from a producer warp
+// (warp specialisation), the next redesign toward half the bound
+// (0.0348 ms at granite's prefill).
+//
+// float32 (tests and the card/CPU comparison): exact float32 FMAs on the
+// CUDA cores (no TF32), to hold 2e-5 (at head dim 256 its tiles take
+// 217 KB of the 227 KB of shared memory: one block per SM).  256 threads;
+// thread (ty, tx) of a 16 x 16 arrangement owns query rows 4ty..4ty+3 and
+// keys tx + 16j (j < 4) of the tile's 64 x 64 score block, read as float4
+// vectors from rows padded to d + 4 floats (free of bank conflicts); row
+// maxima and sums are reduced over the 16 lanes of a row with shuffles;
+// probabilities go through shared memory for the P.V product.  Its tiles
+// are copied element by element.
 // Offsets are 64-bit.
+
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -240,204 +265,237 @@ flash_attention_kernel(const float* __restrict__ q,
 // bfloat16 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
+#include "mma_bf16.cuh"
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a * b for one m16n8k16 tile: a 16x16 row-major, b 16x8 col-major.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
+struct MmaTile {
+  static constexpr int WARPS = D == 64 ? 8 : 4;  // 16 query rows each
+  static constexpr int BQ = 16 * WARPS;          // query rows per block
+  static constexpr int BK = D == 256 ? 32 : 64;  // keys per tile
+  static constexpr int LD = D + 8;               // halves per smem row
+  static constexpr int THREADS = 32 * WARPS;
+  // the Q tile and two stages of K and V
+  static constexpr size_t SMEM =
+      sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * LD;
+};
+
+template <int D>
+__global__ void __launch_bounds__(MmaTile<D>::THREADS, 2)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, int group, int S,
-                           float scale, int causal, int window, Strides qs,
-                           Strides ks, Strides vs, Strides os) {
-  constexpr int LDQ = D + 8;   // halves per Q / K row in shared memory
-  constexpr int LDV = BK + 8;  // halves per row of V transposed
+                           __nv_bfloat16* __restrict__ o, int H, int group,
+                           int S, float scale_log2, int causal, int window,
+                           Strides qs, Strides ks, Strides vs, Strides os) {
+  using T = MmaTile<D>;
+  constexpr int BQT = T::BQ, BKT = T::BK, LD = T::LD, NTH = T::THREADS;
   constexpr int KS = D / 16;   // k-steps of Q.K^T over the head dim
   constexpr int NO = D / 8;    // n-tiles of the output
-  constexpr int NT = BK / 8;   // n-tiles of the score block
+  constexpr int NT = BKT / 8;  // n-tiles of the score block
   constexpr bool Q_REGS = D <= 128;  // Q fragments held in registers
   extern __shared__ float4 smem4[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem4);  // BQ x LDQ
-  __nv_bfloat16* sk = sq + BQ * LDQ;                             // BK x LDQ
-  __nv_bfloat16* svt = sk + BK * LDQ;                            // D x LDV
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem4);  // BQ x LD
+  __nv_bfloat16* sk = sq + BQT * LD;  // 2 stages of BK x LD
+  __nv_bfloat16* sv = sk + 2 * BKT * LD;
 
-  const int n_qt = gridDim.x;
-  const int qt = causal ? n_qt - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const int q0 = qt * BQ;
+  const int n_qt = gridDim.y;
+  const int qt = causal ? n_qt - 1 - blockIdx.y : blockIdx.y;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, hk = h / group;
+  const int q0 = qt * BQT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tig = lane & 3;  // fragment row / column pair
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  const int r0 = warp * 16;                 // the warp's rows in the tile
+  const int row_lo = q0 + r0;
+  const int row_a = row_lo + g, row_b = row_a + 8;  // this lane's rows
+  // ldmatrix addresses: A fragments (rows lane & 15, column half lane >> 4),
+  // B fragments of K (8-key half lane >> 4, column half (lane >> 3) & 1),
+  // of V transposed (8-key half (lane >> 3) & 1, column half lane >> 4)
+  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
+  const int k_row = (lane >> 4) * 8 + (lane & 7), k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
 
-  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-  for (int idx = threadIdx.x; idx < BQ * D; idx += MMA_THREADS) {
-    const int r = idx / D, c = idx % D, row = q0 + r;
-    sq[r * LDQ + c] = row < S ? qb[(long long)row * qs.s + c] : zero;
-  }
-  __syncthreads();
-  const int r0 = warp * 16;
-  // the A fragment of Q's rows r0..r0+15 at k-step kk
-  auto load_qa = [&](uint32_t (&f)[4], int kk) {
-    const __nv_bfloat16* p = sq + (r0 + g) * LDQ + kk * 16 + tig * 2;
-    f[0] = ld32(p);
-    f[1] = ld32(p + 8 * LDQ);
-    f[2] = ld32(p + 8);
-    f[3] = ld32(p + 8 * LDQ + 8);
-  };
-  uint32_t qa[Q_REGS ? KS : 1][4];
-  if constexpr (Q_REGS) {
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) load_qa(qa[kk], kk);
-  }
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h + (long long)q0 * qs.s;
   const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-  const int row_a = q0 + r0 + g, row_b = row_a + 8;  // this lane's rows
 
+  const int n_kt_all = (S + BKT - 1) / BKT;
+  const int n_kt = causal ? min(n_kt_all, (q0 + BQT - 1) / BKT + 1) : n_kt_all;
+  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BKT : 0;
+
+  copy_tile<BQT, D, NTH>(sq, qb, qs.s, 0, S - q0);
+  copy_tile<BKT, D, NTH>(sk, kb, ks.s, kt_lo * BKT, S);
+  copy_tile<BKT, D, NTH>(sv, vb, vs.s, kt_lo * BKT, S);
+  cp_async_commit();
+
+  uint32_t qa[Q_REGS ? KS : 1][4];
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  // running maxima of this lane's two rows (log2 units), and this lane's
+  // part of their sums
   float m_a = NEG, m_b = NEG, l_a = 0.f, l_b = 0.f;
 
-  const int n_kt_all = (S + BK - 1) / BK;
-  const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / BK + 1) : n_kt_all;
-  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
   for (int kt = kt_lo; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's fragments are read
-    for (int idx = threadIdx.x; idx < BK * D; idx += MMA_THREADS) {
-      const int j = idx / D, c = idx % D, key = k0 + j;
-      const bool ok = key < S;
-      sk[j * LDQ + c] = ok ? kb[(long long)key * ks.s + c] : zero;
-      svt[c * LDV + j] = ok ? vb[(long long)key * vs.s + c] : zero;
+    const int stage = (kt - kt_lo) & 1;
+    cp_async_wait<0>();  // tile kt (and, the first time, Q) has landed
+    __syncthreads();      // ... for every thread; the other stage is free
+    if (kt + 1 < n_kt) {
+      const int nxt = (stage ^ 1) * BKT * LD;
+      copy_tile<BKT, D, NTH>(sk + nxt, kb, ks.s, (kt + 1) * BKT, S);
+      copy_tile<BKT, D, NTH>(sv + nxt, vb, vs.s, (kt + 1) * BKT, S);
+      cp_async_commit();
     }
-    __syncthreads();
+    if constexpr (Q_REGS) {
+      if (kt == kt_lo) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          ldmatrix_x4(qa[kk], smem_addr(sq + (r0 + a_row) * LD + kk * 16 +
+                                        a_col));
+      }
+    }
+    const int k0 = kt * BKT;
+    // a tile none of the warp's rows can see (past its diagonal, before
+    // its window, or rows all past S) changes nothing: skip it
+    if (row_lo >= S || (causal && k0 > row_lo + 15) ||
+        (window > 0 && k0 + BKT - 1 <= row_lo - window))
+      continue;
+    const __nv_bfloat16* skt = sk + stage * BKT * LD;
+    const __nv_bfloat16* svt = sv + stage * BKT * LD;
 
-    // s[n] sums over the k-steps in ascending order either way
     float s[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    if constexpr (Q_REGS) {
 #pragma unroll
-      for (int n = 0; n < NT; ++n)
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qf[4];
+      if constexpr (Q_REGS) {
 #pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          const __nv_bfloat16* p = sk + (n * 8 + g) * LDQ + kk * 16 + tig * 2;
-          mma_bf16(s[n], qa[kk], ld32(p), ld32(p + 8));
-        }
-    } else {
-#pragma unroll 2
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t qf[4];
-        load_qa(qf, kk);
+        for (int e = 0; e < 4; ++e) qf[e] = qa[kk][e];
+      } else {
+        ldmatrix_x4(qf, smem_addr(sq + (r0 + a_row) * LD + kk * 16 + a_col));
+      }
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const __nv_bfloat16* p = sk + (n * 8 + g) * LDQ + kk * 16 + tig * 2;
-          mma_bf16(s[n], qf, ld32(p), ld32(p + 8));
-        }
+      for (int n = 0; n < NT; n += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, smem_addr(skt + (n * 8 + k_row) * LD + kk * 16 +
+                                  k_col));
+        mma_bf16(s[n], qf, kf[0], kf[1]);
+        mma_bf16(s[n + 1], qf, kf[2], kf[3]);
       }
     }
 
-    // mask and scale; element e of tile n is row (e < 2 ? a : b), key
-    // k0 + 8n + 2tig + (e & 1)
+    // scores into log2 units (scale sc); mask only a tile that crosses
+    // the warp's diagonal, its window's start or S, scaling it here (sc
+    // becomes 1); an interior tile's scale rides in the exponent's FMA.
+    // Element e of tile n is row (e < 2 ? a : b), key k0 + 8n + 2tig +
+    // (e & 1)
+    const bool edge = k0 + BKT > S || (causal && k0 + BKT - 1 > row_lo) ||
+                      (window > 0 && row_lo + 15 - k0 >= window);
+    float sc = scale_log2;
+    if (edge) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n * 8 + tig * 2 + (e & 1);
+          const int row = e < 2 ? row_a : row_b;
+          const bool ok = key < S && (!causal || key <= row) &&
+                          (window <= 0 || row - key < window);
+          s[n][e] = ok ? s[n][e] * scale_log2 : NEG;
+        }
+      sc = 1.f;
+    }
     float mx_a = NEG, mx_b = NEG;
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + tig * 2 + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        const bool ok = key < S && (!causal || key <= row) &&
-                        (window <= 0 || row - key < window);
-        s[n][e] = ok ? s[n][e] * scale : NEG;
-        if (e < 2) mx_a = fmaxf(mx_a, s[n][e]);
-        else mx_b = fmaxf(mx_b, s[n][e]);
-      }
+    for (int n = 0; n < NT; ++n) {
+      mx_a = fmaxf(mx_a, fmaxf(s[n][0], s[n][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[n][2], s[n][3]));
+    }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {
       mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
     }
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float mn_a = fmaxf(m_a, mx_a * sc), mn_b = fmaxf(m_b, mx_b * sc);
+    const float al_a = ex2(m_a - mn_a), al_b = ex2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      s[n][0] = expf(s[n][0] - mn_a);
-      s[n][1] = expf(s[n][1] - mn_a);
-      s[n][2] = expf(s[n][2] - mn_b);
-      s[n][3] = expf(s[n][3] - mn_b);
+      s[n][0] = ex2(fmaf(s[n][0], sc, -mn_a));
+      s[n][1] = ex2(fmaf(s[n][1], sc, -mn_a));
+      s[n][2] = ex2(fmaf(s[n][2], sc, -mn_b));
+      s[n][3] = ex2(fmaf(s[n][3], sc, -mn_b));
       sum_a += s[n][0] + s[n][1];
       sum_b += s[n][2] + s[n][3];
     }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      sum_a += __shfl_xor_sync(0xffffffffu, sum_a, off);
-      sum_b += __shfl_xor_sync(0xffffffffu, sum_b, off);
-    }
-    const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
     l_a = al_a * l_a + sum_a;
     l_b = al_b * l_b + sum_b;
-    m_a = mn_a;
-    m_b = mn_b;
+    // a rescale by exactly 1 (no row maximum of the warp moved) is skipped
+    if (__any_sync(0xffffffffu, al_a != 1.f || al_b != 1.f)) {
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= al_a;
-      acc[n][1] *= al_a;
-      acc[n][2] *= al_b;
-      acc[n][3] *= al_b;
+      for (int n = 0; n < NO; ++n) {
+        acc[n][0] *= al_a;
+        acc[n][1] *= al_a;
+        acc[n][2] *= al_b;
+        acc[n][3] *= al_b;
+      }
     }
 
     // acc += P.V: the S accumulators of tiles 2kk, 2kk+1 are the A
     // fragment of P's keys 16kk..16kk+15
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
+    for (int kk = 0; kk < BKT / 16; ++kk) {
       const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
                               pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const __nv_bfloat16* p = svt + (n * 8 + g) * LDV + kk * 16 + tig * 2;
-        mma_bf16(acc[n], pa, ld32(p), ld32(p + 8));
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_addr(svt + (kk * 16 + v_row) * LD +
+                                        n * 8 + v_col));
+        mma_bf16(acc[n], pa, vf[0], vf[1]);
+        mma_bf16(acc[n + 1], pa, vf[2], vf[3]);
       }
     }
   }
+  if (row_lo >= S) return;
 
-  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  // the output through the warp's own 16 rows of the Q tile (no other
+  // warp reads them), then out in 16-byte stores
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  __nv_bfloat16* so = sq + r0 * LD;
+  __syncwarp();
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int c = n * 8 + tig * 2;
-    if (row_a < S) {
-      ob[(long long)row_a * os.s + c] = __float2bfloat16(acc[n][0] / den_a);
-      ob[(long long)row_a * os.s + c + 1] = __float2bfloat16(acc[n][1] / den_a);
-    }
-    if (row_b < S) {
-      ob[(long long)row_b * os.s + c] = __float2bfloat16(acc[n][2] / den_b);
-      ob[(long long)row_b * os.s + c + 1] = __float2bfloat16(acc[n][3] / den_b);
-    }
+    *reinterpret_cast<__nv_bfloat162*>(so + g * LD + c) =
+        __floats2bfloat162_rn(acc[n][0] / den_a, acc[n][1] / den_a);
+    *reinterpret_cast<__nv_bfloat162*>(so + (g + 8) * LD + c) =
+        __floats2bfloat162_rn(acc[n][2] / den_b, acc[n][3] / den_b);
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int r = i / CH, c = (i % CH) * 8, row = row_lo + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(ob + (long long)row * os.s + c) =
+          *reinterpret_cast<const uint4*>(so + r * LD + c);
   }
 }
 
@@ -445,21 +503,22 @@ template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
                int H, int H_kv, int S, int causal, int window, float scale,
                const long long* st, cudaStream_t stream) {
-  constexpr size_t shmem =
-      sizeof(__nv_bfloat16) * (size_t)((BQ + BK) * (D + 8) + D * (BK + 8));
+  using T = MmaTile<D>;
   static bool attr_set = false;  // once per instantiation and process
   if (!attr_set) {
     const cudaError_t e = cudaFuncSetAttribute(
         flash_attention_mma_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_attention_mma_kernel<D><<<grid, MMA_THREADS, shmem, stream>>>(
+  // query tiles on the slowest axis: with a causal mask the tiles with the
+  // most key tiles of every (b, h) go first
+  const dim3 grid(B * H, (S + T::BQ - 1) / T::BQ);
+  flash_attention_mma_kernel<D><<<grid, T::THREADS, T::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      H / H_kv, S, scale, causal, window, Strides{st[0], st[1], st[2]},
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
+      H / H_kv, S, scale * LOG2E, causal, window, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]});
   return (int)cudaGetLastError();

@@ -3,40 +3,52 @@
 Replaces the Pallas kernel ``src/repro/kernels/decode_attention.py:
 _decode_kernel``.  The CUDA source is ``csrc/decode_attention.cu``: a grid
 of (split, kv head, batch) blocks computes each split's (max, sum,
-weighted values) for all query heads of its kv head, and a second kernel
-merges the splits by log-sum-exp in fixed order.  It is bound by the bytes
-of the cache it reads (see the source's note).
+weighted values) for all query heads of its kv head, and the splits are
+merged by log-sum-exp in fixed order - for bfloat16 in the same launch,
+by the block of each (b, kv head) that arrives last, on the tensor cores
+(``mma.sync`` over the group's query heads as M rows); for float32 by a
+second kernel.  It is bound by the bytes of the cache it reads (see the
+source's note).
 
 The wrapper takes the JAX kernel's layout, q (B, H, d), caches
 (B, H_kv, S_max, d) and cache_len (B,) int32, as strided views whose last
 dimension is contiguous, so the model passes ``cache.transpose(1, 2)`` of
-its (B, S_max, H_kv, d) caches without a copy.  ``cache_len`` stays on the
-device: nothing here waits on it.  A CUDA tensor launches the kernel (or
-the call raises); a CPU tensor runs the plain version
-:func:`repro_torch.kernels.ref.ref_decode`.  ``flash_decode.launches``
-counts launches (one per call: the split pass and its merge), and only
-those.
+its (B, S_max, H_kv, d) caches without a copy; a view whose rows a 16-byte
+copy cannot read is copied first (``flash_attention.aligned_rows``).
+``cache_len`` stays on the device: nothing here waits on it.  The
+wrapper owns the bfloat16 kernel's arrival counters, one zeroed int32
+buffer per device that every launch leaves zeroed.  A CUDA tensor
+launches the kernel (or the call raises); a CPU tensor runs the plain
+version :func:`repro_torch.kernels.ref.ref_decode`.
+``flash_decode.launches`` counts launches (one per call), and only those.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ._build import build_library
+from .flash_attention import aligned_rows
 from .ref import ref_decode
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 TILE = 64          # keys per tile in the kernel; a split is whole tiles
-MAX_OUT = 2560     # group * d the kernel's registers hold
-BLOCKS_PER_SM = 2  # splits are sized to fill the card about twice over
+MIN_TILES = 2      # tiles per split at least, where the cache has two
+MAX_SPLITS = 64    # splits the bfloat16 kernel's last block merges
+MAX_OUT = 2560     # group * d the float32 kernel's registers hold
+MAX_GROUP = 16     # query heads per kv head: the bfloat16 kernel's M rows
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
+#: device -> the bfloat16 kernel's zeroed int32 arrival counters, one per
+#: (b, kv head); a grown buffer keeps the old ones alive, since a captured
+#: CUDA graph may still point at them
+_arrivals: Dict[torch.device, List[torch.Tensor]] = {}
 
 
 def build() -> str:
@@ -47,12 +59,9 @@ def build() -> str:
         return _build_log
     lib, _build_log = build_library("decode_attention.cu")
     fn = lib.flash_decode_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _lib = lib
     return _build_log
@@ -60,14 +69,26 @@ def build() -> str:
 
 def split_plan(batch: int, n_kv_heads: int, s_max: int,
                n_sms: int) -> Tuple[int, int]:
-    """(n_splits, split_len): whole 64-key tiles per split, as many splits
-    as it takes for ``batch * n_kv_heads * n_splits`` to reach about
-    ``BLOCKS_PER_SM`` blocks per SM, and no more splits than tiles."""
+    """(n_splits, split_len): whole 64-key tiles per split, at least
+    ``MIN_TILES`` of them (where the cache has that many), few enough that
+    ``batch * n_kv_heads * n_splits`` covers the ``n_sms`` SMs about once,
+    and at most ``MAX_SPLITS`` splits."""
     n_tiles = max(1, -(-s_max // TILE))
-    want = -(-BLOCKS_PER_SM * n_sms // max(1, batch * n_kv_heads))
-    n_splits = min(max(1, want), n_tiles)
-    split_len = -(-n_tiles // n_splits) * TILE
+    want = max(1, -(-n_sms // max(1, batch * n_kv_heads)))
+    per_split = min(n_tiles, max(MIN_TILES, -(-n_tiles // want),
+                                 -(-n_tiles // MAX_SPLITS)))
+    split_len = per_split * TILE
     return -(-s_max // split_len), split_len
+
+
+def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device`` (the kernel
+    leaves them zeroed)."""
+    bufs = _arrivals.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -110,19 +131,23 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     group = H // H_kv
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
-    if group * D > MAX_OUT:
+    if q.dtype == torch.bfloat16 and group > MAX_GROUP:
+        raise ValueError(f"group {group} exceeds the bfloat16 kernel's "
+                         f"{MAX_GROUP} query heads per kv head")
+    if q.dtype == torch.float32 and group * D > MAX_OUT:
         raise ValueError(f"group {group} x head dim {D} exceeds the "
                          f"kernel's {MAX_OUT} outputs per block")
-    q, k_cache, v_cache = (t if t.stride(-1) == 1 else t.contiguous()
-                           for t in (q, k_cache, v_cache))
+    q, k_cache, v_cache = (aligned_rows(t) for t in (q, k_cache, v_cache))
     lens = cache_len.contiguous()
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     build()
     n_splits, split_len = split_plan(B, H_kv, S_max, _n_sms(q.device))
-    ws = torch.empty(B * H_kv * n_splits * (group * D + 2 * group),
-                     dtype=torch.float32, device=q.device)
+    row = -(-(group * D + 2 * group) // 4) * 4  # a split's floats
+    ws = torch.empty(B * H_kv * n_splits * row, dtype=torch.float32,
+                     device=q.device)
+    arrivals = _arrival_counters(q.device, B * H_kv)
     strides = (ctypes.c_longlong * 10)(
         *q.stride()[:2], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *out.stride()[:2])
@@ -131,7 +156,8 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         err = _lib.flash_decode_launch(
             int(q.dtype == torch.bfloat16), D, q.data_ptr(),
             k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-            ws.data_ptr(), out.data_ptr(), B, H, H_kv, S_max, n_splits,
+            ws.data_ptr(), arrivals.data_ptr(), out.data_ptr(), B, H, H_kv,
+            S_max, n_splits,
             split_len, 1.0 / math.sqrt(D), strides, stream)
     if err != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: CUDA error "
@@ -149,8 +175,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     (B, H, d) in q's dtype.
 
     CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128,
-    256; group x head dim at most 2560); CPU tensors run the plain
-    version.  Any other device raises."""
+    256; a group of at most 16 query heads in bfloat16, group x head dim
+    at most 2560 in float32); CPU tensors run the plain version.  Any
+    other device raises."""
     _check(q, k_cache, v_cache, cache_len)
     if q.device.type == "cpu":
         return ref_decode(q, k_cache, v_cache, cache_len)

@@ -3,19 +3,21 @@ wrapper.
 
 Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py:
 _flash_kernel``.  The CUDA source is ``csrc/flash_attention.cu``: one
-block per (batch, head, 64-query tile) walks the K/V tiles from the first
-its rows can see (0, or the window's start) up to the diagonal with an
-online softmax in float32 registers - bfloat16 inputs on
-the tensor cores (``mma.sync``, float32 accumulation), float32 inputs in
-float32 FMAs on the CUDA cores.  At the serving path's shapes it is bound
-by operations (see the source's note).
+block per (batch, head, query tile) walks the K/V tiles from the first its
+rows can see (0, or the window's start) up to the diagonal with an online
+softmax in float32 registers - bfloat16 inputs on the tensor cores
+(``mma.sync`` fed by ``ldmatrix`` from a two-stage ``cp.async`` ring,
+float32 accumulation), float32 inputs in float32 FMAs on the CUDA cores.
+At the serving path's shapes it is bound by operations (see the source's
+note).
 
 The wrapper takes the JAX kernel's layout, q (B, H, S, d) and k/v
 (B, H_kv, S, d), as any strided views whose last dimension is contiguous,
 and returns (B, H, S, d) laid out as a (B, S, H, d) tensor, so the model's
-``out.transpose(1, 2).reshape(B, S, H * d)`` costs no copy.  A CUDA tensor
-launches the kernel (or the call raises); a CPU tensor runs the plain
-version :func:`repro_torch.kernels.ref.ref_attention`.
+``out.transpose(1, 2).reshape(B, S, H * d)`` costs no copy.  A view whose
+rows a 16-byte copy cannot read is copied first (:func:`aligned_rows`).  A
+CUDA tensor launches the kernel (or the call raises); a CPU tensor runs
+the plain version :func:`repro_torch.kernels.ref.ref_attention`.
 ``flash_attention.launches`` counts kernel launches, and only those.
 """
 from __future__ import annotations
@@ -54,6 +56,31 @@ def build() -> str:
     return _build_log
 
 
+#: head dim -> (query rows per block, keys per tile) of the bfloat16
+#: kernel (``MmaTile`` in the source)
+MMA_TILES = {16: (64, 64), 32: (64, 64), 64: (128, 64), 128: (64, 64),
+             256: (64, 32)}
+
+
+def key_tile(head_dim: int) -> int:
+    """Keys per tile of the bfloat16 kernel at ``head_dim``."""
+    return MMA_TILES[head_dim][1]
+
+
+def aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the kernels' 16-byte copies can read its rows: a
+    contiguous last dimension, a 16-byte aligned start, and every other
+    stride (of a dimension longer than 1) a multiple of 16 bytes.  Else a
+    dense copy of it."""
+    step = 16 // t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st % step == 0 for n, st in zip(t.shape[:-1],
+                                                    t.stride()[:-1])
+                    if n > 1)):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            window: Optional[int]) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -82,8 +109,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
-    # the kernel reads rows through strides; only the last dim must be dense
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (aligned_rows(t) for t in (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     if out.numel() == 0:

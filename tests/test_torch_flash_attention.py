@@ -16,7 +16,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    aligned_rows,
+    flash_attention,
+)
 
 ATTN_SHAPES = [
     # (B, H, H_kv, S, D, block_q, block_k): tests/test_kernels.py's shapes
@@ -152,73 +155,123 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         flash_attention(q, k, v, window=0)
 
 
-# (B, H, H_kv, S, D): the edge shapes of the card check - S of 1, a ragged
-# 17 and 1000, whole tiles; head dims 16 to 128; groups 1, 4, 6 and 8
+def test_alignment_rule_copies_only_views_a_16_byte_copy_cannot_read():
+    """The kernels copy rows in 16-byte pieces: a view with an odd row
+    stride or a misaligned start goes through a dense copy, an aligned one
+    (the model's transposed activations and caches) through untouched."""
+    base = torch.arange(2 * 4 * 9 * 72, dtype=torch.float32).reshape(
+        2, 4, 9, 72).to(torch.bfloat16)
+    wide = torch.zeros(2, 4, 9, 67, dtype=torch.bfloat16)
+    f32 = torch.zeros(3, 5, 36)
+    flat = base.flatten()
+    for aligned in (base, base[..., :64], base.transpose(1, 2),
+                    base[:, 1:2], base[:1],
+                    flat[8:8 + 4 * 9 * 64].view(4, 9, 64),  # 16 bytes in
+                    f32[..., :32],            # float32: row stride 36
+                    # a length-1 dimension's stride is never used
+                    torch.zeros(9, 64, dtype=torch.bfloat16).as_strided(
+                        (1, 9, 64), (5, 64, 1))):
+        assert aligned_rows(aligned) is aligned
+    for misaligned in (wide[..., :64],        # row stride 67
+                       base[..., 1:65],       # starts 2 bytes in
+                       flat[3:3 + 4 * 9 * 64].view(4, 9, 64),  # 6 bytes in
+                       f32[..., 2:34],        # float32, starts 8 bytes in
+                       wide.float()[..., :64]):  # float32, row stride 67
+        got = aligned_rows(misaligned)
+        assert got is not misaligned and got.is_contiguous()
+        assert got.data_ptr() % 16 == 0
+        torch.testing.assert_close(got, misaligned, rtol=0, atol=0)
+
+
+def _gpu_check(case, causal, window=None, views=("dense", "model")):
+    """The CUDA kernel against its plain version at one case, in float32
+    and bfloat16, for each layout in ``views``: "dense", "model" (the
+    (B, S, H, d) activations transposed, as the model hands them in) and
+    "odd" (rows 1 element apart past d, which the wrapper must copy)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    B, H, H_kv, S, D, seed = case
+    arrays = _inputs(B, H, H_kv, S, D, seed=seed)
+    before = flash_attention.launches
+    n = 0
+    for dt in DTYPES.values():
+        host = _torch(arrays, dt)
+        expect = ref.ref_attention(*host, causal=causal,
+                                   window=window).float()
+        for view in views:
+            dev = [t.cuda() for t in host]
+            if view == "model":
+                dev = [t.transpose(1, 2).contiguous().transpose(1, 2)
+                       for t in dev]
+            elif view == "odd":
+                pad = [torch.zeros(t.shape[:-1] + (D + 1,), dtype=dt,
+                                   device="cuda") for t in dev]
+                for p_, t in zip(pad, dev):
+                    p_[..., :D] = t
+                dev = [p_[..., :D] for p_ in pad]
+                assert dev[0].stride(2) == D + 1
+            got = flash_attention(*dev, causal=causal, window=window)
+            torch.cuda.synchronize()
+            n += 1
+            np.testing.assert_allclose(
+                got.float().cpu().numpy(), expect.numpy(), **tol(dt),
+                err_msg=f"{case} {dt} causal={causal} window={window} "
+                        f"{view}")
+    assert flash_attention.launches == before + n
+
+
+# (B, H, H_kv, S, D): the edge shapes of the card check - S of 1, ragged
+# S (17, 1000, 2064, 3000: no multiple of the 64- or 32-key tile, nor of
+# the 64- or 128-row query tile), whole tiles; head dims 16 to 256 (256 at
+# 32-key tiles); groups 1, 4, 6, 8 and 10
 GPU_SHAPES = [
     (1, 4, 4, 1, 64), (2, 8, 2, 17, 64), (1, 8, 1, 128, 128),
     (2, 12, 2, 1000, 64), (1, 32, 8, 300, 64), (1, 6, 1, 77, 16),
-    (2, 4, 2, 65, 32), (1, 16, 2, 256, 128),
+    (2, 4, 2, 65, 32), (1, 16, 2, 256, 128), (1, 32, 8, 2064, 64),
+    (1, 10, 1, 3000, 256), (2, 10, 1, 17, 256), (1, 4, 1, 1000, 256),
+    (1, 8, 2, 3000, 128),
 ]
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain_version():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc")
-    before = flash_attention.launches
-    n = 0
-    for i, (B, H, H_kv, S, D) in enumerate(GPU_SHAPES):
-        arrays = _inputs(B, H, H_kv, S, D, seed=10 + i)
-        for dt in DTYPES.values():
-            host = _torch(arrays, dt)
-            dev = [t.cuda() for t in host]
-            # strided: the model's (B, S, H, d) layout, transposed
-            views = [t.transpose(1, 2).contiguous().transpose(1, 2)
-                     for t in dev]
-            for causal in (True, False):
-                expect = ref.ref_attention(*host, causal=causal).float()
-                for args in (dev, views):
-                    got = flash_attention(*args, causal=causal)
-                    torch.cuda.synchronize()
-                    n += 1
-                    np.testing.assert_allclose(
-                        got.float().cpu().numpy(), expect.numpy(), **tol(dt),
-                        err_msg=f"{(B, H, H_kv, S, D)} {dt} causal={causal}")
-    assert flash_attention.launches == before + n
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("i", range(len(GPU_SHAPES)),
+                         ids=[str(c) for c in GPU_SHAPES])
+def test_cuda_kernel_matches_plain_version(i, causal):
+    _gpu_check(GPU_SHAPES[i] + (10 + i,), causal)
+
+
+# (B, H, H_kv, S, D): a view whose row stride (d + 1) is no multiple of 8
+GPU_ODD_STRIDE_SHAPES = [(2, 8, 2, 100, 64), (1, 10, 1, 300, 256),
+                         (1, 4, 4, 33, 16)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("i", range(len(GPU_ODD_STRIDE_SHAPES)),
+                         ids=[str(c) for c in GPU_ODD_STRIDE_SHAPES])
+def test_cuda_kernel_copies_views_it_cannot_read_in_16_bytes(i):
+    _gpu_check(GPU_ODD_STRIDE_SHAPES[i] + (50 + i,), True, views=("odd",))
 
 
 # (B, H, H_kv, S, D, window): recurrentgemma-2b's MQA at head dim 256 with
 # its window of 2048 past it and short of it; blocks at exactly i = window
 # (windows of 64 and 128, a multiple of the 64-row block) and straddling
-# it (windows of 1, 100 and 200)
+# it (windows of 1, 100 and 200); windows no multiple of the 32-key tile
+# at head dim 256 (33, 95)
 GPU_WINDOW_CASES = [
     (1, 10, 1, 3000, 256, 2048), (1, 10, 1, 2047, 256, 2048),
     (2, 4, 1, 300, 256, 64), (1, 8, 2, 257, 64, 128),
     (1, 6, 1, 77, 128, 1), (2, 10, 1, 500, 256, 100),
-    (1, 4, 4, 200, 16, 200),
+    (1, 4, 4, 200, 16, 200), (1, 10, 1, 1000, 256, 33),
+    (1, 32, 8, 2064, 64, 95),
 ]
 
 
 @pytest.mark.gpu
-def test_cuda_kernel_windowed_and_head_dim_256_match_plain_version():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc")
-    before = flash_attention.launches
-    n = 0
-    for i, (B, H, H_kv, S, D, window) in enumerate(GPU_WINDOW_CASES):
-        arrays = _inputs(B, H, H_kv, S, D, seed=30 + i)
-        for dt in DTYPES.values():
-            host = _torch(arrays, dt)
-            dev = [t.cuda().transpose(1, 2).contiguous().transpose(1, 2)
-                   for t in host]
-            for causal in (True, False):
-                expect = ref.ref_attention(*host, causal=causal,
-                                           window=window).float()
-                got = flash_attention(*dev, causal=causal, window=window)
-                torch.cuda.synchronize()
-                n += 1
-                np.testing.assert_allclose(
-                    got.float().cpu().numpy(), expect.numpy(), **tol(dt),
-                    err_msg=f"{(B, H, H_kv, S, D)} {dt} causal={causal} "
-                            f"window={window}")
-    assert flash_attention.launches == before + n
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("i", range(len(GPU_WINDOW_CASES)),
+                         ids=[str(c) for c in GPU_WINDOW_CASES])
+def test_cuda_kernel_windowed_and_head_dim_256_match_plain_version(i,
+                                                                   causal):
+    *shape, window = GPU_WINDOW_CASES[i]
+    _gpu_check(tuple(shape) + (30 + i,), causal, window, views=("model",))
