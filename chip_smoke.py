@@ -47,18 +47,22 @@ no result line):
    2nd, then ``ContinuousBatcher`` (8 slots, max_len 2048) over 16
    requests of 512 tokens x 32 new; the same checks, with exactly 18
    ``rglru_scan`` + 8 ``flash_attention`` launches per prefill and 18
-   ``rglru_scan`` + 8 ``flash_decode`` per decode step.  Then the three
-   kernels against their plain versions on the full-width tensors the
-   path handed them, with their times, bounds and the library call's;
+   ``rglru_scan`` + 8 ``flash_decode`` per decode step, and every
+   kernel's launches printed by shape (prefill length, decode batch).
+   Then the three kernels against their plain versions on the full-width
+   tensors the path handed them (the recurrence at decode, batch 8 and 1,
+   at the batcher's 512-token prefill and at the longest prefill), with
+   their times, bounds and the library call's;
 8. the attention-free serving path - rwkv6-7b at full width (32 layers of
    RWKV-6 time mix, 64 heads x 64, and channel mix 14336; d_model 4096,
    vocab 65,536, bf16, random seeded weights on the card) behind the same
    fleet: 5 requests of 17-4096 prompt tokens x 16 new with v2 pushed
    before the 3rd, then ``ContinuousBatcher`` (8 slots, max_len 1024)
    over 16 requests of 512 tokens x 32 new; the same checks, with exactly
-   32 ``wkv6`` launches per prefill and per decode step.  Then the kernel
-   against its plain version on the full-width tensors the path handed
-   it, with its times and bound;
+   32 ``wkv6`` launches per prefill and per decode step, printed by
+   shape.  Then the kernel against its plain version on the full-width
+   tensors the path handed it (decode at batch 8 and 1, the 512-token and
+   the longest prefill), with its times and bound;
 9. the card against the CPU on the models - the three models' smoke
    configs in float32 on the same weights: logits agree, greedy and
    served tokens are equal.
@@ -69,6 +73,7 @@ before it, a JSON object describing every kernel; the last line,
 """
 from __future__ import annotations
 
+import collections
 import copy
 import gc
 import json
@@ -81,10 +86,11 @@ from pathlib import Path
 import numpy as np
 
 #: H100 SXM device memory rate, float32 rate outside the tensor cores and
-#: dense bf16 tensor-core rate (NVIDIA's data sheet, at the full 700 W
-#: power limit).
+#: dense TF32 and bf16 tensor-core rates (NVIDIA's data sheet, at the full
+#: 700 W power limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_TF32_OPS_PER_S = 495e12
 PEAK_BF16_OPS_PER_S = 989e12
 
 GRID = dict(variants=("compartmentalized",),
@@ -130,12 +136,15 @@ SERVE = {
 #: (tests/test_torch_rglru_scan.py states the same 1e-5); bfloat16: one
 #: rounding of the output, as ATTN_TOL.
 SCAN_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (4e-3, 1e-2)}
-#: recurrentgemma's edge cases: rglru_scan (B, S, D); windowed flash
+#: recurrentgemma's edge cases: rglru_scan (B, S, D) (3000 and 515 end in
+#: a ragged chunk of the one-launch kernel's plan: 56 of 128 steps, 3);
+#: windowed flash
 #: attention (B, H, H_kv, S, d, window) past, at and short of the 2048
 #: window, with 64-row query blocks at exactly i = window (64, 128) and
 #: straddling it (1, 100); flash decode (B, H, H_kv, S_max, d)
 RG_SCAN_CASES = ([(b, s, 2560) for b in (1, 8) for s in (1, 17, 77, 4096)]
-                 + [(3, 129, 77), (1, 300, 1)])
+                 + [(3, 129, 77), (1, 300, 1), (1, 3000, 2560),
+                    (1, 515, 2560)])
 RG_WINDOW_CASES = ([(1, 10, 1, s, 256, 2048)
                     for s in (1, 17, 2047, 2048, 2049, 3000)]
                    + [(2, 4, 1, 300, 256, 64), (1, 8, 2, 257, 64, 128),
@@ -152,11 +161,21 @@ RG_DECODE_CASES = [(1, 10, 1, 2048, 256), (8, 10, 1, 2048, 256),
 #: of it).  As tests/test_torch_wkv6.py.
 WKV_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (1e-5, 1e-2)}
 #: rwkv6-7b's WKV edge cases: (B, S) at its 64 heads of 64 - decode, S
-#: short of, at and past the kernel's 32-step stage, ragged, the longest
-#: prompt; each from a zero and a given state, with logw from the
-#: model's range, at its -5 clamp everywhere and at 0 (no decay: the
-#: state grows with S)
-WKV_CASES = [(b, s) for b in (1, 8) for s in (1, 31, 32, 33, 100, 4096)]
+#: short of, at and past the kernel's 32-step chunk and two chunks,
+#: ragged, the longest prompt; each from a zero and a given state, with
+#: logw from the model's range, at its -5 clamp everywhere (chunk totals
+#: of -160, the recentring's edge), at 0 (no decay: the state grows with
+#: S) and at -20 (totals past the recentring's range: chunks evaluated
+#: step by step)
+WKV_CASES = [(b, s) for b in (1, 8) for s in (1, 31, 32, 33, 64, 100, 4096)]
+WKV_LOGW = (None, -5.0, 0.0, -20.0)
+#: ... and at large k and v: (B, S, logw, scale of k and v), at the clamp
+#: and at chunk totals of -164 (recentred factors near exp(80) and
+#: exp(82) times |k|: the state update's products must stay as small as
+#: the serial form's), and with factors past FACTOR_MAX there (those
+#: chunks go step by step)
+WKV_LARGE = [(1, 100, -5.0, 100.0), (1, 100, -5.125, 30.0),
+             (1, 100, -5.125, 1000.0)]
 
 
 def _mixes(P):
@@ -642,6 +661,7 @@ def _scan_record(RS, ref, x, a, h0, flush) -> dict:
     """``rglru_scan`` on full-width tensors the path handed it: against its
     plain version, with its times and bound (no PyTorch call computes the
     recurrence).  Returns the kernel's record."""
+    import torch
     want = ref.ref_rglru(x, a, h0)
     got = RS.rglru_scan(x, a, h0)
     err = _close("rglru_scan", got, want, f"full width {tuple(x.shape)}",
@@ -652,10 +672,16 @@ def _scan_record(RS, ref, x, a, h0, flush) -> dict:
         ms=_time_graph_ms(lambda: RS.rglru_scan(x, a, h0), flush, 20),
         plain_ms=_time_graph_ms(lambda: ref.ref_rglru(x, a, h0), flush, 3),
         library_ms=None, bound_ms=bound, bound_by=by)
+    # the replays left the ticket, counter and flags at zero
+    if not torch.equal(RS.rglru_scan(x, a, h0), got):
+        raise AssertionError("rglru_scan after its graph replays differs "
+                             "from its first call")
     print(f"kernel rglru_scan at {tuple(x.shape)} {x.dtype}, h0 "
-          f"{'none' if h0 is None else tuple(h0.shape)}: max abs err "
-          f"{err:.3e} = {_tol_ratio(got, want, SCAN_TOL):.3f} of the "
-          f"tolerance; device times (graph replay, cold L2) " +
+          f"{'none' if h0 is None else tuple(h0.shape)}, plan (chunks, "
+          f"steps) {RS.chunk_plan(x.shape[0], x.shape[1], x.shape[2], _n_sms())}"
+          f": max abs err {err:.3e} = {_tol_ratio(got, want, SCAN_TOL):.3f} "
+          f"of the tolerance; bitwise the same after the graph replays; "
+          f"device times (graph replay, cold L2) " +
           ", ".join(f"{k_} {v_:.4f}" for k_, v_ in rec.items()
                     if k_.endswith("ms") and v_ is not None) +
           f" ({by}); no PyTorch call computes the recurrence", flush=True)
@@ -671,20 +697,21 @@ def _wkv_ratio(got, want) -> float:
     return float(((g - w).abs() / (atol * scale + rtol * w.abs())).max())
 
 
-def _wkv_inputs(gen, B, S, dtype, dev, logw=None):
+def _wkv_inputs(gen, B, S, dtype, dev, logw=None, scale=1.0):
     """rwkv6-7b's WKV inputs at its 64 heads of 64: r, k, v (B, S, H, d)
-    in ``dtype`` and logw float32 as strided views
-    of (B, H, S, d) storage, u (H, d), and a given state s0 (B, H, d, d)
-    as a view with a batch stride of 2 H d^2, drawn on the card from
-    ``gen``; logw from the model's range (-exp(N(0, 1) - 1) clamped at
-    -5), or the constant given."""
+    in ``dtype`` (k and v times ``scale``) and logw float32 as strided
+    views of (B, H, S, d) storage, u (H, d), and a given state s0
+    (B, H, d, d) as a view with a batch stride of 2 H d^2, drawn on the
+    card from ``gen``; logw from the model's range (-exp(N(0, 1) - 1)
+    clamped at -5), or the constant given."""
     import torch
     H = D = 64
 
     def draw(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
-    r, k, v = (draw(B, H, S, D).to(dtype).transpose(1, 2) for _ in "rkv")
+    r, k, v = ((draw(B, H, S, D) * (1.0 if x == "r" else scale)).to(dtype)
+               .transpose(1, 2) for x in "rkv")
     if logw is None:
         lw = torch.clamp(-torch.exp(draw(B, H, S, D) - 1.0), min=-5.0)
     else:
@@ -695,10 +722,10 @@ def _wkv_inputs(gen, B, S, dtype, dev, logw=None):
 
 
 def _wkv_edge_cases(WK, ref, dev):
-    """``wkv6`` against its plain version at ``WKV_CASES`` x (zero and a
-    given s0) x (logw from the model's range, -5 everywhere, 0 everywhere)
-    x (float32, bfloat16) x (strided views, contiguous tensors), y and
-    s_last.  Every case runs; then the worst case of a dtype past its
+    """``wkv6`` against its plain version at ``WKV_CASES`` x (logw from
+    the model's range, -5, 0 and -20 everywhere) and at ``WKV_LARGE``, x
+    (zero and a given s0) x (float32, bfloat16) x (strided views,
+    contiguous tensors), y and s_last.  Every case runs; then the worst case of a dtype past its
     tolerance raises.  Returns the number of cases and, by dtype, the
     largest share of the tolerance a case used."""
     import torch
@@ -713,23 +740,24 @@ def _wkv_edge_cases(WK, ref, dev):
             err = float((got.float() - want.float()).abs().max())
             worst[key] = (ratio, f"{what}, max abs err {err:.3e}")
 
-    for B, S in WKV_CASES:
-        for logw in (None, -5.0, 0.0):
-            for dt in (torch.float32, torch.bfloat16):
-                r, k, v, lw, u, s0 = _wkv_inputs(gen, B, S, dt, dev, logw)
-                for start in (None, s0):
-                    want_y, want_s = ref.ref_wkv6(r, k, v, lw, u, start)
-                    for args in ((r, k, v, lw),
-                                 tuple(t.contiguous() for t in (r, k, v,
-                                                                lw))):
-                        y, s_last = WK.wkv6(*args, u, start)
-                        what = (f"wkv6 at {(B, S)} {dt} logw="
-                                f"{'model' if logw is None else logw} s0="
-                                f"{'none' if start is None else 'given'} "
-                                f"{'strided' if args[0] is r else 'dense'}")
-                        close(y, want_y, what)
-                        close(s_last, want_s, what + " (s_last)")
-                        n += 1
+    cases = ([(B, S, logw, 1.0) for B, S in WKV_CASES for logw in WKV_LOGW]
+             + WKV_LARGE)
+    for B, S, logw, scale in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            r, k, v, lw, u, s0 = _wkv_inputs(gen, B, S, dt, dev, logw, scale)
+            for start in (None, s0):
+                want_y, want_s = ref.ref_wkv6(r, k, v, lw, u, start)
+                for args in ((r, k, v, lw),
+                             tuple(t.contiguous() for t in (r, k, v, lw))):
+                    y, s_last = WK.wkv6(*args, u, start)
+                    what = (f"wkv6 at {(B, S)} {dt} logw="
+                            f"{'model' if logw is None else logw} k, v x"
+                            f"{scale:g} s0="
+                            f"{'none' if start is None else 'given'} "
+                            f"{'strided' if args[0] is r else 'dense'}")
+                    close(y, want_y, what)
+                    close(s_last, want_s, what + " (s_last)")
+                    n += 1
     torch.cuda.synchronize()
     for key, (ratio, what) in sorted(worst.items()):
         print(f"  worst {key} case: {ratio:.3f} of the tolerance "
@@ -741,18 +769,33 @@ def _wkv_edge_cases(WK, ref, dev):
     return n, {key: round(r, 3) for key, (r, _) in worst.items()}
 
 
-def _wkv_bound_ms(r, s0):
+def _wkv_bound_ms(r, s0, chunk: int = 32):
     """Least time for the WKV recurrence on this card: r, k, v and logw
-    read, u and s0 read, y and s_last written once, against 5 d^2 + 5 d
-    float32 flops per token and head (the state update's product and FMA,
-    the read-out's FMA, the bonus term)."""
+    read, u and s0 read, y and s_last written once, against the
+    operations.  A prefill's are the chunked form's on the tensor cores:
+    per token and head 4 C d + 4 d^2 flops (the scores and A v over the
+    chunk of C steps, q_in S' and the state update), tripled by the split
+    TF32 products, at the TF32 rate; a decode step's the serial step's
+    5 d^2 + 5 d float32 flops at the float32 rate."""
     B, S, H, D = r.shape
     nbytes = (B * S * H * D * (3 * r.element_size() + 4 + r.element_size())
               + 4 * H * D + 4 * B * H * D * D * (2 if s0 is not None else 1))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (5.0 * D * D + 5.0 * D) * B * S * H / PEAK_F32_OPS_PER_S * 1e3
+    if S > 1:
+        t_ops = (3 * (4.0 * chunk * D + 4.0 * D * D) * B * S * H
+                 / PEAK_TF32_OPS_PER_S * 1e3)
+    else:
+        t_ops = (5.0 * D * D + 5.0 * D) * B * S * H / PEAK_F32_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+def _wkv_serial_ops_ms(r) -> float:
+    """The serial form's 5 d^2 + 5 d float32 flops per token and head at
+    the float32 rate: the bound the WKV row carried before the chunked
+    form, kept beside the new one."""
+    B, S, H, D = r.shape
+    return (5.0 * D * D + 5.0 * D) * B * S * H / PEAK_F32_OPS_PER_S * 1e3
 
 
 def _wkv_record(WK, ref, r, k, v, logw, u, s0, flush) -> dict:
@@ -769,21 +812,33 @@ def _wkv_record(WK, ref, r, k, v, logw, u, s0, flush) -> dict:
                              f"width {tuple(r.shape)}: max abs err "
                              f"{err:.3e}, {used:.3f} of (atol, rtol) "
                              f"{WKV_TOL[str(y.dtype)]}")
-    bound, by = _wkv_bound_ms(r, s0)
+    bound, by = _wkv_bound_ms(r, s0, WK.CHUNK[r.shape[-1]])
     rec = dict(
         max_abs_err=err,
         ms=_time_graph_ms(lambda: WK.wkv6(r, k, v, logw, u, s0), flush, 20),
         plain_ms=_time_graph_ms(lambda: ref.ref_wkv6(r, k, v, logw, u, s0),
                                 flush, 3),
         library_ms=None, bound_ms=bound, bound_by=by)
+    again = WK.wkv6(r, k, v, logw, u, s0)
+    if not (torch.equal(again[0], y) and torch.equal(again[1], s_last)):
+        raise AssertionError("wkv6 after its graph replays differs from its "
+                             "first call")
     print(f"kernel wkv6 at {tuple(r.shape)} {r.dtype}, s0 "
-          f"{'none' if s0 is None else tuple(s0.shape)}: max abs err "
-          f"{err:.3e} = {used:.3f} of the tolerance; device times (graph "
-          f"replay, cold L2) " +
+          f"{'none' if s0 is None else tuple(s0.shape)}, plan (chunk, "
+          f"columns) {WK.plan(r.shape[1], r.shape[3])}: max abs "
+          f"err {err:.3e} = {used:.3f} of the tolerance; bitwise the same "
+          f"after the graph replays; device times (graph replay, cold L2) " +
           ", ".join(f"{k_} {v_:.4f}" for k_, v_ in rec.items()
                     if k_.endswith("ms") and v_ is not None) +
-          f" ({by}); no PyTorch call computes the recurrence", flush=True)
+          f" ({by}; the serial form's float32 flops would bound it at "
+          f"{_wkv_serial_ops_ms(r):.4f}); no PyTorch call computes the "
+          f"recurrence", flush=True)
     return rec
+
+
+def _n_sms() -> int:
+    import torch
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def _greedy(cfg, params, prompt, max_new: int, device):
@@ -860,26 +915,40 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
     caught = {}
     real = {name: getattr(ops, name) for name in kernels}
 
+    # calls (one launch each) by shape: prefill length or decode batch
+    by_shape = {name: collections.Counter() for name in kernels}
+
+    def label(seq, batch_):
+        return f"decode b{batch_}" if seq == 1 else f"prefill {seq}"
+
     def catch_rs(x, a, h0=None):
+        by_shape["rglru_scan"][label(x.shape[1], x.shape[0])] += 1
         if x.shape[1] == 1:
             caught[f"rglru_scan{x.shape[0]}"] = (x, a, h0)
         elif x.shape[1] == max(prompts):
             caught.setdefault("rglru_scan", (x, a, h0))
+        elif x.shape[1] == 512:
+            caught.setdefault("rglru_scan_p512", (x, a, h0))
         return real["rglru_scan"](x, a, h0)
 
     def catch_wkv(r, k, v, logw, u, s0=None):
+        by_shape["wkv6"][label(r.shape[1], r.shape[0])] += 1
         if r.shape[1] == 1:
             caught[f"wkv6{r.shape[0]}"] = (r, k, v, logw, u, s0)
         elif r.shape[1] == max(prompts):
             caught.setdefault("wkv6", (r, k, v, logw, u, s0))
+        elif r.shape[1] == 512:
+            caught.setdefault("wkv6_p512", (r, k, v, logw, u, s0))
         return real["wkv6"](r, k, v, logw, u, s0)
 
     def catch_fa(q, k, v, *, causal=True, window=None):
+        by_shape["flash_attention"][label(q.shape[2], q.shape[0])] += 1
         if q.shape[2] == max(prompts):
             caught.setdefault("flash_attention", (q, k, v, causal, window))
         return real["flash_attention"](q, k, v, causal=causal, window=window)
 
     def catch_fd(q, k_cache, v_cache, cache_len):
+        by_shape["flash_decode"][label(1, q.shape[0])] += 1
         caught[f"flash_decode{q.shape[0]}"] = (q, k_cache, v_cache,
                                                cache_len)
         return real["flash_decode"](q, k_cache, v_cache, cache_len)
@@ -978,12 +1047,21 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
     # recurrences the prefill's, the longest
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     records = {}
+    nb = batch["n_slots"]
     for name, record in (("rglru_scan", _scan_record),
                          ("wkv6", _wkv_record)):
         if name in ran:
-            for key in (f"{name}{batch['n_slots']}", f"{name}1", name):
-                records[name] = record(kernels[name], ref, *caught[key],
-                                       flush)
+            # decode at the batcher's slots and at batch 1, the batcher's
+            # 512-token prefill, then the longest prefill (the row's own)
+            shapes = {}
+            for key, what in ((f"{name}{nb}", f"decode b{nb}"),
+                              (f"{name}1", "decode b1"),
+                              (f"{name}_p512", "prefill 512"),
+                              (name, f"prefill {max(prompts)}")):
+                rec = record(kernels[name], ref, *caught[key], flush)
+                shapes[what] = {k_: rec[k_] for k_ in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+            records[name] = dict(rec, shapes=shapes)
     if "flash_attention" in ran:
         records["flash_attention"] = _prefill_record(
             kernels["flash_attention"], ref, *caught["flash_attention"],
@@ -993,6 +1071,10 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
                 kernels["flash_decode"], ref, *caught[key], flush)
     for name in records:
         records[name]["launches"] = total[name]
+        records[name]["launches_by_shape"] = dict(by_shape[name])
+    print(f"serve: {cfg.name} launches by shape (prefill length, decode "
+          f"batch): " + "; ".join(f"{name} {dict(by_shape[name])}"
+                                  for name in ran), flush=True)
     return records
 
 
@@ -1002,7 +1084,7 @@ def _model_cuda_vs_cpu(dev, arch: str) -> None:
     equal.  recurrentgemma-2b's smoke window of 8 is shorter than the
     40-token prompt, so the window mask, the ring-buffer roll and its
     wrap in decode all run; rwkv6-7b's 40 tokens pass the kernel's 32-step
-    stage, at head dim 16."""
+    chunk, at head dim 16."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params
@@ -1113,7 +1195,7 @@ def main() -> int:
     n_wkv, used = _wkv_edge_cases(WK, ref, dev)
     print(f"kernel check: wkv6 (WKV_TOL {WKV_TOL}, atol relative to the "
           f"output's scale) within tolerance of its plain version in "
-          f"{n_wkv} edge cases (B 1/8, S 1-4096, logw model/-5/0, s0 zero "
+          f"{n_wkv} edge cases (B 1/8, S 1-4096, logw model/-5/0/-20, s0 zero "
           f"and given, strided and dense; y and s_last), using at most "
           f"{used} of it", flush=True)
 

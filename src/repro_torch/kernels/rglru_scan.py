@@ -1,26 +1,30 @@
 """RG-LRU linear recurrence: the hand-written CUDA kernel and its wrapper.
 
 Replaces the Pallas kernel ``src/repro/kernels/rglru_scan.py:
-_rglru_kernel``.  The CUDA source is ``csrc/rglru_scan.cu``: the sequence
-is cut into chunks that run in parallel (a per-chunk summary pass, a carry
-pass over the chunk boundaries, then the scan itself), one thread per
-channel with coalesced loads.  It is bound by the bytes of x, a and h (see
-the source's note).
+_rglru_kernel``.  The CUDA source is ``csrc/rglru_scan.cu``: one launch
+in which the sequence is cut into chunks that run in parallel, each block
+(taking its chunk in order from an atomic ticket) staging its chunk of x
+and a once by the copy engine, publishing the chunk's summary and folding
+the earlier chunks' summaries in chunk order into the state entering its
+chunk.  :func:`chunk_plan` sizes the chunks.  It is bound by the bytes of
+x, a and h (see the source's note).
 
 The wrapper takes x and a (B, S, D), float32 or bfloat16 alike, as strided
 views whose last dimension is contiguous, and an optional float32 starting
 state h0 (B, D), and returns a dense (B, S, D) tensor in x's dtype with
 ``h_t = a_t h_{t-1} + x_t`` (``h_{-1} = h0``, or 0; float32 carry).  A
-decode step (S = 1) is one launch computing ``a h0 + x``.  A CUDA tensor launches the kernel (or the call raises); a
-CPU tensor runs the plain version :func:`repro_torch.kernels.ref.ref_rglru`.
-``rglru_scan.launches`` counts launches (one per call: the three passes
-together), and only those.
+decode step (S = 1) is one launch computing ``a h0 + x``.  The wrapper
+owns the kernel's ticket, counter and flags, one zeroed int32 buffer per
+device that every launch leaves zeroed.  A CUDA tensor launches the kernel
+(or the call raises); a CPU tensor runs the plain version
+:func:`repro_torch.kernels.ref.ref_rglru`.  ``rglru_scan.launches`` counts
+launches (one per call), and only those.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -28,12 +32,18 @@ from ._build import build_library
 from .ref import ref_rglru
 
 DTYPES = (torch.float32, torch.bfloat16)
-THREADS = 128       # channels per block in the kernel
-MIN_CHUNK = 32      # steps per chunk at the least
-BLOCKS_PER_SM = 8   # chunks are cut to fill the card about this many times
+CHANNELS = 32       # channels a block of the kernel
+CHUNKS = (128, 32)  # steps a chunk, the longest that fills the card
+MAX_CHUNK = 256     # steps a chunk at most (a copy-engine box)
+MAX_CHUNKS = 64     # chunks of a sequence, until that takes MAX_CHUNK
+BLOCKS_PER_SM = 2   # the grid covers the card about this many times
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
+#: device -> the kernel's zeroed int32 ticket, counter and flags; a grown
+#: buffer keeps the old ones alive, since a captured CUDA graph may still
+#: point at them
+_counters: Dict[torch.device, List[torch.Tensor]] = {}
 
 
 def build() -> str:
@@ -44,11 +54,8 @@ def build() -> str:
         return _build_log
     lib, _build_log = build_library("rglru_scan.cu")
     fn = lib.rglru_scan_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     _lib = lib
     return _build_log
@@ -56,14 +63,33 @@ def build() -> str:
 
 def chunk_plan(batch: int, seq: int, width: int, n_sms: int
                ) -> Tuple[int, int]:
-    """(n_chunks, chunk): as many chunks of at least ``MIN_CHUNK`` steps as
-    it takes for ``batch x channel blocks x n_chunks`` to reach about
-    ``BLOCKS_PER_SM`` blocks per SM; one chunk when S is short."""
-    channel_blocks = -(-width // THREADS)
-    want = -(-BLOCKS_PER_SM * n_sms // max(1, batch * channel_blocks))
-    n_chunks = max(1, min(want, seq // MIN_CHUNK))
-    chunk = -(-seq // n_chunks)
+    """(n_chunks, chunk) of one launch over ``batch`` sequences of ``seq``
+    steps and ``width`` channels: the longest chunk of ``CHUNKS`` whose
+    ``batch x channel blocks x n_chunks`` blocks cover the ``n_sms`` SMs
+    ``BLOCKS_PER_SM`` times, else the shortest; past ``MAX_CHUNKS`` chunks
+    of the longest, chunks grow (in steps of 32) up to ``MAX_CHUNK``.  A
+    decode step (S = 1) is one chunk of one step."""
+    if seq <= 1:
+        return 1, 1
+    channel_blocks = -(-width // CHANNELS)
+    chunk = CHUNKS[-1]
+    for cand in CHUNKS:
+        if batch * channel_blocks * -(-seq // cand) >= BLOCKS_PER_SM * n_sms:
+            chunk = cand
+            break
+    if -(-seq // chunk) > MAX_CHUNKS:
+        chunk = min(MAX_CHUNK, 32 * -(-seq // (32 * MAX_CHUNKS)))
     return -(-seq // chunk), chunk
+
+
+def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 counters on ``device`` (the kernel
+    leaves them zeroed)."""
+    bufs = _counters.setdefault(device, [])
+    if not bufs or bufs[-1].numel() < n:
+        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
+                                device=device))
+    return bufs[-1]
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,6 +122,7 @@ def _check(x: torch.Tensor, a: torch.Tensor,
 
 def _launch(x: torch.Tensor, a: torch.Tensor,
             h0: Optional[torch.Tensor]) -> torch.Tensor:
+    """One counted launch."""
     B, S, D = x.shape
     x, a = (t if t.stride(-1) == 1 else t.contiguous() for t in (x, a))
     if h0 is not None and h0.stride(-1) != 1:
@@ -105,16 +132,33 @@ def _launch(x: torch.Tensor, a: torch.Tensor,
         return out
     build()
     n_chunks, chunk = chunk_plan(B, S, D, _n_sms(x.device))
-    ws = (torch.empty(3 * B * n_chunks * D, dtype=torch.float32,
-                      device=x.device) if n_chunks > 1 else None)
+    ws = counters = None
+    if S > 1:
+        ws = torch.empty(2 * B * n_chunks * D, dtype=torch.float32,
+                         device=x.device)
+        counters = _counter_buffer(
+            x.device, 2 + B * -(-D // CHANNELS) * n_chunks)
+    step = 16 // x.element_size()
+    vec = int(D % step == 0 and all(
+        t.data_ptr() % 16 == 0 and all(st % step == 0 for n, st in
+                                       zip(t.shape[:2], t.stride()[:2])
+                                       if n > 1)
+        for t in (x, a)) and (
+            S > 1 or h0 is None or (h0.data_ptr() % 16 == 0
+                                    and (B == 1 or h0.stride(0) % 4 == 0))))
     strides = (ctypes.c_longlong * 5)(*x.stride()[:2], *a.stride()[:2],
                                       h0.stride(0) if h0 is not None else 0)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib.rglru_scan_launch(
             int(x.dtype == torch.bfloat16), x.data_ptr(), a.data_ptr(),
-            h0.data_ptr() if h0 is not None else None, out.data_ptr(), ws.data_ptr() if ws is not None else None, B, S,
-            D, n_chunks, chunk, strides, stream)
+            h0.data_ptr() if h0 is not None else None, out.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            counters.data_ptr() if counters is not None else None, vec, B,
+            S, D, n_chunks, chunk, strides, stream)
+    if err == -2:
+        raise RuntimeError("rglru_scan: the driver refused the tensor maps "
+                           "of x and a (cuTensorMapEncodeTiled)")
     if err != 0:
         raise RuntimeError(f"rglru_scan kernel launch failed: CUDA error "
                            f"{err}")

@@ -1,22 +1,26 @@
 """RWKV-6 WKV recurrence: the hand-written CUDA kernel and its wrapper.
 
 Replaces the Pallas kernel ``src/repro/kernels/rwkv6_scan.py:
-_wkv6_kernel``.  The CUDA source is ``csrc/wkv6.cu``: a block owns
-(batch, head, 16 value columns of the d x d state), 8 threads share a
-column with its rows in registers, and the sequence is walked step by
-step in stages staged through shared memory.  It is bound by its float32
-operations (see the source's note).
+_wkv6_kernel``.  The CUDA source is ``csrc/wkv6.cu``: a prefill runs the
+chunked form on the tensor cores in split TF32, a block of 16 warps per
+(batch, head, ``COLUMNS[d]`` value columns of the d x d state) walking
+chunks of ``CHUNK[d]`` steps (a chunk whose decays or factors leave
+float32's range is evaluated step by step), producer warps preparing each
+next chunk while consumer warps hold the state in registers; a decode step
+(S = 1) is a kernel of its own, one pass over the state.  Both are bound
+by bytes (see the source's note).
 
 The wrapper takes the model's layout: r, k, v (B, S, H, d), float32 or
 bfloat16 alike, logw (B, S, H, d) float32, as strided views whose last
-dimension is contiguous; u (H, d) float32; an optional float32 starting
-state s0 (B, H, d, d).  It returns ``(y, s_last)``: y a dense (B, S, H, d)
-tensor in r's dtype, s_last a new dense float32 (B, H, d, d) tensor (s0
-is never written: the serving code reads caches again after a step).  A
-decode step (S = 1) is one launch from s0.  A CUDA tensor launches the
-kernel (or the call raises); a CPU tensor runs the plain version
-:func:`repro_torch.kernels.ref.ref_wkv6`.  ``wkv6.launches`` counts
-launches, and only those.
+dimension is contiguous (a view whose rows a 16-byte copy cannot read is
+copied first, ``flash_attention.aligned_rows``); u (H, d) float32; an
+optional float32 starting state s0 (B, H, d, d).  It returns
+``(y, s_last)``: y a dense (B, S, H, d) tensor in r's dtype, s_last a new
+dense float32 (B, H, d, d) tensor (s0 is never written: the serving code
+reads caches again after a step).  A decode step (S = 1) is one launch
+from s0.  A CUDA tensor launches the kernel (or the call raises); a CPU
+tensor runs the plain version :func:`repro_torch.kernels.ref.ref_wkv6`.
+``wkv6.launches`` counts launches, and only those.
 """
 from __future__ import annotations
 
@@ -26,10 +30,24 @@ from typing import Optional, Tuple
 import torch
 
 from ._build import build_library
+from .flash_attention import aligned_rows
 from .ref import ref_wkv6
 
 DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
+#: steps per chunk of the prefill kernel, by head dim
+CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
+#: value columns a prefill block owns, by head dim (rwkv6-7b's 64 heads of
+#: 64 at batch 1 make 128 blocks, one an SM)
+COLUMNS = {16: 16, 32: 32, 64: 32, 128: 16}
+#: value columns of a decode block
+STEP_COLS = 16
+#: a chunk with a channel whose summed logw is below this is evaluated
+#: step by step: exp(-TOTAL_MIN / 2) stays within float32
+TOTAL_MIN = -165.0
+#: ... as is a chunk with a recentred factor q_in or k_in past this (its
+#: TF32 parts stay finite)
+FACTOR_MAX = 1e38
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
@@ -43,12 +61,22 @@ def build() -> str:
         return _build_log
     lib, _build_log = build_library("wkv6.cu")
     fn = lib.wkv6_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
     return _build_log
+
+
+def plan(seq: int, head_dim: int) -> Tuple[int, int]:
+    """(steps a chunk, value columns a block) of a launch, as the kernel
+    takes them: a decode step (S = 1) is one step over blocks of
+    ``STEP_COLS`` columns, a prefill chunks of ``CHUNK[head_dim]`` steps
+    over blocks of ``COLUMNS[head_dim]`` columns."""
+    if seq == 1:
+        return 1, STEP_COLS
+    return CHUNK[head_dim], COLUMNS[head_dim]
 
 
 def _check(r, k, v, logw, u, s0) -> None:
@@ -78,14 +106,16 @@ def _check(r, k, v, logw, u, s0) -> None:
 
 
 def _launch(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One counted launch."""
     B, S, H, D = r.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"the wkv6 kernel takes head dims {HEAD_DIMS}: {D}")
-    r, k, v, logw = (t if t.stride(-1) == 1 else t.contiguous()
-                     for t in (r, k, v, logw))
+    r, k, v, logw = (aligned_rows(t) for t in (r, k, v, logw))
     u = u.contiguous()
-    if s0 is not None and (s0.stride(-1) != 1 or s0.stride(-2) != D):
-        s0 = s0.contiguous()
+    if s0 is not None and (s0.stride(-1) != 1 or s0.stride(-2) != D
+                           or s0.data_ptr() % 16 or s0.stride(0) % 4
+                           or s0.stride(1) % 4):
+        s0 = s0.clone(memory_format=torch.contiguous_format)
     y = torch.empty((B, S, H, D), dtype=r.dtype, device=r.device)
     s_last = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
     build()
@@ -99,6 +129,9 @@ def _launch(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
             v.data_ptr(), logw.data_ptr(), u.data_ptr(),
             s0.data_ptr() if s0 is not None else None, y.data_ptr(),
             s_last.data_ptr(), B, S, H, strides, stream)
+    if err == -2:
+        raise RuntimeError("wkv6: the driver refused the prefill's tensor "
+                           "maps (cuTensorMapEncodeTiled)")
     if err != 0:
         raise RuntimeError(f"wkv6 kernel launch failed: CUDA error {err}")
     wkv6.launches += 1

@@ -19,8 +19,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import (  # noqa: E402
-    MIN_CHUNK,
-    THREADS,
+    CHANNELS,
+    CHUNKS,
+    MAX_CHUNK,
     chunk_plan,
     rglru_scan,
 )
@@ -137,16 +138,111 @@ def test_strided_views_match_contiguous_inputs():
                                atol=0)
 
 
+#: (B, S, D): the main path's (recurrentgemma-2b's prompts and the
+#: batcher's, decode at batch 1 and 8), long, and ragged shapes
+PLAN_SHAPES = [(1, 3000, 2560), (1, 512, 2560), (8, 512, 2560),
+               (1, 2040, 2560), (1, 17, 2560), (1, 1, 2560), (8, 1, 2560),
+               (1, 4096, 2560), (64, 4096, 2560), (1, 100_000, 2560),
+               (1, 17, 77), (3, 129, 1), (2, 33, 63)]
+
+
 def test_chunk_plan_covers_the_sequence():
-    for B, S, D, sms in [(1, 3000, 2560, 132), (1, 4096, 2560, 132),
-                         (8, 1, 2560, 132), (1, 17, 77, 132),
-                         (1, 77, 2560, 132), (64, 4096, 2560, 132)]:
-        n_chunks, chunk = chunk_plan(B, S, D, sms)
+    for B, S, D in PLAN_SHAPES:
+        n_chunks, chunk = chunk_plan(B, S, D, 132)
         assert n_chunks >= 1 and (n_chunks - 1) * chunk < S <= n_chunks * chunk
-        assert n_chunks == 1 or chunk >= MIN_CHUNK
-    # batch 1 at full width: enough chunks to fill the card several times
+        assert 1 <= chunk <= MAX_CHUNK
+        assert S == 1 or chunk in CHUNKS or chunk % 32 == 0
+    # batch 1 at full width: enough blocks to cover the card twice
     n_chunks, _ = chunk_plan(1, 3000, 2560, 132)
-    assert n_chunks * (2560 // THREADS) >= 4 * 132
+    assert n_chunks * (2560 // CHANNELS) >= 2 * 132
+    n_chunks, _ = chunk_plan(1, 512, 2560, 132)
+    assert n_chunks * (2560 // CHANNELS) >= 2 * 132
+
+
+@pytest.mark.parametrize("shape", [s for s in PLAN_SHAPES
+                                   if s[0] * s[1] <= 8 * 4096], ids=str)
+def test_launch_plan_covers_every_step_and_channel_once(shape):
+    """The blocks of one launch, each (ticket -> chunk, b, channel block)
+    as the kernel decodes it, cover every (b, step, channel) exactly once,
+    and every earlier chunk a block folds has a lower ticket."""
+    B, S, D = shape
+    n_chunks, chunk = chunk_plan(B, S, D, 132)
+    n_cb = -(-D // CHANNELS)
+    cover = np.zeros((B, S, D), np.int32)
+    first_ticket = {}
+    for job in range(B * n_cb * n_chunks):
+        c, rest = divmod(job, B * n_cb)
+        b, cb = divmod(rest, n_cb)
+        t0, ch0 = c * chunk, cb * CHANNELS
+        cover[b, t0:t0 + chunk, ch0:ch0 + CHANNELS] += 1
+        first_ticket[(b, cb, c)] = job
+        for q in range(c):
+            assert first_ticket[(b, cb, q)] < job
+    assert (cover == 1).all()
+
+
+def _fold(pairs, h):
+    """h folded through (prod a, h_end) summaries in order."""
+    for p, s in pairs:
+        h = p * h + s
+    return h
+
+
+def _composite(pairs, shape):
+    """(prod a, h_end from 0) of a run of summaries."""
+    p, h = torch.ones(shape), torch.zeros(shape)
+    for pq, hq in pairs:
+        h = pq * h + hq
+        p = p * pq
+    return p, h
+
+
+def _one_pass_model(x, a, h0, chunk, parts=4):
+    """The one-pass kernel's float32 arithmetic: each quarter of a chunk
+    folds its steps from 0 into (prod a, h_end), the quarters fold into
+    the chunk's summary; for chunk c each of ``parts`` runs of summaries
+    0..c-1 folds into a composite, the composites fold in order from h0
+    into the state entering the chunk, and each quarter rescans from the
+    state entering it."""
+    B, S, D = x.shape
+    out = torch.empty_like(x)
+    summaries = []
+    per = -(-chunk // parts)
+    for c, t0 in enumerate(range(0, S, chunk)):
+        xs, as_ = x[:, t0:t0 + chunk], a[:, t0:t0 + chunk]
+        n = xs.shape[1]
+        quarters = []
+        for p in range(parts):
+            steps = range(p * per, min(n, (p + 1) * per))
+            hp, pp = torch.zeros(B, D), torch.ones(B, D)
+            for t in steps:
+                hp = as_[:, t] * hp + xs[:, t]
+                pp = pp * as_[:, t]
+            quarters.append((pp, hp))
+        per_c = -(-c // parts)
+        runs = [_composite(summaries[q * per_c:min(c, (q + 1) * per_c)],
+                           (B, D)) for q in range(parts)]
+        h = _fold(runs, h0.clone() if h0 is not None else torch.zeros(B, D))
+        for p in range(parts):
+            for t in range(p * per, min(n, (p + 1) * per)):
+                h = as_[:, t] * h + xs[:, t]
+                out[:, t0 + t] = h
+        summaries.append(_composite(quarters, (B, D)))
+    return out
+
+
+@pytest.mark.parametrize("S", [1, 31, 33, 200, 3000])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=None", "h0"])
+def test_one_pass_fold_model_matches_plain_version(S, with_h0):
+    """The kernel's order of products, in float32 on the CPU, at the chunk
+    the plan gives recurrentgemma-2b's width, held to the serial
+    recurrence within ``SCAN_TOL``."""
+    x, a = _torch(_inputs(1, S, 256, seed=S, lo=0.3), torch.float32)
+    h0 = (torch.from_numpy(np.random.default_rng(S).standard_normal(
+        (1, 256), dtype=np.float32)) if with_h0 else None)
+    _, chunk = chunk_plan(1, S, 2560, 132)
+    got = _one_pass_model(x, a, h0, chunk)
+    torch.testing.assert_close(got, ref.ref_rglru(x, a, h0), **SCAN_TOL)
 
 
 def test_cpu_dispatch_never_counts_a_launch():
@@ -181,9 +277,13 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         rglru_scan(x, a, h0.to("meta"))
 
 
-# (B, S, D): S of 1, ragged 17 and 77, full chunks; widths 1 to 2560
+# (B, S, D): S of 1, ragged 17 and 77, at and past a chunk border (32,
+# 33, 64, 129), full chunks, long; widths 1 to 2560, some no multiple of a
+# 16-byte piece
 GPU_SHAPES = [(1, 1, 2560), (8, 1, 2560), (1, 17, 77), (8, 77, 2560),
-              (1, 3000, 2560), (1, 4096, 2560), (3, 129, 1)]
+              (1, 3000, 2560), (1, 4096, 2560), (3, 129, 1),
+              (1, 32, 2560), (2, 33, 2560), (1, 64, 2560), (1, 512, 2560),
+              (2, 300, 63)]
 
 
 @pytest.mark.gpu
@@ -209,3 +309,29 @@ def test_cuda_kernel_matches_plain_version():
                     got.float().cpu().numpy(), expect.numpy(), **kw,
                     err_msg=f"{(B, S, D)} {dt} h0={h0 is not None}")
     assert rglru_scan.launches == before + n
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 3000, 2560), (1, 512, 2560),
+                                   (1, 1, 2560), (8, 1, 2560)], ids=str)
+def test_cuda_graph_replays_are_bitwise_equal(shape):
+    """50 replays of one captured launch give the bits of the first: the
+    ticket, counter and flags are back at zero after every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    B, S, D = shape
+    x, a = _torch(_inputs(B, S, D, seed=3), torch.float32, "cuda")
+    h0 = torch.randn(B, D, device="cuda")
+    first = rglru_scan(x, a, h0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rglru_scan(x, a, h0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = rglru_scan(x, a, h0)
+    for _ in range(50):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
