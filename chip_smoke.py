@@ -26,7 +26,23 @@ no result line):
    mixes; every lane must drain and the histogram kernel must launch;
 5. the card against the CPU - the port on ``cuda`` and on ``cpu`` agree on
    a 4-config x 2-seed grid;
-6. the serving path - granite-3-2b at full width (40 layers, d_model
+6. the transient path - the same 32-config grid through
+   ``CompiledSweep.transient`` at 8 seeds x 64 clients x 4000 steps,
+   exponential service, with the leader crash ``autotune`` scripts by
+   default (``Event("leader", 0.4, 0.6, 1e9)``), for both mixes: every
+   lane's histogram mass equals its completions, the ``latency_hist``
+   kernel bins the lanes' latencies once per block of steps (launches
+   counted), each config's seed-mean throughput outside the crash is
+   within 10 % of its bottleneck-law peak and every lane's crash window
+   below it; then ``bottleneck_trace(budget=19)`` (the Fig. 29 staircase,
+   exactly), ``autotune(objective="p99_under_failover")`` on the card,
+   ``autotune_policy`` at ``benchmarks/autoscale.py``'s settings (the
+   numbers of ``BENCH_autoscale.json``, exactly), and the card against
+   the CPU on a 4-config x 2-seed crash grid, deterministic and
+   exponential (flows, completions, histograms, queue sums, throughput
+   and mean latency equal); the kernel against its plain version on a
+   block the path handed it, with its time and bound;
+7. the serving path - granite-3-2b at full width (40 layers, d_model
    2048, bf16, random weights from a seeded generator on the card) behind
    a compartmentalized ``ServingDeployment`` (3 replicas, 3 proxy leaders,
    2x2 grid, 2 clients, linearizable): weights v1, then 8 requests of
@@ -38,7 +54,7 @@ no result line):
    full-width tensors the path handed them, with their times, the
    library call's and their bounds, and the path's prefill and decode
    times;
-7. the recurrent serving path - recurrentgemma-2b at full width (26
+8. the recurrent serving path - recurrentgemma-2b at full width (26
    layers: 18 RG-LRU of width 2560 and 8 local attention of 10/1 heads x
    256 with a 2048-token window; d_model 2560, bf16, random seeded
    weights on the card) behind the same fleet: 5 requests of 17-3000
@@ -53,7 +69,7 @@ no result line):
    tensors the path handed them (the recurrence at decode, batch 8 and 1,
    at the batcher's 512-token prefill and at the longest prefill), with
    their times, bounds and the library call's;
-8. the attention-free serving path - rwkv6-7b at full width (32 layers of
+9. the attention-free serving path - rwkv6-7b at full width (32 layers of
    RWKV-6 time mix, 64 heads x 64, and channel mix 14336; d_model 4096,
    vocab 65,536, bf16, random seeded weights on the card) behind the same
    fleet: 5 requests of 17-4096 prompt tokens x 16 new with v2 pushed
@@ -63,9 +79,9 @@ no result line):
    shape.  Then the kernel against its plain version on the full-width
    tensors the path handed it (decode at batch 8 and 1, the 512-token and
    the longest prefill), with its times and bound;
-9. the card against the CPU on the models - the three models' smoke
-   configs in float32 on the same weights: logits agree, greedy and
-   served tokens are equal.
+10. the card against the CPU on the models - the three models' smoke
+    configs in float32 on the same weights: logits agree, greedy and
+    served tokens are equal.
 
 The line before the last is the card's name and power limit; the line
 before it, a JSON object describing every kernel; the last line,
@@ -97,6 +113,22 @@ GRID = dict(variants=("compartmentalized",),
             n_proxy_leaders=(2, 3, 4, 5, 6, 7, 8, 10), grids=((2, 2),),
             n_replicas=(2, 3, 4, 6))
 EXECUTE = dict(n_commands=2048, seeds=8, n_clients=64, probe_n=96)
+#: The transient phase: the grid's lanes, and the leader crash ``autotune``
+#: ranks deployments under by default (demand x 1e9 over 40-60 % of the run)
+TRANSIENT = dict(n_clients=64, seeds=8, n_steps=4000)
+TRANSIENT_CRASH = ("leader", 0.4, 0.6, 1e9)
+#: bottleneck_trace(budget=19) with the calibrated alpha, the paper's
+#: Fig. 29 staircase: (machines, cmd/s rounded, bottleneck) per rung
+FIG29 = [(3, 25_000, "leader"), (8, 46_296, "proxy"), (9, 69_444, "proxy"),
+         (10, 92_593, "proxy"), (11, 104_167, "leader")]
+#: benchmarks/autoscale.py's deployment, floors and policy grid, whose
+#: autotune_policy run BENCH_autoscale.json records
+AUTOSCALE_CFG = {"variant": "compartmentalized", "f": 1,
+                 "n_proxy_leaders": 8, "grid_rows": 2, "grid_cols": 2,
+                 "n_replicas": 6, "n_batchers": 3, "n_unbatchers": 3}
+AUTOSCALE_FLOORS = (("proxy", 3), ("replica", 2), ("batcher", 2),
+                    ("unbatcher", 2))
+AUTOSCALE_BANDS = ((0.4, 0.65, None), (0.35, 0.6, None), (0.4, 0.65, 1.0))
 #: (atol, rtol) of each attention kernel against its plain version, by
 #: dtype.  float32 as in tests/test_kernels.py:21-23.  bfloat16: both sides
 #: round their output to bf16 (one ulp is at most 2^-7 of a value) and the
@@ -858,7 +890,7 @@ def _greedy(cfg, params, prompt, max_new: int, device):
 
 
 def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
-    """Phases 6-8: ``arch`` at full width behind the compartmentalized
+    """Phases 7-9: ``arch`` at full width behind the compartmentalized
     fleet (weights v1, then one request per prompt length with v2 pushed
     before request ``push_at``), then the continuous batcher.  Every
     kernel's launches are counted over exactly this run and must be one
@@ -1079,7 +1111,7 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
 
 
 def _model_cuda_vs_cpu(dev, arch: str) -> None:
-    """Phase 9: an arch's smoke config in float32 on the same weights, on
+    """Phase 10: an arch's smoke config in float32 on the same weights, on
     the card and on the host: logits agree, greedy and served tokens
     equal.  recurrentgemma-2b's smoke window of 8 is shorter than the
     40-token prompt, so the window mask, the ring-buffer roll and its
@@ -1120,6 +1152,206 @@ def _model_cuda_vs_cpu(dev, arch: str) -> None:
           f"three served requests equal", flush=True)
 
 
+def _transient_grid(P, PT, LH, sweep, alpha, dev):
+    """The transient path's counted run: both mixes through
+    ``CompiledSweep.transient`` with ``latency_hist`` launches counted from
+    0, and a copy of the second block the path handed the kernel (steps
+    1024-2047: past the warmup, the crash begins inside it)."""
+    import torch
+    kernel = PT.latency_hist
+    caught, calls = {}, []
+
+    def catch(samples, valid, edges):
+        if len(calls) == 1:
+            caught.update(samples=samples.clone(), mask=valid.clone(),
+                          edges=edges.clone())
+        calls.append(tuple(samples.shape))
+        return kernel(samples, valid, edges)
+
+    out = []
+    PT.latency_hist = catch
+    try:
+        LH.latency_hist.launches = 0
+        for label, w in _mixes(P):
+            torch.cuda.reset_peak_memory_stats()
+            res = sweep.transient(alpha, workload=w,
+                                  events=[P.Event(*TRANSIENT_CRASH)],
+                                  device=dev, **TRANSIENT)
+            out.append((label, w, res, torch.cuda.max_memory_allocated()))
+        launches = LH.latency_hist.launches
+    finally:
+        PT.latency_hist = kernel
+    return out, launches, caught, calls
+
+
+def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
+    """Phase 6: the transient token engine, autotune and autoscale on the
+    card.  Returns the ``latency_hist`` row of its path."""
+    import torch
+    t_phase = time.perf_counter()
+    runs, launches, caught, calls = _transient_grid(P, PT, LH, sweep, alpha,
+                                                    dev)
+    n_steps = TRANSIENT["n_steps"]
+    per_mix = -(-n_steps // PT.BLOCK_STEPS)
+    if launches != len(runs) * per_mix or len(calls) != launches:
+        raise AssertionError(f"transient: {launches} latency_hist launches "
+                             f"({len(calls)} calls), expected "
+                             f"{len(runs) * per_mix}")
+    for label, w, res, peak_mem in runs:
+        base = sweep.demands(w) / alpha
+        _, bounds = P.build_schedule(base, [P.Event(*TRANSIENT_CRASH)],
+                                     n_steps)
+        if not np.array_equal(res.hist.sum(axis=2), res.completed):
+            raise AssertionError(f"transient {label}: histogram mass != "
+                                 f"completions")
+        for arr in (res.flows, res.throughput, res.latency_mean,
+                    res.latency_p50, res.latency_p99, res.queue_sums):
+            if not np.all(np.isfinite(arr)):
+                raise AssertionError(f"transient {label}: non-finite output")
+        if not np.all(res.completed > 0):
+            raise AssertionError(f"transient {label}: a lane completed "
+                                 f"nothing")
+        peak = sweep.peak_throughput(alpha, w)
+        ratio = res.window_throughput(bounds) / peak[:, None, None]
+        # one lane's window holds ~280 services of its bottleneck, so its
+        # rate is Poisson-noisy (~6 % at one sigma); the seed mean is held
+        # to the bottleneck law
+        mean = ratio.mean(axis=1)
+        outside = mean[:, [0, 2]]
+        if not np.all(np.abs(outside - 1.0) <= 0.10):
+            raise AssertionError(f"transient {label}: seed-mean window "
+                                 f"throughput off the bottleneck law: "
+                                 f"{outside.min():.3f}-{outside.max():.3f}")
+        if not np.all(ratio[:, :, 1] < 1.0):
+            raise AssertionError(f"transient {label}: a lane did not dip "
+                                 f"in the crash window")
+        scan = res.timings["scan"]
+        print(f"transient {label}: {len(res.dt)} configs x "
+              f"{TRANSIENT['seeds']} seeds x {TRANSIENT['n_clients']} "
+              f"clients x {n_steps} steps, leader crash at 40-60 %; scan "
+              f"{scan:.2f} s = {scan / n_steps * 1e3:.3f} ms/step; "
+              f"{per_mix} latency_hist launches of {PT.BLOCK_STEPS} steps; "
+              f"peak device memory {peak_mem / 2**30:.3f} GiB; seed-mean "
+              f"window throughput / bottleneck law: before "
+              f"{mean[:, 0].min():.3f}-{mean[:, 0].max():.3f}, crash "
+              f"{mean[:, 1].min():.3f}-{mean[:, 1].max():.3f}, after "
+              f"{mean[:, 2].min():.3f}-{mean[:, 2].max():.3f}; lanes "
+              f"{ratio[:, :, [0, 2]].min():.3f}-"
+              f"{ratio[:, :, [0, 2]].max():.3f}; p99 "
+              f"{res.latency_p99.min():.4e}-{res.latency_p99.max():.4e} s",
+              flush=True)
+
+    # the kernel on a block the path handed it
+    samples, mask, edges = caught["samples"], caught["mask"], caught["edges"]
+    want = ref.ref_latency_hist(samples, mask, edges)
+    got = LH.latency_hist(samples, mask, edges)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max())
+    if err != 0:
+        raise AssertionError(f"transient latency_hist differs from its "
+                             f"plain version (max {err})")
+    n_valid = int(mask.sum())
+    ms = _time_ms(lambda: LH.latency_hist(samples, mask, edges), 3, 20)
+    plain_ms = _time_ms(lambda: ref.ref_latency_hist(samples, mask, edges),
+                        1, 2)
+    bound_ms, bound_by = _hist_bound_ms(samples, mask, edges, n_valid)
+    print(f"kernel transient: L={samples.shape[0]} N={samples.shape[1]} "
+          f"({PT.BLOCK_STEPS} steps x {TRANSIENT['n_clients']} clients), "
+          f"{n_valid} valid samples; exact; latency_hist {ms:.4f} ms a "
+          f"block, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by})", flush=True)
+    record = dict(launches=launches, max_abs_err=err, ms=ms,
+                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    del samples, mask, edges, caught, runs
+    torch.cuda.empty_cache()
+
+    # autotune: the staircase, and the failover ranking on the card
+    trace = P.bottleneck_trace(budget=19, alpha=alpha, workload=P.Workload())
+    stairs = [(t.machines, round(t.peak), t.bottleneck) for t in trace]
+    if stairs != FIG29:
+        raise AssertionError(f"Fig. 29 staircase differs: {stairs}")
+    t0 = time.perf_counter()
+    tune = P.autotune(19, alpha, objective="p99_under_failover",
+                      transient_kwargs=dict(device=dev))
+    if not (np.isfinite(tune.best_p99) and tune.best_p99 > 0):
+        raise AssertionError(f"autotune p99 {tune.best_p99}")
+    c = tune.best_config
+    print(f"autotune: Fig. 29 staircase exact "
+          f"({' -> '.join(f'{p:,} @ {m} ({b})' for m, p, b in stairs)}); "
+          f"p99_under_failover on the card in "
+          f"{time.perf_counter() - t0:.2f} s picks proxies="
+          f"{c['n_proxy_leaders']} grid={c['grid_rows']}x{c['grid_cols']} "
+          f"replicas={c['n_replicas']} on {tune.machines} machines, p99 "
+          f"{tune.best_p99:.4e} s", flush=True)
+
+    # autoscale: benchmarks/autoscale.py's policy search, to the bit
+    want = json.loads((Path(__file__).resolve().parent
+                       / "BENCH_autoscale.json").read_text())
+    w1 = P.Workload(f_write=1.0)
+    model = P.model_for(dict(AUTOSCALE_CFG), w1)
+    d_w, _, servers = model.demand_slots()
+    k = len(P.STATION_ORDER)
+    base = np.asarray(d_w[:k], dtype=np.float64) / alpha
+    srv = np.asarray(servers[:k], dtype=np.int64)
+    rz = P.resizable_stations("compartmentalized", AUTOSCALE_CFG)
+    policies = tuple(P.AutoscalePolicy(
+        target_low=lo, target_high=hi, cooldown_windows=0,
+        min_counts=AUTOSCALE_FLOORS,
+        **({} if q is None else dict(queue_high=q)))
+        for lo, hi, q in AUTOSCALE_BANDS)
+    t0 = time.perf_counter()
+    pol = P.autotune_policy(
+        policies, base, srv,
+        P.diurnal_load(want["windows"], low=0.15, sharpness=2.0),
+        p99_slack=1.0, seeds=3, n_steps=4800,
+        resizable=[rz] * (len(policies) + 1), device=dev)
+    as_s = time.perf_counter() - t0
+    saved = 1.0 - pol.winner.machine_time / pol.static.machine_time
+    got = {"machine_time_autoscaled": round(pol.winner.machine_time, 4),
+           "machine_time_static": round(pol.static.machine_time, 4),
+           "machine_hours_saved_fraction": round(saved, 4),
+           "peak_p99_autoscaled_s": float(pol.winner.peak_p99),
+           "peak_p99_static_s": float(pol.static.peak_p99),
+           "trough_floor_machines": int(pol.winner.trace.machines.min()),
+           "resizes": len(pol.winner.trace.actions),
+           "winner_policy": pol.winner.policy.describe()}
+    bad = {key: (v, want[key]) for key, v in got.items() if v != want[key]}
+    if bad or pol.winner.machine_time != 17.78125:
+        raise AssertionError(f"autoscale differs from BENCH_autoscale.json:"
+                             f" {bad}, machine time "
+                             f"{pol.winner.machine_time}")
+    print(f"autoscale: autotune_policy at benchmarks/autoscale.py's settings"
+          f" ({want['windows']} windows x 3 seeds x 4800 steps) on the card "
+          f"in {as_s:.2f} s == BENCH_autoscale.json: machine time "
+          f"{pol.winner.machine_time} / {pol.static.machine_time} "
+          f"({got['machine_hours_saved_fraction']} saved), "
+          f"{got['resizes']} resizes, trough floor "
+          f"{got['trough_floor_machines']}, peak p99 "
+          f"{got['peak_p99_autoscaled_s']!r} / {got['peak_p99_static_s']!r}"
+          f" s", flush=True)
+
+    # the card against the CPU on a small crash grid
+    small = P.compile_sweep(P.SweepSpec(n_proxy_leaders=(2, 4),
+                                        grids=((2, 2),), n_replicas=(2, 3)))
+    for expo in (False, True):
+        kw = dict(workload=P.MIXED_50_50, n_clients=16, seeds=2,
+                  n_steps=1200, events=[P.Event(*TRANSIENT_CRASH)],
+                  exponential_service=expo)
+        on_gpu = small.transient(alpha, device=dev, **kw)
+        on_cpu = small.transient(alpha, device="cpu", **kw)
+        for field in ("flows", "completed", "hist", "queue_sums",
+                      "throughput", "latency_mean", "latency_p99"):
+            if not np.array_equal(getattr(on_gpu, field),
+                                  getattr(on_cpu, field)):
+                raise AssertionError(f"transient cuda and cpu runs differ in"
+                                     f" {field} (exponential={expo})")
+    print(f"cuda == cpu on a 4-config x 2-seed transient crash grid, "
+          f"deterministic and exponential (flows, completions, histograms, "
+          f"queue sums, throughput, p99 and mean latency equal); phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return record
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -1129,6 +1361,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import repro_torch.core as P
     from repro_torch.core import batched_execution as PB
+    from repro_torch.core import transient as PT
     from repro_torch.kernels import decode_attention as FD
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import latency_hist as LH
@@ -1296,7 +1529,10 @@ def main() -> int:
           "makespans, msgs/cmd exact; mean latency rtol 1e-9; MVA rtol "
           "1e-5); exponential service drains on the card")
 
-    # -- 6., 7. and 8. the serving paths -----------------------------------
+    # -- 6. the transient path: token engine, autotune, autoscale ----------
+    transient = _transient_phase(P, PT, LH, ref, sweep, alpha, dev)
+
+    # -- 7., 8. and 9. the serving paths -----------------------------------
     served = {}
     for arch, plan in SERVE.items():
         served[arch] = _serve_phase(
@@ -1309,7 +1545,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
-    # -- 9. the card against the CPU on the models --------------------------
+    # -- 10. the card against the CPU on the models -------------------------
     for arch in SERVE:
         _model_cuda_vs_cpu(dev, arch)
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
@@ -1324,7 +1560,11 @@ def main() -> int:
                  source="src/repro_torch/kernels/csrc/latency_hist.cu",
                  replaces="src/repro/kernels/latency_hist.py:23",
                  path="execution", launches=launches, library_ms=None,
-                 **record)]
+                 **record),
+            dict(name="latency_hist", route="cuda",
+                 source="src/repro_torch/kernels/csrc/latency_hist.cu",
+                 replaces="src/repro/kernels/latency_hist.py:23",
+                 path="transient", library_ms=None, **transient)]
     for arch, records in served.items():
         for name, rec in records.items():
             src, tpu = where[name]

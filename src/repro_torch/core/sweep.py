@@ -8,8 +8,9 @@ argue compartmentalization is "a technique, not a protocol", of the
 a grid of configurations into dense demand tensors once
 (:func:`compile_sweep`) and then answers whole-surface questions with
 vectorized numpy (bottleneck law), one batched device loop (full MVA /
-fluid curves), or one batched execution of closed-loop client populations
-(``.execute``) instead of a Python loop over ``DeploymentModel`` objects.
+fluid curves), one batched stochastic step loop (``.transient``), or one
+batched execution of closed-loop client populations (``.execute``)
+instead of a Python loop over ``DeploymentModel`` objects.
 
 Pipeline:
 
@@ -17,6 +18,7 @@ Pipeline:
                --compile_sweep-->  CompiledSweep (demand_write/read [M, K])
                --.peak_throughput/.bottlenecks-->  bottleneck-law surface
                --.mva/.fluid-->  one device loop, X[M, N] curves
+               --.transient-->  one batched step loop, scripted dynamics
                --.execute-->  one batched device execution, measured surface
 
 The variant axis is the **registry** (:mod:`repro_torch.core.api`): every
@@ -37,6 +39,9 @@ Evaluation methods take a :class:`~repro_torch.core.api.Workload` - write
 fraction, per-key skew, arrival pattern, batch-fill hints, passed once -
 with the legacy ``f_write=`` scalar kwarg kept behind a
 ``DeprecationWarning`` shim.
+
+:mod:`repro_torch.core.autotune` builds on this to search the config space
+under a machine budget (including across variants: ``autotune_variants``).
 
 """
 from __future__ import annotations
@@ -60,6 +65,36 @@ from .api import (
 )
 from .sharding import flatten_shards, shard_demands
 from .simulator import fluid_throughput_from_demands, mva_curves_from_demands
+from .transient import (
+    Event,
+    TransientResult,
+    build_schedule,
+    burst_events,
+    simulate_transient,
+)
+
+
+def _sharded_events(events: Sequence[Event], n_stations: int,
+                    n_shards: int) -> List[Event]:
+    """Expand station-named events to every shard's flattened column.
+
+    After :func:`~repro_torch.core.sharding.flatten_shards` the demand columns
+    are ``shard * K + station``; an event naming a station (or a raw
+    single-deployment column index) applies to that station in *every*
+    shard group.  Events already addressing the flattened space (int
+    column >= K) pass through untouched."""
+    out: List[Event] = []
+    for ev in events:
+        col = ev.column()
+        if isinstance(ev.station, int) and ev.station >= n_stations:
+            out.append(ev)  # already a flattened (shard, station) address
+            continue
+        out.extend(
+            Event(station=s * n_stations + col, start=ev.start,
+                  stop=ev.stop, factor=ev.factor)
+            for s in range(n_shards))
+    return out
+
 
 #: SweepSpec fields that are knob value iterables for the built-in
 #: variants (knob name == field name); everything else is sweep plumbing.
@@ -359,6 +394,43 @@ class CompiledSweep:
         return fluid_throughput_from_demands(
             d / alpha, n_clients, sim_time, n_steps, device=device)
 
+    def transient(self, alpha: float, n_clients: int = 64,
+                  workload: Optional[Union[Workload, float]] = None,
+                  f_write: Optional[float] = None,
+                  events: Optional[Sequence[Event]] = None,
+                  sharding: Optional[ShardingSpec] = None,
+                  n_steps: int = 4000, device=None,
+                  **kwargs) -> TransientResult:
+        """Batched stochastic transient run over every config in ONE
+        batched device step loop: (M deployments x S seeds) lanes of the
+        token engine, with optional scripted
+        :class:`~repro_torch.core.transient.Event`s (leader
+        crash, scale-up, ...) applied to the demand tensor mid-run.  A
+        workload with ``arrival="bursty"`` contributes demand-surge
+        windows (composable with explicit events - a crash during a
+        burst is one schedule).  Returns per-window throughput traces and
+        latency p50/p99 - the figure-of-merit surface the autotuner ranks
+        by under faults."""
+        w = resolve_workload(workload, f_write,
+                             where="CompiledSweep.transient")
+        evs = list(events) if events else []
+        if sharding is None:
+            base = self.demands(w) / alpha
+        else:
+            base = flatten_shards(self.demands(w, sharding=sharding)) / alpha
+            evs = _sharded_events(evs, self.demand_write.shape[1],
+                                  sharding.n_shards)
+        if w.arrival == "bursty":
+            evs.extend(burst_events(base.shape[1], factor=w.burst_factor,
+                                    fraction=w.burst_fraction,
+                                    n_bursts=w.n_bursts))
+        if evs:
+            sched, bounds = build_schedule(base, evs, n_steps)
+        else:
+            sched, bounds = base[None, :, :], None
+        return simulate_transient(sched, bounds, n_clients=n_clients,
+                                  n_steps=n_steps, device=device, **kwargs)
+
     def execute(self, workload: Optional[Union[Workload, float]] = None,
                 n_commands: int = 48, seeds: Union[int, Sequence[int]] = 4,
                 sharding: Optional[ShardingSpec] = None,
@@ -369,8 +441,9 @@ class CompiledSweep:
         batched device execution (:func:`repro_torch.core.
         batched_execution.execute_configs`; ``device`` and every other
         keyword pass through to it).  The plane next to :meth:`mva`
-        (steady state): same grid, same one-call shape, but the
-        per-station msgs/cmd surface is measured, not modelled.  Requires
+        (steady state) and :meth:`transient` (faults): same grid, same
+        one-call shape, but the per-station msgs/cmd surface is measured,
+        not modelled.  Requires
         a config-bearing sweep (``compile_sweep``) whose variants all
         register executables.  With a ``sharding``
         every config becomes ``n_shards`` independent lanes sharing one
@@ -383,6 +456,47 @@ class CompiledSweep:
         return execute_configs(self.configs, workload=workload,
                                n_commands=n_commands, seeds=seeds,
                                sharding=sharding, **kwargs)
+
+    def autoscale(self, alpha: float, policies: Sequence[Any],
+                  load: np.ndarray,
+                  workload: Optional[Union[Workload, float]] = None,
+                  **kwargs):
+        """Close the elastic loop over the whole (config x policy) grid
+        (:func:`repro_torch.core.autoscale.autoscale_grid`): every config
+        row crossed with every :class:`~repro_torch.core.api.\
+AutoscalePolicy`
+        (``None`` = the frozen static baseline) becomes one lane, probes
+        are shared batched calls, and the full-horizon replay - actions
+        lowered onto :func:`~repro_torch.core.transient.
+        reconfiguration_schedule` demand spikes - evaluates ALL lanes in
+        ONE batched device step loop, so policy search is one batch shape
+        away (``device`` travels in ``kwargs``).  Returns traces in
+        config-major order (``traces[m * len(policies) + p]``)."""
+        w = resolve_workload(workload, where="CompiledSweep.autoscale")
+        base = self.demands(w) / alpha
+        servers = np.asarray([m.demand_slots()[2] for m in self.models],
+                             dtype=np.int64)
+        n_m, n_p = base.shape[0], len(policies)
+        bases = np.repeat(base, n_p, axis=0)
+        srv = np.repeat(servers, n_p, axis=0)
+        pols = [policies[i % n_p] for i in range(n_m * n_p)]
+        if self.configs is not None:
+            labels = [f"{config_variant(self.configs[i // n_p])}/p{i % n_p}"
+                      for i in range(n_m * n_p)]
+            if "resizable" not in kwargs:
+                # restrict each config's actions to its registry-derived
+                # live-resizable stations, so every plan replays on the
+                # execution plane unchanged
+                from .execution import resizable_stations
+                per_cfg = [resizable_stations(config_variant(c), c)
+                           for c in self.configs]
+                kwargs["resizable"] = [per_cfg[i // n_p]
+                                       for i in range(n_m * n_p)]
+        else:
+            labels = [f"m{i // n_p}/p{i % n_p}" for i in range(n_m * n_p)]
+        from .autoscale import autoscale_grid
+        return autoscale_grid(bases, srv, pols, load, labels=labels,
+                              **kwargs)
 
     def subset(self, indices: Sequence[int]) -> "CompiledSweep":
         """Row-select a sweep (e.g. a shortlist for the expensive

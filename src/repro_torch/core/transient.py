@@ -1,13 +1,46 @@
-"""Scripted-event schedules and the histogram helpers of the transient plane.
+"""Batched stochastic transient simulator of the closed queueing network.
 
-This is the host-side (numpy) half of the reference's transient module:
-the :class:`Event` vocabulary, the piecewise-constant demand schedule
-builders, tandem routing over active stations (:func:`_routing`) and the
-log-interpolated quantile read of a latency histogram
-(:func:`_quantile_from_hist`), which the batched execution plane shares.
-The stochastic token engine itself (``simulate_transient`` and its result
-type) is not part of this package yet.
+The paper's headline claims are about *dynamics*, not just steady state:
+throughput dips and recovers when a leader fails (section 5), degrades
+under skew for CRAQ but not for the compartmentalized deployment
+(Fig. 33), and ramps as batches fill (Figs. 30-31).  This module
+simulates the closed network *through time*, stochastically, in one
+batched device step loop over every (deployment x seed) lane, so a whole
+transient figure (dozens of deployments, many seeds) is one call instead
+of a Python event loop per cell.
 
+Model
+-----
+N closed-loop clients, one outstanding command each (the paper's
+benchmark harness).  Each station is a FIFO queue with per-command service
+demand ``d_k`` seconds (exponential with mean ``d_k``, or deterministic);
+commands traverse the active stations in slot order and re-enter on
+completion (zero think time).  With exponential service this is exactly
+the product-form network MVA solves, so steady-state throughput must
+match :func:`repro_torch.core.simulator.mva_curve`.
+
+Time advances in fixed steps ``dt`` (default: slowest station's demand /
+``oversample``).  Remaining service is tracked in *work* units (fractions
+of one service) and drained at ``dt / d_k(t)`` per step, so
+**time-varying demands act on in-flight work**: a crashed station
+(demand x ~1e9) freezes mid-service and resumes after recovery, a scaled
+station drains faster from the next step on.  Completion residuals carry
+into the next service, so a saturated server's long-run rate is exactly
+``1/d_k`` with no discretization bias.
+
+The engine (:func:`_transient_batch`) is eager PyTorch: every step runs in
+float32 op by op in the reference's order, so flows, completions, queue
+sums and histograms equal the reference's bit for bit.  Latencies and
+completion masks are written per step into a block of steps on the
+device, and each full block is binned by one launch of the CUDA
+:func:`repro_torch.kernels.ops.latency_hist` kernel (its plain version
+for CPU tensors).  Service draws are common random numbers: every
+deployment under seed ``s`` sees the same stream, drawn on the host from
+a ``torch.Generator`` seeded with ``s`` (or injected, to replay the
+reference's own draws).
+
+Scripted events
+---------------
 Demands are piecewise-constant in time: ``demands[w]`` holds during steps
 ``step_bounds[w] <= i < step_bounds[w+1]``.  Builders:
 
@@ -24,10 +57,12 @@ Demands are piecewise-constant in time: ``demands[w]`` holds during steps
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from .analytical import (
     STATION_INDEX,
@@ -37,6 +72,9 @@ from .analytical import (
     spaxos_model,
 )
 from .api import ShardingSpec, Workload, resolve_workload
+from .device import resolve_device
+from .simulator import demand_vector
+from ..kernels.ops import latency_hist
 
 #: Demand multiplier that effectively freezes a station (a crash: in-flight
 #: service stalls and resumes on recovery when the multiplier lifts).
@@ -461,3 +499,431 @@ def _quantile_from_hist(hist: np.ndarray, edges: np.ndarray, q: float
         np.take_along_axis(hist, idx[:, :, None], axis=2)[:, :, 0], 1)
     frac = np.clip((target - below) / inbin, 0.0, 1.0)
     return lo * (hi / lo) ** frac
+
+
+# ---------------------------------------------------------------------------
+# The batched step engine (one lane = one deployment x seed)
+# ---------------------------------------------------------------------------
+
+#: Steps whose latencies and completion masks are held on the device before
+#: one ``latency_hist`` launch bins them: [L, BLOCK_STEPS, N] float32 and
+#: bool, 84 MB at 256 lanes of 64 clients.
+BLOCK_STEPS = 1024
+
+
+@dataclass(frozen=True)
+class TransientInputs:
+    """The engine's inputs on the device, one row per (deployment x seed)
+    lane in config-major order (lane ``m * S + s``).
+
+    demands_w: [W, L, K] float32 seconds per command per window;
+    step_bounds: [W] host int32, the first step of each window; dt: [L]
+    float32; entry: [L] int64; nxt: [L, K] int64 tandem routing (K =
+    completion); bin_edges: [L, n_bins + 1] float32, the edges samples are
+    binned against; seeds: [S]; draws: optional [S, n_steps + 1, K]
+    float32 service draws, one stream per seed that every deployment
+    shares (common random numbers)."""
+
+    demands_w: torch.Tensor
+    step_bounds: np.ndarray
+    dt: torch.Tensor
+    entry: torch.Tensor
+    nxt: torch.Tensor
+    bin_edges: torch.Tensor
+    seeds: np.ndarray
+    draws: Optional[torch.Tensor] = None
+
+
+def transient_inputs_from_numpy(demands_w, step_bounds, dt, entry, nxt,
+                                bin_edges, seeds, draws=None, *,
+                                device) -> TransientInputs:
+    """Turn the reference engine's numpy inputs into the port's lane tensors.
+
+    demands_w: [W, M, K] seconds (float64 rounds to float32, as the
+    reference's device arrays do); step_bounds: [W]; dt: [M]; entry: [M];
+    nxt: [M, K]; bin_edges: [M, n_bins + 1]; seeds: [S]; draws: optional
+    [S, n_steps + 1, K] exponential service draws - pass the numbers the
+    reference drew (``jax.random.exponential(fold_in(key(0), s), ...)``)
+    to reproduce its exponential mode exactly.  Deployment rows are
+    repeated over the S seeds."""
+    dev = resolve_device(device)
+    seeds = np.asarray(seeds, dtype=np.int32)
+    s = seeds.size
+
+    def per_lane(a, dtype, axis=0):
+        a = np.repeat(np.asarray(a), s, axis=axis).astype(dtype)
+        return torch.from_numpy(a).to(dev)
+
+    return TransientInputs(
+        demands_w=per_lane(demands_w, np.float32, axis=1),
+        step_bounds=np.asarray(step_bounds, dtype=np.int32),
+        dt=per_lane(dt, np.float32),
+        entry=per_lane(entry, np.int64),
+        nxt=per_lane(nxt, np.int64),
+        bin_edges=per_lane(bin_edges, np.float32),
+        seeds=seeds,
+        draws=(None if draws is None else torch.from_numpy(
+            np.asarray(draws, dtype=np.float32)).to(dev)),
+    )
+
+
+def _seed_draws(seeds: np.ndarray, n_steps: int, k: int) -> torch.Tensor:
+    """[S, n_steps + 1, K] float32 exponential service draws on the host,
+    one ``torch.Generator`` per seed value: a lane's stream depends on its
+    own seed only, and the card and the CPU see the same numbers."""
+    out = torch.empty((seeds.size, n_steps + 1, k))
+    for i, s in enumerate(seeds):
+        gen = torch.Generator()
+        gen.manual_seed(int(s) & 0xFFFF_FFFF_FFFF_FFFF)
+        out[i].exponential_(generator=gen)
+    return out
+
+
+def _bin_block(lat: torch.Tensor, rec: torch.Tensor,
+               edges: torch.Tensor) -> torch.Tensor:
+    """[L, n_bins] int32 counts of one block's recorded latencies.  lat/rec:
+    [L, B, N]; edges: [L, n_bins + 1] float32.  A sample lands in bin
+    ``#{j : edges_j < lat} - 1``, clipped to the end bins (a NaN in bin 0):
+    one launch of the ``latency_hist`` kernel on the card."""
+    n_lanes = lat.shape[0]
+    return latency_hist(lat.reshape(n_lanes, -1), rec.reshape(n_lanes, -1),
+                        edges)
+
+
+def _transient_batch(inp: TransientInputs, n_clients: int, n_steps: int,
+                     warmup_steps: int, n_bins: int, exponential: bool
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                np.ndarray, np.ndarray]:
+    """Run every lane for ``n_steps`` steps.  Returns, in the reference's
+    shapes and dtypes, (flows[M, S, n_steps] int32, done[M, S] int32,
+    lat_sum[M, S] float32, hist[M, S, n_bins] int32, qsum[M, S, W, K]
+    float32).
+
+    The step is the reference's ``_one_lane`` step with the same float32
+    operations, arranged to launch few device ops per step (about 30):
+
+    * the window of step ``i`` depends on ``i`` only, so it is looked up on
+      the host, and each window's service rate ``dt / max(d, 1e-30)`` (or
+      1e30 for a zero demand) is computed once, elementwise as the step
+      would;
+    * ``t_end = (i + 1) * dt`` comes from a precomputed [n_steps, L] table;
+    * each step's completion mask and latencies are written in place into
+      a block of ``BLOCK_STEPS`` steps; a full block is binned by one
+      ``latency_hist`` launch, and its per-step flows and latency sums are
+      taken there.  A lane finishes at most one command a step (only the
+      last active station finishes, one head at a time), so a step's
+      latency sum is exact in any order, and the running float32 sum is
+      taken on the host in step order, as the reference's scan does;
+    * ``done`` is the histogram's mass: every recorded sample lands in
+      exactly one bin.
+
+    Nothing synchronises with the host until the loop ends."""
+    d_w = inp.demands_w
+    dev = d_w.device
+    n_windows, n_lanes, k = d_w.shape
+    s = inp.seeds.size
+    m = n_lanes // s
+    dt = inp.dt
+    block = max(1, min(BLOCK_STEPS, n_steps))
+
+    if exponential:
+        draws = inp.draws
+        if draws is None:
+            draws = _seed_draws(inp.seeds, n_steps, k).to(dev)
+        elif tuple(draws.shape) != (s, n_steps + 1, k):
+            raise ValueError(f"draws must be {(s, n_steps + 1, k)}: "
+                             f"{tuple(draws.shape)}")
+        draws = draws.transpose(0, 1).contiguous()            # [T + 1, S, K]
+        draw0 = draws[0].repeat(m, 1)                         # [L, K]
+    else:
+        draws = None
+        draw0 = torch.ones((n_lanes, k), device=dev)
+
+    # a window may zero an active station's demand ("free" service): drain
+    # instantly rather than stall (still one completion per step)
+    rates = torch.where(d_w > 0, dt[None, :, None]
+                        / torch.clamp_min(d_w, 1e-30), 1e30)  # [W, L, K]
+    window_of = (np.searchsorted(inp.step_bounds, np.arange(n_steps),
+                                 side="right") - 1).tolist()
+    t_ends = (torch.arange(1, n_steps + 1, dtype=torch.float32, device=dev)
+              [:, None] * dt[None, :])                        # [T, L]
+
+    finishes_at = inp.nxt == k                                # [L, K]
+    arrive_at = torch.where(finishes_at, inp.entry[:, None], inp.nxt)
+    entry = inp.entry[:, None]
+    stage = entry.expand(n_lanes, n_clients).contiguous()     # [L, N]
+    rank = torch.arange(n_clients, device=dev).expand(n_lanes, -1)
+    enter_t = torch.zeros((n_lanes, n_clients), device=dev)
+    q = torch.zeros((n_lanes, k), dtype=torch.long, device=dev).scatter_(
+        1, entry, n_clients)
+    work = torch.zeros((n_lanes, k), device=dev).scatter_(
+        1, entry, draw0.gather(1, entry))
+
+    hist = torch.zeros((n_lanes, n_bins), dtype=torch.long, device=dev)
+    qsum = torch.zeros((n_lanes, n_windows, k), device=dev)
+    flows = torch.empty((n_lanes, n_steps), dtype=torch.int32, device=dev)
+    step_lat = torch.empty((n_lanes, n_steps), device=dev)
+    fin_blk = torch.empty((n_lanes, block, n_clients), dtype=torch.bool,
+                          device=dev)
+    lat_blk = torch.empty((n_lanes, block, n_clients), device=dev)
+    recorded = torch.arange(n_steps, device=dev) >= warmup_steps
+
+    for i in range(n_steps):
+        w = window_of[i]
+        j = i % block
+        t_end = t_ends[i][:, None]                            # [L, 1]
+
+        busy = q > 0
+        work = torch.where(busy, work - rates[w], work)
+        complete = busy & (work <= 0.0)                       # [L, K]
+
+        dep_here = complete.gather(1, stage)                  # [L, N]
+        moving = dep_here & (rank == 0)
+        fin = fin_blk[:, j]
+        torch.logical_and(moving, finishes_at.gather(1, stage), out=fin)
+        torch.sub(t_end, enter_t, out=lat_blk[:, j])
+
+        dest = arrive_at.gather(1, stage)
+        done_here = complete.long()
+        q_dep = q - done_here
+        stage = torch.where(moving, dest, stage)
+        enter_t = torch.where(fin, t_end, enter_t)
+        # a mover's new rank is its destination's queue length; any other
+        # client at a station that completed moves up one (its rank is > 0)
+        rank = torch.where(moving, q_dep.gather(1, dest),
+                           rank - dep_here.long())
+        arrivals = torch.zeros_like(q).scatter_add_(1, arrive_at, done_here)
+        q = q_dep + arrivals
+        # per-window queue-depth integral (the autoscale controller's
+        # backlog signal), float32 as the reference's
+        qsum[:, w] += q
+        # new head enters service: carry the completion residual on a busy
+        # server (unbiased long-run rate), fresh draw on an idle one
+        fresh = torch.where(busy, complete & (q > 0), arrivals > 0)
+        nxt_work = torch.where(complete, work, 0.0)
+        if draws is None:
+            nxt_work += 1.0
+        else:
+            nxt_work.view(m, s, k).add_(draws[i + 1])
+        work = torch.where(fresh, nxt_work, work)
+
+        if j == block - 1 or i == n_steps - 1:
+            lo, nb = i - j, j + 1
+            fins, lats = fin_blk[:, :nb], lat_blk[:, :nb]
+            rec = fins & recorded[None, lo:lo + nb, None]
+            hist += _bin_block(lats, rec, inp.bin_edges)
+            flows[:, lo:lo + nb] = fins.sum(dim=2)
+            step_lat[:, lo:lo + nb] = torch.where(rec, lats, 0.0).sum(dim=2)
+
+    # the reference's float32 running sum, step by step in step order
+    lat_sum = np.add.accumulate(step_lat.cpu().numpy(), axis=1,
+                                dtype=np.float32)[:, -1]
+    hist_np = hist.cpu().numpy()
+    return (flows.cpu().numpy().reshape(m, s, n_steps),
+            hist_np.sum(axis=1).astype(np.int32).reshape(m, s),
+            lat_sum.reshape(m, s),
+            hist_np.astype(np.int32).reshape(m, s, n_bins),
+            qsum.cpu().numpy().reshape(m, s, n_windows, k))
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class TransientResult:
+    """Batched transient run over M deployments x S seeds.
+
+    ``flows[m, s, i]`` is completions during step i (dt[m] seconds each);
+    scalar summaries are post-warmup.  Latency quantiles come from a
+    log-spaced histogram (``hist``/``bin_edges``), so they are exact to
+    within one bin width (~11% with the default 96 bins per 4 decades)."""
+
+    dt: np.ndarray                 # [M] seconds per step
+    flows: np.ndarray              # [M, S, n_steps] completions per step
+    throughput: np.ndarray         # [M, S] post-warmup cmds/s
+    latency_mean: np.ndarray       # [M, S] seconds
+    latency_p50: np.ndarray        # [M, S] seconds
+    latency_p99: np.ndarray        # [M, S] seconds
+    completed: np.ndarray          # [M, S] post-warmup completions
+    hist: np.ndarray               # [M, S, n_bins]
+    bin_edges: np.ndarray          # [M, n_bins + 1]
+    n_steps: int
+    warmup_steps: int
+    queue_sums: np.ndarray = None  # [M, S, W, K] per-window queue integral
+    # Host wall-clock seconds of the device step loop, binning included,
+    # synchronised ("scan").
+    timings: Optional[Dict[str, float]] = None
+
+    def throughput_trace(self, n_windows: int = 40
+                         ) -> Tuple[np.ndarray, np.ndarray]:
+        """Per-window throughput: (t_centers[M, n_windows] seconds,
+        X[M, S, n_windows] cmds/s).  The transient figure primitive."""
+        per = self.n_steps // n_windows
+        used = per * n_windows
+        f = self.flows[:, :, :used].reshape(
+            self.flows.shape[0], self.flows.shape[1], n_windows, per)
+        x = f.sum(axis=3) / (per * self.dt[:, None, None])
+        centers = (np.arange(n_windows) + 0.5) * per * self.dt[:, None]
+        return centers, x
+
+    def window_throughput(self, step_bounds: np.ndarray,
+                          settle: float = 0.3) -> np.ndarray:
+        """Mean throughput per *schedule* window, [M, S, W] cmds/s.
+
+        The first ``settle`` fraction of each window is excluded: after a
+        demand change (or the cold start) the trace spends a few round
+        trips draining backlog queued under the previous window's
+        demands, and that transition would otherwise bias the window mean
+        - reported per-window rates could even exceed the window's own
+        bottleneck-law cap."""
+        bounds = [int(b) for b in step_bounds] + [self.n_steps]
+        out = []
+        for w in range(len(bounds) - 1):
+            lo, hi = bounds[w], bounds[w + 1]
+            lo = min(lo + int((hi - lo) * settle), max(hi - 1, lo))
+            out.append(self.flows[:, :, lo:hi].sum(axis=2)
+                       / ((hi - lo) * self.dt[:, None]))
+        return np.stack(out, axis=-1)
+
+    def window_queue_depth(self, step_bounds: np.ndarray) -> np.ndarray:
+        """Mean queue depth per *schedule* window and station,
+        [M, S, W, K] commands - the controller's backlog signal.
+
+        ``queue_sums[..., w, k]`` integrates station k's queue over every
+        step of window w; dividing by the window's step count gives the
+        time-average depth (waiters + the one in service).  Pass the same
+        ``step_bounds`` the run was scheduled with."""
+        if self.queue_sums is None:
+            raise ValueError("this result carries no queue_sums surface")
+        bounds = [int(b) for b in step_bounds] + [self.n_steps]
+        steps = np.maximum(np.diff(np.asarray(bounds, dtype=np.float64)), 1.0)
+        return self.queue_sums / steps[None, None, :, None]
+
+    def seed_mean_throughput(self) -> np.ndarray:
+        """[M] post-warmup throughput averaged over seeds."""
+        return self.throughput.mean(axis=1)
+
+    def seed_mean_p99(self) -> np.ndarray:
+        """[M] p99 latency averaged over seeds."""
+        return self.latency_p99.mean(axis=1)
+
+
+def simulate_transient(
+    demands: np.ndarray,
+    step_bounds: Optional[np.ndarray] = None,
+    *,
+    n_clients: int = 64,
+    seeds: Union[int, Sequence[int]] = 8,
+    n_steps: int = 4000,
+    dt: Optional[Union[float, np.ndarray]] = None,
+    oversample: float = 4.0,
+    exponential_service: bool = True,
+    warmup_frac: float = 0.25,
+    n_bins: int = 96,
+    draws: Optional[np.ndarray] = None,
+    device=None,
+) -> TransientResult:
+    """Run the batched engine over a (possibly scheduled) demand tensor.
+
+    demands: [W, M, K] piecewise windows (or [M, K] / [K] for a single
+    steady window), in seconds per command per station - i.e. already
+    divided by alpha, like :func:`simulator.mva_curves_from_demands`.
+    ``step_bounds[w]`` is the first step of window w (from
+    :func:`build_schedule` et al.); omitted = one window from step 0.
+    ``seeds`` is a count or explicit list; every (deployment, seed) lane
+    runs in ONE batched device loop.  ``dt`` defaults per deployment to the
+    window-0 bottleneck demand / ``oversample``.
+
+    Exponential service draws one stream per seed (common random numbers
+    across deployments) from a ``torch.Generator`` seeded with the seed
+    value; ``draws`` ([S, n_steps + 1, K]) injects a stream instead, e.g.
+    the reference's own.  ``device=None`` means ``cuda``; without a card
+    the call raises unless given ``device="cpu"``."""
+    dev = resolve_device(device)
+    d = np.asarray(demands, dtype=np.float64)
+    if d.ndim == 1:
+        d = d[None, :]
+    if d.ndim == 2:
+        d = d[None, :, :]
+    if step_bounds is None:
+        step_bounds = np.zeros((d.shape[0],), dtype=np.int32)
+    step_bounds = np.asarray(step_bounds, dtype=np.int32)
+    if step_bounds.shape[0] != d.shape[0]:
+        raise ValueError(f"{d.shape[0]} windows vs "
+                         f"{step_bounds.shape[0]} step bounds")
+    if step_bounds[0] != 0:
+        raise ValueError("step_bounds[0] must be 0 (the first window "
+                         "covers the start of the run)")
+    if np.any(np.diff(step_bounds) < 0):
+        raise ValueError("step_bounds must be nondecreasing")
+    _, m, k = d.shape
+
+    active = d.max(axis=0) > 0                     # [M, K]
+    entry, nxt = _routing(active)
+    if dt is None:
+        # resolve the *fastest* window's bottleneck: each station completes
+        # at most once per step, so dt must stay below the smallest
+        # per-window bottleneck demand (crash windows only raise the max,
+        # so they never shrink dt)
+        dt_arr = d.max(axis=2).min(axis=0) / oversample
+    else:
+        dt_arr = np.broadcast_to(np.asarray(dt, dtype=np.float64), (m,))
+    if np.any(dt_arr <= 0):
+        raise ValueError("dt must be positive (zero-demand window 0 row?)")
+
+    # log-spaced latency bins: from half the fastest window's zero-load
+    # round-trip up to the simulated horizon (the longest observable wait)
+    rtt = np.maximum((d * active[None]).sum(axis=2).min(axis=0), 1e-12)
+    lo = rtt * 0.5
+    hi = np.maximum(n_steps * dt_arr, lo * 10.0)
+    ratio = (hi / lo) ** (1.0 / n_bins)
+    bin_edges = lo[:, None] * ratio[:, None] ** np.arange(n_bins + 1)[None, :]
+
+    if isinstance(seeds, (int, np.integer)):
+        seeds_arr = np.arange(int(seeds), dtype=np.int32)
+    else:
+        seeds_arr = np.asarray(list(seeds), dtype=np.int32)
+    warmup_steps = int(n_steps * warmup_frac)
+
+    # samples are binned against float32 edges, as the reference's device
+    # arrays hold them; quantiles read the float64 edges
+    inp = transient_inputs_from_numpy(d, step_bounds, dt_arr, entry, nxt,
+                                      bin_edges, seeds_arr, draws,
+                                      device=dev)
+    t0 = time.perf_counter()
+    flows, done, lat_sum, hist, qsum = _transient_batch(
+        inp, n_clients=n_clients, n_steps=n_steps,
+        warmup_steps=warmup_steps, n_bins=n_bins,
+        exponential=bool(exponential_service))
+    scan_s = time.perf_counter() - t0
+
+    measured = dt_arr[:, None] * (n_steps - warmup_steps)
+    return TransientResult(
+        dt=dt_arr,
+        flows=flows,
+        throughput=done / measured,
+        latency_mean=lat_sum / np.maximum(done, 1),
+        latency_p50=_quantile_from_hist(hist, bin_edges, 0.50),
+        latency_p99=_quantile_from_hist(hist, bin_edges, 0.99),
+        completed=done,
+        hist=hist,
+        bin_edges=bin_edges,
+        n_steps=n_steps,
+        warmup_steps=warmup_steps,
+        queue_sums=qsum,
+        timings={"scan": scan_s},
+    )
+
+
+def transient_throughput(model: DeploymentModel, alpha: float,
+                         n_clients: int = 64,
+                         workload: Optional[Workload] = None,
+                         f_write: Optional[float] = None,
+                         **kwargs) -> TransientResult:
+    """Single-deployment convenience wrapper (M = 1): the transient
+    engine's answer to :func:`simulator.mva_curve`'s steady state."""
+    w = resolve_workload(workload, f_write, where="transient_throughput")
+    d = demand_vector(model, w.f_write) / alpha
+    return simulate_transient(d[None, :], n_clients=n_clients, **kwargs)

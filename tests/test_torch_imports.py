@@ -27,6 +27,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import repro_torch.kernels.decode_attention\n"
         "import repro_torch.kernels.rglru_scan, repro_torch.models.rglru\n"
         "import repro_torch.kernels.wkv6, repro_torch.models.rwkv6\n"
+        "import repro_torch.core.autotune, repro_torch.core.autoscale\n"
         "import repro_torch.configs, repro_torch.models\n"
         "import repro_torch.models.convert\n"
         "import repro_torch.serving.scheduler, repro_torch.serving.server\n"
@@ -120,3 +121,15 @@ def test_no_attention_library_call_in_the_port():
         for banned in ("scaled_dot_product_attention", "torch.compile",
                        "flash_attn", "xformers"):
             assert banned not in text, (path, banned)
+
+
+def test_port_core_exports_every_name_of_the_reference():
+    """``repro_torch.core`` does all that ``repro.core`` does: every public
+    name of the reference has its counterpart under the same name."""
+    import repro.core
+    import repro_torch.core
+
+    missing = set(repro.core.__all__) - set(repro_torch.core.__all__)
+    assert not missing, sorted(missing)
+    for name in repro_torch.core.__all__:
+        assert hasattr(repro_torch.core, name), name
