@@ -79,9 +79,29 @@ no result line):
    shape.  Then the kernel against its plain version on the full-width
    tensors the path handed it (decode at batch 8 and 1, the 512-token and
    the longest prefill), with its times and bound;
-10. the card against the CPU on the models - the three models' smoke
-    configs in float32 on the same weights: logits agree, greedy and
-    served tokens are equal.
+9a. the mixture-of-experts serving path - deepseek-moe-16b at full width
+    and depth (28 layers of 16/16 heads x 128: a dense SwiGLU 10944 layer,
+    then 27 of 64 routed experts of 1408, top-6, plus 2 shared; d_model
+    2048, vocab 102,400, bf16, 16.4 B random seeded parameters x 2
+    versions on the card) with GShard capacity dispatch, behind the same
+    fleet: 6 requests of 17-2048 prompt tokens x 16 new (1000 dispatches
+    in gcd groups of 8, 2048 in four groups of 512) with v2 pushed before
+    the 4th, then the batcher (8 slots, max_len 1024) over 16 x 512 x 32
+    new; exactly 28 ``flash_attention`` launches per prefill and 28
+    ``flash_decode`` per decode step.  Then one MoE layer on the
+    full-width input the path handed it at the 2048-token prefill and at
+    decode batch 8: its kept mask and queue positions equal a loop's on
+    the host from the card's own top-k indices, and its output equals the
+    drop-free dense layer's on every token with no dropped choice (within
+    ``ATTN_TOL``); its drop fraction, time and bound, and a decode step's
+    device time (one step as a CUDA graph) beside the bytes it must read;
+9b. the same for qwen3-moe-30b-a3b (48 layers of 32/4 heads x 64, 128
+    experts of 768, top-8, no shared; 30.1 B parameters, so one version:
+    two would not fit the card): 3 requests of 17-2048 tokens x 16 new,
+    the batcher over 8 x 512 x 32 new;
+10. the card against the CPU on the models - the five models' smoke
+    configs in float32 on the same weights (the MoE configs with capacity
+    dispatch): logits agree, greedy and served tokens are equal.
 
 The line before the last is the card's name and power limit; the line
 before it, a JSON object describing every kernel; the last line,
@@ -91,6 +111,7 @@ from __future__ import annotations
 
 import collections
 import copy
+import dataclasses
 import gc
 import json
 import subprocess
@@ -147,7 +168,9 @@ ATTN_TOL = {"torch.float32": (2e-5, 2e-5), "torch.bfloat16": (4e-3, 1e-2)}
 #: ring buffer has `window` rows and init_cache min(window, max_len), and
 #: the two must splice).  rwkv6-7b: 100 is no multiple of the reference's
 #: 32-step chunk, and 4096 shows that the state does not grow with the
-#: prompt.
+#: prompt.  deepseek-moe-16b: 1000 tokens dispatch in gcd groups of 8, 2048
+#: in four groups of 512.  ``push_at=None``: one weight version, never
+#: replaced.
 SERVE = {
     "granite-3-2b": dict(
         prompts=(17, 128, 256, 512, 1000, 1024, 2048, 2048), new=16,
@@ -160,6 +183,15 @@ SERVE = {
     "rwkv6-7b": dict(
         prompts=(17, 100, 512, 2048, 4096), new=16, push_at=2,
         batch=dict(n_slots=8, max_len=1024, n_requests=16, prompt=512,
+                   max_new=32)),
+    "deepseek-moe-16b": dict(
+        prompts=(17, 128, 512, 1000, 2048, 2048), new=16, push_at=3,
+        batch=dict(n_slots=8, max_len=1024, n_requests=16, prompt=512,
+                   max_new=32)),
+    # one weight version: two would be 120 GB
+    "qwen3-moe-30b-a3b": dict(
+        prompts=(17, 512, 2048), new=16, push_at=None,
+        batch=dict(n_slots=8, max_len=1024, n_requests=8, prompt=512,
                    max_new=32)),
 }
 #: (atol, rtol) of rglru_scan against its plain version.  float32: the
@@ -208,6 +240,16 @@ WKV_LOGW = (None, -5.0, 0.0, -20.0)
 #: chunks go step by step)
 WKV_LARGE = [(1, 100, -5.0, 100.0), (1, 100, -5.125, 30.0),
              (1, 100, -5.125, 1000.0)]
+#: The MoE models' attention at head dim 128: flash attention (B, H, H_kv,
+#: S, d) at deepseek-moe-16b's 16/16 heads (group 1), and at 32/4 (group
+#: 8), Qwen3-30B-A3B's published heads of 128 (the config here, as the
+#: reference's, takes d_model / n_heads = 64, which phase 9b runs); flash
+#: decode (B, H, H_kv, S_max, d) at both, batch 1 and 8, with cache
+#: lengths of 1, 17 and S_max (and different per row)
+MOE_ATTN_CASES = [(1, H, H_kv, S, 128) for H, H_kv in ((16, 16), (32, 4))
+                  for S in (17, 1000, 2048)]
+MOE_DECODE_CASES = [(B, H, H_kv, S, 128) for H, H_kv in ((16, 16), (32, 4))
+                    for B in (1, 8) for S in (1024, 2064)]
 
 
 def _mixes(P):
@@ -368,7 +410,9 @@ def _attention_edge_cases(FA, FD, ref, dev):
     """Both attention kernels against their plain versions on the card:
     S of 1, 17, 128, 1000 and 2048; head dims 64 and 128; groups 1, 4, 6
     and 8; causal and not; float32 and bfloat16; contiguous and strided
-    inputs; cache lengths of 1, of S_max and different per row.  Every
+    inputs; cache lengths of 1, of S_max and different per row (and 17 at
+    the MoE models' head-dim-128 shapes, ``MOE_ATTN_CASES`` and
+    ``MOE_DECODE_CASES``).  Every
     case runs; then the worst case of a dtype past its tolerance raises.
     Returns the number of cases and, by dtype, the largest share of the
     tolerance a case used."""
@@ -387,7 +431,7 @@ def _attention_edge_cases(FA, FD, ref, dev):
     for B, H, H_kv, S, D in [(1, 4, 4, 1, 64), (2, 8, 2, 17, 64),
                              (1, 8, 1, 128, 128), (2, 12, 2, 1000, 64),
                              (1, 32, 8, 2048, 64), (1, 16, 2, 2048, 128),
-                             (1, 6, 1, 77, 128)]:
+                             (1, 6, 1, 77, 128)] + MOE_ATTN_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q = _randn(rng, (B, H, S, D), dt, dev)
             k, v = (_randn(rng, (B, H_kv, S, D), dt, dev) for _ in "kv")
@@ -400,13 +444,17 @@ def _attention_edge_cases(FA, FD, ref, dev):
                     n += 1
     for B, H, H_kv, S, D in [(1, 32, 8, 2064, 64), (8, 32, 8, 1024, 64),
                              (3, 8, 8, 17, 128), (2, 48, 8, 1000, 128),
-                             (4, 6, 1, 300, 64), (2, 64, 8, 4096, 128)]:
+                             (4, 6, 1, 300, 64), (2, 64, 8, 4096, 128)
+                             ] + MOE_DECODE_CASES:
         for dt in (torch.float32, torch.bfloat16):
             q = _randn(rng, (B, H, D), dt, dev)
             k, v = (_randn(rng, (B, H_kv, S, D), dt, dev) for _ in "kv")
             mixed = rng.integers(1, S + 1, size=B)
             mixed[0] = S
-            for lens in (np.ones(B), np.full(B, S), mixed):
+            lengths = [np.ones(B), np.full(B, S), mixed]
+            if (B, H, H_kv, S, D) in MOE_DECODE_CASES:
+                lengths.append(np.full(B, 17))
+            for lens in lengths:
                 cl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
                 want = ref.ref_decode(q, k, v, cl)
                 for kv in ((k, v), (_strided(k), _strided(v))):
@@ -889,18 +937,120 @@ def _greedy(cfg, params, prompt, max_new: int, device):
     return torch.stack(out).tolist()
 
 
+def _host_positions(top_i: np.ndarray, g: int) -> np.ndarray:
+    """Each (token, choice) pair's place in its expert's queue, by a loop on
+    the host: per group of ``g`` tokens, all first choices in token order,
+    then all second choices, and so on (the reference's slot-major
+    rank)."""
+    T, k = top_i.shape
+    pos = np.zeros((T, k), np.int64)
+    for start in range(0, T, g):
+        seen = collections.Counter()
+        for j in range(k):
+            for t in range(start, start + g):
+                pos[t, j] = seen[top_i[t, j]]
+                seen[top_i[t, j]] += 1
+    return pos
+
+
+def _moe_layer_check(cfg, layer, x, what: str, flush) -> str:
+    """One MoE layer of the path on the full-width input it was handed:
+    the kept mask and queue positions from the card's own top-k indices
+    equal a loop's on the host (exactly), and the capacity dispatch's
+    output equals the drop-free dense layer's on every token with no
+    dropped choice, within ``ATTN_TOL``.  Raises otherwise; returns the
+    report: the drop fraction, the layer's device time and its bound."""
+    import torch
+    from repro_torch.models import moe
+    m, kind = cfg.moe, cfg.mlp_kind
+    xt = x.reshape(-1, x.shape[-1])
+    T, D = xt.shape
+    g = moe.group_size(m, T)
+    C = moe._capacity(m, g)
+    _, _, top_i = moe.router_probs(layer, xt, m)
+    pos = moe.dispatch_positions(top_i, T // g, m.n_experts)
+    want = _host_positions(top_i.cpu().numpy(), g)
+    if not np.array_equal(pos.cpu().numpy(), want):
+        raise AssertionError(f"MoE queue positions at {what} differ from "
+                             f"the host's loop")
+    keep = pos < C
+    if not np.array_equal(keep.cpu().numpy(), want < C):
+        raise AssertionError(f"MoE kept mask at {what} differs")
+    got, _ = moe.apply_moe_gshard(layer, x, m, kind, need_aux=False)
+    dense, _ = moe.apply_moe_dense(layer, x, m, kind, need_aux=False)
+    whole = keep.all(-1)
+    n_whole = int(whole.sum())
+    g_rows, d_rows = got.reshape(T, D)[whole], dense.reshape(T, D)[whole]
+    used = _tol_ratio(g_rows, d_rows) if n_whole else 0.0
+    if n_whole == 0 or used > 1.0 or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"MoE capacity dispatch at {what}: {n_whole} "
+                             f"tokens with no drop, {used:.3f} of ATTN_TOL "
+                             f"against the dense layer")
+    ms = _time_graph_ms(lambda: moe.apply_moe_gshard(
+        layer, x, m, kind, need_aux=False), flush, 20)
+    n_mats = 3 if kind in ("swiglu", "geglu") else 2
+    w_bytes = sum(t.numel() * t.element_size() for t in layer.parameters())
+    t_bytes = (w_bytes + 2 * x.numel() * x.element_size()) \
+        / PEAK_BYTES_PER_S * 1e3
+    shared = m.d_expert * m.n_shared
+    flops = 2 * n_mats * D * (m.d_expert * m.n_experts * (T // g) * C
+                              + shared * T)
+    t_ops = flops / PEAK_BF16_OPS_PER_S * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return (f"MoE layer at {what}: T {T} in {T // g} group(s) of {g}, "
+            f"capacity {C}; positions and kept mask == the host's loop; "
+            f"dropped {1.0 - float(keep.float().mean()):.4f} of "
+            f"{T * m.top_k} choices; the {n_whole} tokens with no drop == "
+            f"the dense layer within {used:.3f} of ATTN_TOL; device time "
+            f"(graph replay, cold L2) {ms:.4f} ms against a bound of "
+            f"{max(t_bytes, t_ops):.4f} ms ({by}: "
+            f"{w_bytes / 1e9:.3f} GB of weights, of which the experts' "
+            f"{m.n_experts * n_mats * D * m.d_expert * 2 / 1e9:.3f}, read "
+            f"in {t_bytes:.4f} ms; {flops / 1e9:.1f} GFLOP on the capacity "
+            f"layout in {t_ops:.4f} ms)")
+
+
+def _decode_step_device(cfg, params, caches, tok, flush) -> str:
+    """A decode step's device time: one step captured as a CUDA graph and
+    replayed (after an L2 flush), beside the least time for the bytes it
+    must read - every weight but the embedding table, the K/V rows up to
+    each cache's length - at the card's memory rate."""
+    import torch
+    from repro_torch.models import decode_step
+    c = [dict(e) for e in caches]
+    ms = _time_graph_ms(lambda: decode_step(cfg, params, c, tok), flush, 5)
+    w_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    if "unembed" in params.embed:
+        table = params.embed["tokens"]
+        w_bytes -= table.numel() * table.element_size()
+    kv_bytes = 0
+    for e in caches:
+        B, S_max, H_kv, D = e["k"].shape
+        rows = min(int(e["pos"]) + 1, S_max)
+        kv_bytes += 2 * B * rows * H_kv * D * e["k"].element_size()
+    bound = (w_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+    return (f"decode step at batch {tok.shape[0]}: {ms:.3f} ms on the card "
+            f"(one step as a CUDA graph, cold L2) against {bound:.3f} ms for "
+            f"its {(w_bytes + kv_bytes) / 1e9:.2f} GB ({w_bytes / 1e9:.2f} of "
+            f"weights, {kv_bytes / 1e6:.1f} MB of K/V) at "
+            f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s = {bound / ms:.3f} of it")
+
+
 def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
-    """Phases 7-9: ``arch`` at full width behind the compartmentalized
+    """Phases 7-9b: ``arch`` at full width behind the compartmentalized
     fleet (weights v1, then one request per prompt length with v2 pushed
-    before request ``push_at``), then the continuous batcher.  Every
-    kernel's launches are counted over exactly this run and must be one
-    per layer that calls it per prefill and per decode step (from
-    ``cfg.layer_types()``).  ``kernels`` maps each op's name to its
-    kernel module.  Returns the records of the kernels the path ran."""
+    before request ``push_at``; ``None``: v1 only), then the continuous
+    batcher.  Every kernel's launches are counted over exactly this run
+    and must be one per layer that calls it per prefill and per decode
+    step (from ``cfg.layer_types()``).  ``kernels`` maps each op's name to
+    its kernel module.  A MoE model runs its capacity dispatch
+    (``moe_impl="gshard"``, the config's own), and one of its MoE layers is
+    checked on the inputs the path handed it (``_moe_layer_check``).
+    Returns the records of the kernels the path ran."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, moe, prefill
     from repro_torch.serving.scheduler import ContinuousBatcher, Request
     from repro_torch.serving.server import ServingDeployment
 
@@ -919,17 +1069,27 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
     gen = torch.Generator(device=dev)
     t0 = time.perf_counter()
     v1 = init_params(cfg, gen.manual_seed(0), device=dev)
-    v2 = init_params(cfg, gen.manual_seed(1), device=dev)
+    v2 = (None if push_at is None
+          else init_params(cfg, gen.manual_seed(1), device=dev))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in v1.parameters())
     n_bytes = sum(t.numel() * t.element_size() for t in v1.parameters())
     layers = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+    channels = collections.Counter(cfg.channel_kind(i)
+                                   for i in range(cfg.n_layers))
+    experts = (f"; {channels['moe']} MoE layers of {cfg.moe.n_experts} "
+               f"experts x {cfg.moe.d_expert}, top-{cfg.moe.top_k}, "
+               f"{cfg.moe.n_shared} shared, {cfg.moe_impl}; "
+               f"{channels['mlp']} dense of {cfg.d_ff_dense or cfg.d_ff}"
+               if cfg.moe else "")
     print(f"serve: {cfg.name} full width ({cfg.n_layers} layers: {layers}; "
           f"d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
           f"{cfg.head_dim}, window {cfg.attn_window}, rnn width "
-          f"{cfg.rnn_width if n_rec else None}, {cfg.mlp_kind} {cfg.d_ff}, "
-          f"vocab {cfg.vocab_size}, {cfg.dtype()}), {n_params:,} parameters "
-          f"({n_bytes / 1e9:.2f} GB) x 2 versions drawn on the card in "
+          f"{cfg.rnn_width if n_rec else None}, {cfg.mlp_kind} {cfg.d_ff}"
+          f"{experts}, vocab {cfg.vocab_size}, {cfg.dtype()}), {n_params:,} "
+          f"parameters ({cfg.n_params():,} by the config's count, which "
+          f"leaves out the norms; {n_bytes / 1e9:.2f} GB) x "
+          f"{1 if v2 is None else 2} version(s) drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     rng = np.random.default_rng(0)
     texts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in prompts]
@@ -985,6 +1145,15 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
                                                cache_len)
         return real["flash_decode"](q, k_cache, v_cache, cache_len)
 
+    # the first MoE layer's input and module at the longest prefill and at
+    # the batcher's decode batch
+    real_moe = moe.apply_moe
+
+    def catch_moe(params, x, *args, **kwargs):
+        if x.shape[:2] in ((1, max(prompts)), (batch["n_slots"], 1)):
+            caught.setdefault(f"moe{tuple(x.shape[:2])}", (params, x))
+        return real_moe(params, x, *args, **kwargs)
+
     def launches():
         return {name: getattr(mod, name).launches
                 for name, mod in kernels.items()}
@@ -996,6 +1165,7 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
                     flash_attention=catch_fa, flash_decode=catch_fd)
     for name in kernels:
         setattr(ops, name, catchers[name])
+    moe.apply_moe = catch_moe
     try:
         dep.push_weights(v1)
         served, req_s = [], []
@@ -1026,10 +1196,13 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
     finally:
         for name, fn in real.items():
             setattr(ops, name, fn)
+        moe.apply_moe = real_moe
     total = launches()
     peak_mem = torch.cuda.max_memory_allocated()
 
     versions = [v for v, _ in served]
+    if push_at is None:
+        push_at = len(texts)
     if versions != ["v1"] * push_at + ["v2"] * (len(texts) - push_at):
         raise AssertionError(f"served versions {versions}")
     for _, toks in served:
@@ -1080,6 +1253,16 @@ def _serve_phase(arch, prompts, new, push_at, batch, kernels, ref, dev):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     records = {}
     nb = batch["n_slots"]
+    if cfg.moe is not None:
+        for shape, what in (((1, max(prompts)), f"prefill {max(prompts)}"),
+                            ((nb, 1), f"decode b{nb}")):
+            print(_moe_layer_check(cfg, *caught.pop(f"moe{shape}"), what,
+                                   flush), flush=True)
+        toks = torch.tensor([texts[-1]], dtype=torch.int32, device=dev)
+        _, caches = prefill(cfg, v1, toks, cache_len=toks.shape[1] + new)
+        for c, t_in in ((caches, toks[:, -1:]), (cb.caches, cb.tokens)):
+            print(_decode_step_device(cfg, v1, c, t_in, flush), flush=True)
+        del caches
     for name, record in (("rglru_scan", _scan_record),
                          ("wkv6", _wkv_record)):
         if name in ran:
@@ -1116,13 +1299,18 @@ def _model_cuda_vs_cpu(dev, arch: str) -> None:
     equal.  recurrentgemma-2b's smoke window of 8 is shorter than the
     40-token prompt, so the window mask, the ring-buffer roll and its
     wrap in decode all run; rwkv6-7b's 40 tokens pass the kernel's 32-step
-    chunk, at head dim 16."""
+    chunk, at head dim 16.  The MoE configs run their capacity dispatch
+    (the smoke configs' own is the dense one): the logits' 80 tokens
+    dispatch in groups of 16, and on the same routing the two devices keep
+    and drop the same choices."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params
     from repro_torch.serving.server import ServingDeployment
 
     cfg = get_config(arch).smoke()
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe_impl="gshard")
     on_cpu = init_params(cfg, 0, device="cpu")
     on_gpu = copy.deepcopy(on_cpu).to(dev)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
@@ -1146,7 +1334,8 @@ def _model_cuda_vs_cpu(dev, arch: str) -> None:
                                               prompt))])
     if served[0] != served[1]:
         raise AssertionError(f"served tokens differ: {served}")
-    print(f"cuda == cpu on {cfg.name} (float32, head dim {cfg.head_dim}): "
+    print(f"cuda == cpu on {cfg.name} (float32, head dim {cfg.head_dim}"
+          f"{', ' + cfg.moe_impl + ' MoE' if cfg.moe else ''}): "
           f"logits within rtol/atol 1e-4 (max abs diff "
           f"{float((lg.cpu() - lc).abs().max()):.2e}), greedy tokens and "
           f"three served requests equal", flush=True)
@@ -1418,7 +1607,9 @@ def main() -> int:
           f"rtol) {ATTN_TOL} of their plain versions in {n_attn} edge cases, "
           f"using at most {used} of it "
           f"(S 1-2048, d 64/128, groups 1/4/6/8, causal and not, strided, "
-          f"cache_len 1 / S_max / per row)", flush=True)
+          f"cache_len 1 / S_max / per row; d = 128 at 16/16 and 32/4 "
+          f"heads: prefill S 17/1000/2048, decode B 1/8 x "
+          f"S_max 1024/2064 x cache_len 1/17/S_max/per row)", flush=True)
     n_rec, used = _recurrent_edge_cases(FA, FD, RS, ref, dev)
     print(f"kernel check: recurrentgemma's rglru_scan (SCAN_TOL {SCAN_TOL}),"
           f" windowed head-dim-256 flash_attention and group-10 "
@@ -1532,7 +1723,7 @@ def main() -> int:
     # -- 6. the transient path: token engine, autotune, autoscale ----------
     transient = _transient_phase(P, PT, LH, ref, sweep, alpha, dev)
 
-    # -- 7., 8. and 9. the serving paths -----------------------------------
+    # -- 7.-9b. the serving paths --------------------------------------------
     served = {}
     for arch, plan in SERVE.items():
         served[arch] = _serve_phase(

@@ -193,7 +193,8 @@ class ModelConfig:
             compute_dtype="float32",
             q_block=16,
             # exact (drop-free) MoE for numerical decode==forward checks;
-            # the capacity-dispatch path is tested separately in test_moe.py
+            # the capacity-dispatch path is tested separately in
+            # tests/test_torch_moe.py
             moe_impl="dense" if self.moe is not None else self.moe_impl,
             remat=False,
         )

@@ -10,7 +10,9 @@ inference requests as leaderless reads.  The model runs on ``--device``
       --requests 12 --replicas 3 --consistency linearizable --device cpu
 
 ``--arch`` takes any config the port runs (``models/model.py:MIXERS`` and
-``CHANNELS``), recurrentgemma-2b and rwkv6-7b among them.
+``CHANNELS``): the dense decoders, recurrentgemma-2b, rwkv6-7b and the
+mixture-of-experts deepseek-moe-16b and qwen3-moe-30b-a3b (whose smoke
+configs, as the reference's, run their experts densely).
 """
 from __future__ import annotations
 

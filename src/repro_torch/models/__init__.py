@@ -6,8 +6,9 @@ from .model import (
     forward,
     init_cache,
     init_params,
+    loss_fn,
     prefill,
 )
 
 __all__ = ["Transformer", "build_segments", "decode_step", "forward",
-           "init_cache", "init_params", "prefill"]
+           "init_cache", "init_params", "loss_fn", "prefill"]

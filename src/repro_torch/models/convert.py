@@ -4,7 +4,9 @@ The reference keeps each segment's layers stacked on a leading
 ``(repeats, ...)`` axis (``models/model.py:init_segment``,
 ``init_cache``); the port keeps one module and one cache dict per layer.
 These functions unstack (and restack) in the reference's layer order, so
-both packages compute on the same weights in the tests.  They take and
+both packages compute on the same weights in the tests; a MoE layer's
+{"router", "experts", "shared"} tree lands in its module as it is, the
+experts' leaves stacked (E, ...) in both.  They take and
 give numpy arrays (``jax.tree.map(np.asarray, tree)`` on the reference's
 side), never JAX arrays: the port imports no JAX.
 """

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,15 +20,18 @@ from torch import nn
 
 
 class ParamModule(nn.Module):
-    """A module whose own parameters carry the reference's names and index
-    like its dicts: ``m["w_q"]``, ``"b_q" in m``.  Parameters are for
-    inference (``requires_grad=False``); training is a later slice."""
+    """A module whose own parameters and submodules carry the reference's
+    names and index like its dicts: ``m["w_q"]``, ``"b_q" in m``,
+    ``moe["experts"]["w_up"]``.  Parameters are for inference
+    (``requires_grad=False``); training is a later slice."""
 
-    def __getitem__(self, name: str) -> torch.Tensor:
-        return self._parameters[name]
+    def __getitem__(self, name: str):
+        if name in self._parameters:
+            return self._parameters[name]
+        return self._modules[name]
 
     def __contains__(self, name: str) -> bool:
-        return name in self._parameters
+        return name in self._parameters or name in self._modules
 
     def add(self, name: str, value: torch.Tensor) -> None:
         self.register_parameter(name, nn.Parameter(value, requires_grad=False))
@@ -40,11 +43,17 @@ class ParamModule(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
-               dtype: torch.dtype) -> torch.Tensor:
-    """N(0, 1/in_dim) weights of shape (in_dim, out_dim), drawn in float32
-    on the generator's device."""
-    w = torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32,
+def dense_init(gen: Optional[torch.Generator], in_dim: int, out_dim: int,
+               dtype: torch.dtype, lead: Tuple[int, ...] = (),
+               device=None) -> torch.Tensor:
+    """N(0, 1/in_dim) weights of shape ``lead + (in_dim, out_dim)`` (a
+    leading ``(n,)`` stacks n of them: the experts), drawn in float32 on
+    the generator's device; ``gen=None`` leaves them unset (to be filled,
+    e.g. from the reference's) on ``device``."""
+    shape = lead + (in_dim, out_dim)
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return (w * (1.0 / math.sqrt(in_dim))).to(dtype)
 
@@ -176,6 +185,27 @@ def apply_mlp(params: Mapping[str, torch.Tensor], x: torch.Tensor,
     return h @ params["w_down"]
 
 
+class FeedForward(ParamModule):
+    """An MLP's weights under the reference's names: ``w_gate`` (the gated
+    kinds), ``w_up`` (d_model, d_ff) and ``w_down`` (d_ff, d_model).  With
+    ``lead=(n,)`` each is n of them stacked on a leading axis, one per
+    expert; ``apply_mlp`` then runs every expert as one batched product on
+    an (n, tokens, d_model) input.  ``gen=None`` leaves the weights unset
+    (to be filled, e.g. from the reference's) on ``device``."""
+
+    def __init__(self, d_model: int, d_ff: int, kind: str,
+                 gen: Optional[torch.Generator], dtype: torch.dtype, device,
+                 lead: Tuple[int, ...] = ()) -> None:
+        super().__init__()
+        self.kind = kind
+        shapes = [("w_up", d_model, d_ff), ("w_down", d_ff, d_model)]
+        if kind in ("swiglu", "geglu"):
+            shapes.insert(0, ("w_gate", d_model, d_ff))
+        for name, in_dim, out_dim in shapes:
+            self.add(name, dense_init(gen, in_dim, out_dim, dtype, lead,
+                                      device))
+
+
 # ---------------------------------------------------------------------------
 # embedding / unembedding
 # ---------------------------------------------------------------------------
@@ -191,3 +221,22 @@ def unembed(params: Mapping[str, torch.Tensor], x: torch.Tensor
     if "unembed" in params:
         return x @ params["unembed"]
     return x @ params["tokens"].t().to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE.  logits (B, S, V), computed in float32; labels
+    (B, S); with ``mask`` (B, S) the masked mean, over at least 1."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - label_logit
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -4,14 +4,15 @@
 ``nn.ModuleList`` of :class:`DecoderBlock` (norm, a mixer - :class:`Attention`,
 :class:`~repro_torch.models.rglru.RecurrentBlock` or
 :class:`~repro_torch.models.rwkv6.TimeMix` - norm, a channel -
-:class:`MLP` or :class:`~repro_torch.models.rwkv6.ChannelMix`) and a final
-norm.  Every module keeps the JAX package's
-parameter names and ``(in, out)`` layouts, so its parameters index like
-the reference's dicts (``block.attn["w_q"]``) and
-:mod:`repro_torch.models.convert` can carry the reference's weights over
-one to one.  ``forward``, ``prefill``, ``decode_step`` and ``init_cache``
-keep the reference's names and signatures as thin functions over the
-modules, so the serving code reads the same in both packages.
+:class:`MLP`, :class:`~repro_torch.models.moe.MoE` or
+:class:`~repro_torch.models.rwkv6.ChannelMix`) and a final norm.  Every
+module keeps the JAX package's parameter names and ``(in, out)`` layouts,
+so its parameters index like the reference's dicts
+(``block.attn["w_q"]``) and :mod:`repro_torch.models.convert` can carry
+the reference's weights over one to one.  ``forward``, ``loss_fn``,
+``prefill``, ``decode_step`` and ``init_cache`` keep the reference's
+names and signatures as thin functions over the modules, so the serving
+code reads the same in both packages.
 
 Layers run as a Python loop; the reference's segments (stacked
 ``lax.scan`` bodies) are a JAX compile-time device and are kept only to map
@@ -20,19 +21,22 @@ its stacked weights and caches onto layers (:func:`build_segments`).
 The port covers mixers ``"attn"``, ``"local_attn"`` (windowed, with a
 ring-buffer cache), ``"rglru"`` (the RG-LRU recurrent block, whose cache
 is its state) and ``"rwkv6"`` (RWKV-6's time mix, likewise), channels
-``"mlp"`` (all five kinds) and ``"rwkv_cm"`` (RWKV-6's channel mix, whose
+``"mlp"`` (all five kinds), ``"moe"`` (routed experts, dense or
+capacity-dispatched, with an auxiliary load-balance loss that ``forward``
+sums over the layers) and ``"rwkv_cm"`` (RWKV-6's channel mix, whose
 state joins the mixer's in the layer's cache), rmsnorm or layernorm,
 rope, M-RoPE or none, optional QKV bias, tied or untied embeddings -
 granite-3-2b, phi3-medium-14b, qwen1.5-32b, nemotron-4-15b, the
-qwen2-vl-72b text backbone, recurrentgemma-2b and rwkv6-7b.  Other mixers
-and channels raise ``NotImplementedError`` naming their ``ROADMAP.md``
+qwen2-vl-72b text backbone, recurrentgemma-2b, rwkv6-7b,
+deepseek-moe-16b and qwen3-moe-30b-a3b.  The encoder-decoder
+(whisper-tiny) raises ``NotImplementedError`` naming its ``ROADMAP.md``
 item.  ``decode_step`` writes the attention layers' K/V caches in place
 and returns new recurrent states.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, List, Optional, Tuple, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -41,6 +45,7 @@ from ..core.device import resolve_device
 from . import attention as attn_lib
 from .layers import (
     MLP_KINDS,
+    FeedForward,
     ParamModule,
     apply_mlp,
     dense_init,
@@ -48,9 +53,11 @@ from .layers import (
     embed_tokens,
     layernorm,
     rmsnorm,
+    softmax_cross_entropy,
     text_mrope_positions,
     unembed,
 )
+from .moe import MoE
 from .rglru import RecurrentBlock
 from .rwkv6 import ChannelMix, TimeMix
 
@@ -61,8 +68,7 @@ LayerSig = Tuple[str, str]  # (mixer, channel): ("attn", "mlp"), ...
 
 #: Where each part of the model zoo that the port leaves out is queued.
 _NOT_PORTED = {
-    "xattn": "ROADMAP.md queue 1, item 12 (whisper encoder-decoder)",
-    "moe": "ROADMAP.md queue 1, item 12 (models/moe.py)",
+    "xattn": "ROADMAP.md queue 1, item 3 (whisper encoder-decoder)",
 }
 
 
@@ -125,12 +131,6 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _dense(gen, in_dim, out_dim, dtype, device) -> torch.Tensor:
-    if gen is None:  # filled later, e.g. from the reference's weights
-        return torch.empty((in_dim, out_dim), dtype=dtype, device=device)
-    return dense_init(gen, in_dim, out_dim, dtype)
-
-
 class Norm(ParamModule):
     def __init__(self, kind: str, dim: int, dtype, device) -> None:
         super().__init__()
@@ -159,10 +159,10 @@ class Attention(ParamModule):
         self.cfg = cfg
         self.window = window
         d, H, H_kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.add("w_q", _dense(gen, d, H * dh, dtype, device))
-        self.add("w_k", _dense(gen, d, H_kv * dh, dtype, device))
-        self.add("w_v", _dense(gen, d, H_kv * dh, dtype, device))
-        self.add("w_o", _dense(gen, H * dh, d, dtype, device))
+        self.add("w_q", dense_init(gen, d, H * dh, dtype, device=device))
+        self.add("w_k", dense_init(gen, d, H_kv * dh, dtype, device=device))
+        self.add("w_v", dense_init(gen, d, H_kv * dh, dtype, device=device))
+        self.add("w_o", dense_init(gen, H * dh, d, dtype, device=device))
         if cfg.qkv_bias:  # Qwen1.5 [hf:Qwen/Qwen1.5-*]
             for name, width in (("b_q", H * dh), ("b_k", H_kv * dh),
                                 ("b_v", H_kv * dh)):
@@ -232,24 +232,20 @@ MIXERS = {
 }
 
 
-class MLP(ParamModule):
-    """The dense feed-forward channel; it has no state, so its
-    ``forward`` returns None for one and its ``empty_cache`` is None."""
+class MLP(FeedForward):
+    """The dense feed-forward channel (width ``d_ff_dense`` or ``d_ff``);
+    it has no state, so its ``forward`` returns None for one and its
+    ``empty_cache`` is None, and no auxiliary loss."""
 
     has_state = False
 
     def __init__(self, cfg: ModelConfig, gen, dtype, device) -> None:
-        super().__init__()
-        d_model, d_ff = cfg.d_model, cfg.d_ff_dense or cfg.d_ff
-        self.kind = cfg.mlp_kind
-        if self.kind in ("swiglu", "geglu"):
-            self.add("w_gate", _dense(gen, d_model, d_ff, dtype, device))
-        self.add("w_up", _dense(gen, d_model, d_ff, dtype, device))
-        self.add("w_down", _dense(gen, d_ff, d_model, dtype, device))
+        super().__init__(cfg.d_model, cfg.d_ff_dense or cfg.d_ff,
+                         cfg.mlp_kind, gen, dtype, device)
 
-    def forward(self, x: torch.Tensor, state=None
-                ) -> Tuple[torch.Tensor, None]:
-        return apply_mlp(self, x, self.kind), None
+    def forward(self, x: torch.Tensor, state=None, need_aux: bool = False
+                ) -> Tuple[torch.Tensor, None, None]:
+        return apply_mlp(self, x, self.kind), None, None
 
     @staticmethod
     def empty_cache(cfg: ModelConfig, batch: int, device) -> None:
@@ -257,10 +253,13 @@ class MLP(ParamModule):
 
 
 #: The channels the port runs: channel -> (the reference's name for its
-#: parameters, its module).  A channel runs ``forward(x, state)`` and
-#: returns its new state, or None if it has none (``empty_cache``).
+#: parameters, its module).  A channel runs ``forward(x, state, need_aux)``
+#: and returns (out, its new state or None if it has none
+#: (``empty_cache``), its auxiliary loss or None): only the MoE has one,
+#: and computes it only when ``need_aux``.
 CHANNELS = {
     "mlp": ("mlp", MLP),
+    "moe": ("moe", MoE),
     "rwkv_cm": ("cm", ChannelMix),
 }
 
@@ -278,8 +277,8 @@ class DecoderBlock(nn.Module):
     The mixer (:data:`MIXERS`) and the channel (:data:`CHANNELS`) sit under
     the reference's names for them: ``attn`` (an :class:`Attention`,
     windowed for ``local_attn``), ``rec`` (a :class:`RecurrentBlock`) or
-    ``tm`` (a :class:`TimeMix`); ``mlp`` (an :class:`MLP`) or ``cm`` (a
-    :class:`ChannelMix`)."""
+    ``tm`` (a :class:`TimeMix`); ``mlp`` (an :class:`MLP`), ``moe`` (a
+    :class:`MoE`) or ``cm`` (a :class:`ChannelMix`)."""
 
     def __init__(self, cfg: ModelConfig, mixer: str, channel: str, gen,
                  device) -> None:
@@ -303,15 +302,19 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
-        """Whole-sequence step (forward, prefill).  With ``cache_len`` it
-        also returns the layer's cache."""
+                ) -> Tuple[torch.Tensor, Optional[dict],
+                           Optional[torch.Tensor]]:
+        """Whole-sequence step (forward, prefill): (x, the layer's cache
+        with ``cache_len`` else None, the channel's auxiliary loss or
+        None).  A prefill, as the reference's, makes no use of the
+        auxiliary loss, so only ``forward`` (no ``cache_len``) asks for
+        it."""
         out, entry = self.mix(self.ln1(x), positions, cache_len)
         x = x + out
-        out, c_entry = self.channel(self.ln2(x))
+        out, c_entry, aux = self.channel(self.ln2(x), None, cache_len is None)
         if cache_len is None:
-            return x + out, None
-        return x + out, _layer_cache(self.names, entry, c_entry)
+            return x + out, None, aux
+        return x + out, _layer_cache(self.names, entry, c_entry), aux
 
     def decode(self, x: torch.Tensor, cache: dict
                ) -> Tuple[torch.Tensor, dict]:
@@ -322,7 +325,7 @@ class DecoderBlock(nn.Module):
             c_state = None
         out, new_cache = self.mix.step(self.ln1(x), cache)
         x = x + out
-        out, c_new = self.channel(self.ln2(x), c_state)
+        out, c_new, _ = self.channel(self.ln2(x), c_state)
         return x + out, _layer_cache(self.names, new_cache, c_new)
 
 
@@ -341,8 +344,8 @@ class Transformer(nn.Module):
                        torch.empty((cfg.vocab_size, cfg.d_model),
                                    dtype=dtype, device=device))
         if not cfg.tie_embeddings:
-            self.embed.add("unembed", _dense(gen, cfg.d_model,
-                                             cfg.vocab_size, dtype, device))
+            self.embed.add("unembed", dense_init(
+                gen, cfg.d_model, cfg.vocab_size, dtype, device=device))
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
         self.layers = nn.ModuleList(
             DecoderBlock(cfg, mixer, channel, gen, device)
@@ -361,20 +364,27 @@ class Transformer(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, Optional[List[dict]]]:
+                ) -> Tuple[torch.Tensor, Union[torch.Tensor, List[dict]]]:
         """tokens (B, S).  Without ``cache_len``: (logits (B, S, V) float32,
-        None).  With it: (last position's logits (B, V), per-layer
+        the layers' auxiliary losses summed, a float32 scalar - 0 without
+        MoE layers).  With it: (last position's logits (B, V), per-layer
         caches)."""
         B, S = tokens.shape
         x = self._embed(tokens)
         positions = _positions_for(self.cfg, B, S, x.device)
         caches = [] if cache_len is not None else None
+        auxes = []
         for layer in self.layers:
-            x, entry = layer(x, positions, cache_len)
+            x, entry, aux = layer(x, positions, cache_len)
             if caches is not None:
                 caches.append(entry)
+            if aux is not None:
+                auxes.append(aux)
         if caches is None:
-            return self._logits(x), None
+            aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+            for aux in auxes:  # in layer order, as the reference's scan
+                aux_total = aux_total + aux
+            return self._logits(x), aux_total
         return self._logits(x[:, -1:])[:, 0], caches
 
     def decode(self, caches: List[dict], token: torch.Tensor
@@ -416,10 +426,26 @@ def init_params(cfg: ModelConfig,
 
 def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B, S, V) float32, aux loss);
-    the dense decoder's aux loss is 0."""
-    logits, _ = params(tokens)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    """Full-sequence forward.  Returns (logits (B, S, V) float32, aux loss:
+    the MoE layers' load-balance losses summed in layer order, 0 for a
+    model without them)."""
+    return params(tokens)
+
+
+def loss_fn(cfg: ModelConfig, params: Transformer,
+            batch: Dict[str, torch.Tensor], aux_coef: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy plus ``aux_coef`` times the aux loss.
+    ``batch``: "tokens" and "labels" (B, S), optionally "loss_mask" (B, S).
+    Returns (loss, {"loss", "ce", "aux"})."""
+    logits, aux = forward(cfg, params, batch["tokens"])
+    labels = batch["labels"].to(logits.device)
+    mask = batch.get("loss_mask")
+    ce = softmax_cross_entropy(logits, labels,
+                               mask=None if mask is None
+                               else mask.to(logits.device))
+    loss = ce + aux_coef * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,

@@ -278,9 +278,9 @@ class ChannelMix(ParamModule):
                                                   dtype, device).items():
             self.add(name, value)
 
-    def forward(self, x: torch.Tensor, state: Optional[dict] = None
-                ) -> Tuple[torch.Tensor, dict]:
-        return apply_channel_mix(self, x, state)
+    def forward(self, x: torch.Tensor, state: Optional[dict] = None,
+                need_aux: bool = False) -> Tuple[torch.Tensor, dict, None]:
+        return (*apply_channel_mix(self, x, state), None)
 
     @staticmethod
     def empty_cache(cfg, batch: int, device) -> dict:

@@ -29,6 +29,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import repro_torch.kernels.wkv6, repro_torch.models.rwkv6\n"
         "import repro_torch.core.autotune, repro_torch.core.autoscale\n"
         "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.models.moe\n"
         "import repro_torch.models.convert\n"
         "import repro_torch.serving.scheduler, repro_torch.serving.server\n"
         "import repro_torch.launch.serve\n"

@@ -16,6 +16,11 @@ variant: the reference's prefill evaluates the WKV in its chunked form
 and its decode step serially, the port both through ``ops.wkv6``; besides
 the shared tests, a 40-token prefill (two 32-step chunks, the second
 ragged) and 8 decode steps are held to the reference at every step.
+deepseek-moe-16b (a dense layer 0, then MoE layers with a shared expert)
+and qwen3-moe-30b-a3b, with the smoke configs' drop-free dense experts
+and with GShard capacity dispatch ("/gshard"): the forward's 24 tokens
+dispatch in gcd groups of 8 at capacity 3, so choices are dropped, and
+the summed auxiliary loss is held to the reference's too.
 """
 import dataclasses
 
@@ -49,8 +54,12 @@ DENSE = ["granite-3-2b", "phi3-medium-14b", "qwen1.5-32b", "nemotron-4-15b",
          "qwen2-vl-72b"]
 #: "<arch>/<n> layers" is the arch's smoke config cut or grown to n layers
 RWKV = ["rwkv6-7b", "rwkv6-7b/4 layers"]
-COMPARED = DENSE + ["recurrentgemma-2b", "recurrentgemma-2b/8 layers"] + RWKV
-NOT_PORTED = ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "whisper-tiny"]
+#: "<arch>/gshard" is the arch's smoke config with capacity dispatch
+MOE = ["deepseek-moe-16b", "deepseek-moe-16b/gshard", "qwen3-moe-30b-a3b",
+       "qwen3-moe-30b-a3b/gshard"]
+COMPARED = (DENSE + ["recurrentgemma-2b", "recurrentgemma-2b/8 layers"]
+            + RWKV + MOE)
+NOT_PORTED = ["whisper-tiny"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, PROMPT = 2, 12, 8
 
@@ -59,13 +68,14 @@ class _Pair:
     """One arch's smoke config in both packages, on the same weights."""
 
     def __init__(self, name):
-        arch, _, layers = name.partition("/")
+        arch, _, variant = name.partition("/")
         self.jcfg = jconfigs.get_config(arch).smoke()
         self.cfg = configs.get_config(arch).smoke()
-        if layers:
-            n = int(layers.split()[0])
-            self.jcfg = dataclasses.replace(self.jcfg, n_layers=n)
-            self.cfg = dataclasses.replace(self.cfg, n_layers=n)
+        if variant:
+            change = (dict(moe_impl=variant) if variant == "gshard" else
+                      dict(n_layers=int(variant.split()[0])))
+            self.jcfg = dataclasses.replace(self.jcfg, **change)
+            self.cfg = dataclasses.replace(self.cfg, **change)
         self.jparams = jmodels.init_params(self.jcfg, jax.random.key(0))
         self.params = params_from_jax(
             self.cfg, jax.tree.map(np.asarray, self.jparams), device="cpu")
@@ -107,7 +117,11 @@ def test_forward_logits_match_reference(pair):
     assert logits.dtype == torch.float32
     assert logits.shape == (B, S, pair.cfg.vocab_size)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
-    assert float(aux) == float(jaux) == 0.0
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    if pair.cfg.moe is None:
+        assert float(aux) == float(jaux) == 0.0
+    else:  # the MoE layers' load-balance losses, summed
+        np.testing.assert_allclose(float(aux), float(jaux), **TOL)
 
 
 def test_prefill_logits_and_caches_match_reference(pair):

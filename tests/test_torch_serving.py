@@ -5,6 +5,8 @@ Weight updates are writes through the log, inference is a leaderless read,
 consistency modes hold, continuous batching drains; every port entry
 point is given ``device="cpu"`` (its default is the card).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -145,21 +147,29 @@ def test_push_weights_rejects_weights_on_another_device(smoke_model):
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b",
-                                  "rwkv6-7b"])
-def test_both_packages_serve_the_same_tokens(arch):
+                                  "rwkv6-7b", "deepseek-moe-16b/gshard"])
+def test_both_packages_serve_the_same_tokens(arch, monkeypatch):
     """Fleet and batcher of both packages on carried weights.  The longest
     prompts and their decode steps pass recurrentgemma's smoke window of 8:
-    the prefill rolls its ring buffer, and decode wraps it."""
+    the prefill rolls its ring buffer, and decode wraps it.
+    deepseek-moe-16b with capacity dispatch: the batcher's 6 slots decode
+    as one group of 6 tokens at capacity 2 (8 experts, top-2), so choices
+    are dropped, and the slots that fall idle once the queue is empty
+    still decode and take capacity, as in the reference."""
     jax = pytest.importorskip("jax")
     from repro.configs import get_config as jget
     from repro.models import init_params as jinit
     from repro.serving.scheduler import ContinuousBatcher as JBatcher
     from repro.serving.scheduler import Request as JRequest
     from repro.serving.server import ServingDeployment as JDeployment
+    from repro_torch.models import moe
     from repro_torch.models.convert import params_from_jax
 
-    jcfg = jget(arch).smoke()
-    cfg = get_config(arch).smoke()
+    name, _, impl = arch.partition("/")
+    jcfg, cfg = jget(name).smoke(), get_config(name).smoke()
+    if impl:
+        jcfg = dataclasses.replace(jcfg, moe_impl=impl)
+        cfg = dataclasses.replace(cfg, moe_impl=impl)
     v1, v2 = jinit(jcfg, jax.random.key(0)), jinit(jcfg, jax.random.key(1))
     p1, p2 = (params_from_jax(cfg, jax.tree.map(np.asarray, p), device=CPU)
               for p in (v1, v2))
@@ -180,11 +190,24 @@ def test_both_packages_serve_the_same_tokens(arch):
     assert [v for v, _ in got] == ["v1", "v1", "v2", "v2", "v2"]
     assert dep.replica_loads() == jdep.replica_loads()
 
-    # continuous batching over equal-length prompts, slots reused
-    jcb = JBatcher(jcfg, v1, n_slots=2, max_len=16)
-    cb = ContinuousBatcher(cfg, p1, n_slots=2, max_len=16, device=CPU)
+    # continuous batching over equal-length prompts, slots reused; the MoE
+    # decode steps' dropped choices are counted
+    n_slots, n_requests = (6, 9) if cfg.moe else (2, 5)
+    dropped = []
+    positions = moe.dispatch_positions
+
+    def counted(top_i, n_groups, n_experts):
+        pos = positions(top_i, n_groups, n_experts)
+        if top_i.shape[0] == n_slots:
+            c = moe._capacity(cfg.moe, n_slots // n_groups)
+            dropped.append(int((pos >= c).sum()))
+        return pos
+
+    monkeypatch.setattr(moe, "dispatch_positions", counted)
+    jcb = JBatcher(jcfg, v1, n_slots=n_slots, max_len=16)
+    cb = ContinuousBatcher(cfg, p1, n_slots=n_slots, max_len=16, device=CPU)
     rng = np.random.default_rng(3)
-    for rid in range(5):
+    for rid in range(n_requests):
         prompt = rng.integers(0, cfg.vocab_size, 7).tolist()
         jcb.submit(JRequest(rid=rid, prompt=prompt, max_new=4))
         cb.submit(Request(rid=rid, prompt=prompt, max_new=4))
@@ -193,10 +216,16 @@ def test_both_packages_serve_the_same_tokens(arch):
     cb.run_until_drained()
     assert [r.out for r in reqs] == [r.out for r in jreqs]
     assert cb.steps_executed == jcb.steps_executed
+    if cfg.moe:
+        assert len(dropped) == cb.steps_executed * cfg.n_layers - \
+            cb.steps_executed * cfg.moe_layer_start
+        assert sum(dropped) > 0, "no decode step dropped a choice"
+        assert cb.mean_occupancy < n_slots  # idle slots decoded too
 
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "recurrentgemma-2b",
-                                  "rwkv6-7b"])
+                                  "rwkv6-7b", "deepseek-moe-16b",
+                                  "qwen3-moe-30b-a3b"])
 def test_serve_launcher_runs_on_the_host(arch, capsys):
     from repro_torch.launch import serve
 
