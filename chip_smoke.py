@@ -101,7 +101,44 @@ no result line):
     the batcher over 8 x 512 x 32 new;
 10. the card against the CPU on the models - the five models' smoke
     configs in float32 on the same weights (the MoE configs with capacity
-    dispatch): logits agree, greedy and served tokens are equal.
+    dispatch): logits agree, greedy and served tokens are equal;
+T1. (right after phase 3) the attention backward - the hand-written
+    ``flash_attention_bwd`` through the autograd Function (on the
+    forward kernel's output and log-sum-exp) against autograd through the
+    plain forward on edge cases (lengths 1-2048, S_q x S_k 1/17/448 x
+    1500, groups 1/4/8, head dims 64/128/256, causal, windowed, full;
+    float32 and bf16) within ``BWD_TOL``; at granite-3-2b's training
+    shape against the same, 20 replays bitwise equal, its time beside its
+    operations bound, autograd's backward through the plain forward and
+    SDPA's backward (all three by graph replay after an L2 flush); the
+    forward there with and without its log-sum-exp;
+T2. the training path - granite-3-2b at full width and depth (bf16, remat
+    on) trained by the port's ``Trainer`` for 4 steps on ``SyntheticLM``
+    at batch 4 x 1024 tokens (no checkpoint inside the run), the memory
+    reckoned first; per step the loss (finite), ms, tokens/s, peak memory
+    and exactly 40 ``flash_attention_bwd`` and 80 ``flash_attention``
+    (forward and recompute) launches; then the same 4 steps with the
+    plain attention under autograd, for its loss curve beside the
+    kernels';
+T2b. granite-3-2b at full width and depth: one batch's gradients
+    through the kernels against the same with the plain attention, in
+    float32 every parameter within ``GRAD_TOL_F32`` of its largest entry,
+    in bf16 every parameter no further from the float32 gradient than
+    ``GRAD_NOISE_RATIO_BF16`` x the plain bf16 attention's;
+T3. the trainer's fault path - granite-3-2b cut to 4 layers (reduced:
+    depth): a checkpoint, ``crash_and_recover`` with the params and
+    moments bitwise equal to the saved ones, a straggler step and
+    ``scale_workers`` committing through the coordinator;
+W.  whisper-tiny at full width and depth (bf16, random seeded weights):
+    a prefill over random frames (2, 1500, 384) with exactly 4 encoder, 4
+    causal and 4 cross ``flash_attention`` launches, 32 greedy decode
+    steps of 8 ``flash_decode`` each; the encoder's, the causal and the
+    cross ``flash_attention`` and the cross ``flash_decode`` on the
+    tensors the path gave them; the float32 smoke config on the card
+    against the CPU; one ``make_train_step`` step with frames (the
+    backward at S_q 16 x S_k 1500), and the backward of each kind on the
+    q, k, v and cotangent direction of that step against autograd
+    through the plain forward.
 
 The line before the last is the card's name and power limit; the line
 before it, a JSON object describing every kernel; the last line,
@@ -338,21 +375,22 @@ def _hist_bound_ms(samples, mask, edges, n_valid: int):
                                  "operations")
 
 
-def _time_graph_ms(fn, flush, reps: int) -> float:
+def _time_graph_ms(fn, flush, reps: int, stream=None) -> float:
     """Device time of ``fn``: its launches captured once in a CUDA graph and
     replayed ``reps`` times, each after an L2 flush, between CUDA events.
     The host's Python is outside the window: every replay is queued behind
     a sleep on the card before the first runs, so a kernel of a few
     microseconds is timed as itself, not as the host's pace of queueing
-    replays."""
+    replays.  ``stream``: the side stream to warm up and capture on (by
+    default a new one)."""
     import torch
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()  # warm-up off the capture, as CUDA graphs ask
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         fn()
     # hold the card for 20 ms so the host queues every replay before the
     # first one starts: the card then never waits on the host inside a
@@ -371,6 +409,21 @@ def _time_graph_ms(fn, flush, reps: int) -> float:
     ms = sum(a.elapsed_time(b) for a, b in events) / reps
     del graph
     return ms
+
+
+def _time_grad_graph_ms(fwd, leaves, dout, flush, reps: int) -> float:
+    """Device time of the backward of ``fwd(*leaves)`` alone, timed as
+    :func:`_time_graph_ms` times a kernel: the forward runs once on a side
+    stream, then ``torch.autograd.grad`` of its output is captured on that
+    stream (where autograd runs the backward) and replayed after an L2
+    flush, so the autograd engine's host work is outside the window."""
+    import torch
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = fwd(*leaves)
+    return _time_graph_ms(lambda: torch.autograd.grad(
+        out, leaves, dout, retain_graph=True), flush, reps, stream=stream)
 
 
 def _tol_ratio(got, want, tol=ATTN_TOL) -> float:
@@ -1541,6 +1594,739 @@ def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
     return record
 
 
+#: The attention backward against autograd through the plain forward:
+#: |err| <= rtol x the gradient's largest entry + atol.  float32: the
+#: kernel sums in float32 in another order; bfloat16: inputs, the
+#: cotangent and the gradients are bf16 (8 bits of mantissa)
+BWD_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2e-2, 1e-3)}
+#: (B, H, H_kv, S_q, S_k, d, causal, window): lengths 1, 17, 127, 1500
+#: and 2048; groups 1, 4 and 8; head dims 64, 128 and 256; causal,
+#: windowed, and full with S_q != S_k (whisper's cross-attention, queries
+#: against 1500 encoder keys)
+BWD_CASES = [
+    (1, 8, 8, 1, 1, 64, True, None), (2, 8, 2, 17, 17, 64, True, None),
+    (1, 8, 1, 127, 127, 128, True, None), (1, 4, 1, 300, 300, 256, True, 100),
+    (1, 10, 1, 1500, 1500, 256, True, 512),
+    (1, 6, 6, 1, 1500, 64, False, None), (2, 6, 6, 17, 1500, 64, False, None),
+    (1, 6, 6, 448, 1500, 64, False, None),
+    (1, 6, 6, 1500, 1500, 64, False, None),
+    (1, 32, 8, 2048, 2048, 64, True, None),
+    (1, 16, 2, 2048, 2048, 128, True, None),
+    (1, 4, 1, 17, 1500, 256, False, None),
+]
+#: granite-3-2b's training shape: q (4, 32, 1024, 64), k/v (4, 8, 1024,
+#: 64), causal, bf16
+TRAIN_SHAPE = (4, 32, 8, 1024, 64)
+#: phase T2: granite-3-2b trained at full width and depth
+TRAIN = dict(arch="granite-3-2b", batch=4, seq_len=1024, steps=4)
+#: phase T2b, float32: every parameter's gradient through the kernels
+#: within this x its largest entry of the plain attention's (the CPU
+#: trainer test's bound)
+GRAD_TOL_F32 = 1e-4
+#: phase T2b, bf16: two bf16 runs differ by bf16's own rounding (up to
+#: 7e-2 of a leaf's largest entry on this batch, with the plain attention
+#: as with SDPA), so each bf16 gradient is held against the float32 one
+#: at the same weights: through the kernels its distance (2-norm) to it
+#: may be at most this x the plain bf16 attention's
+GRAD_NOISE_RATIO_BF16 = 1.25
+#: phase T3: the trainer's fault path, granite-3-2b cut to 4 layers
+FAULT_LAYERS = 4
+#: phase W: whisper-tiny at full width and depth
+WHISPER = dict(batch=2, prompt=16, new=32)
+
+
+def _bwd_edge_cases(FA, ref, dev) -> int:
+    """Phase T1: the backward kernel (through the autograd Function, on
+    the kernel's own forward and log-sum-exp) against autograd through
+    the plain forward, on every case of ``BWD_CASES`` in float32 and
+    bfloat16."""
+    import torch
+    n = 0
+    for i, case in enumerate(BWD_CASES):
+        B, H, H_kv, Sq, Sk, D, causal, window = case
+        g = torch.Generator().manual_seed(100 + i)
+        host = [torch.randn(shape, generator=g) for shape in
+                ((B, H, Sq, D), (B, H_kv, Sk, D), (B, H_kv, Sk, D),
+                 (B, H, Sq, D))]
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dev, dt) for t in host)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            want = torch.autograd.grad(
+                ref.ref_attention(*leaves, causal=causal, window=window),
+                leaves, do)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            got = torch.autograd.grad(
+                FA.flash_attention(*leaves, causal=causal, window=window),
+                leaves, do)
+            torch.cuda.synchronize()
+            rtol, atol = BWD_TOL[str(dt)]
+            for name, a, b in zip(("dq", "dk", "dv"), got, want):
+                err = float((a.float() - b.float()).abs().max())
+                limit = rtol * float(b.float().abs().max()) + atol
+                if not bool(torch.isfinite(a).all()) or err > limit:
+                    raise AssertionError(
+                        f"flash_attention_bwd {name} differs from autograd "
+                        f"through the plain version at {case} {dt}: max abs "
+                        f"err {err:.3e} > {limit:.3e}")
+            n += 1
+    return n
+
+
+def _bwd_check(FA, ref, q, k, v, do, causal: bool, what: str):
+    """The backward kernel (on the forward kernel's own output and
+    log-sum-exp) against autograd through the plain forward on the same
+    q, k, v and cotangent, within ``BWD_TOL``.  Returns (out, lse, the
+    kernel's (dq, dk, dv), the max abs error)."""
+    import torch
+    out, lse = FA._launch(q, k, v, causal, None, with_lse=True)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref.ref_attention(*leaves, causal=causal),
+                               leaves, do)
+    rtol, atol = BWD_TOL[str(q.dtype)]
+    err = 0.0
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        e = float((a.float() - b.float()).abs().max())
+        limit = rtol * float(b.float().abs().max()) + atol
+        if not bool(torch.isfinite(a).all()) or e > limit:
+            raise AssertionError(f"flash_attention_bwd {name} differs from "
+                                 f"autograd through the plain version at "
+                                 f"{what}: max abs err {e:.3e} > {limit:.3e}")
+        err = max(err, e)
+    return out, lse, got, err
+
+
+def _bwd_case_record(FA, ref, q, k, v, do, causal: bool, flush,
+                     what: str) -> dict:
+    """The backward kernel on one set of tensors: checked by
+    :func:`_bwd_check`, then its time (graph replay, cold L2) beside its
+    bound (five products, 10 d flops a computed pair, at the dtype's peak
+    rate, against q, the output, its cotangent, dq, k, v, dk, dv and the
+    log-sum-exp moved once), and, timed the same way, the backward of
+    autograd through the plain forward and of SDPA (the yardstick)."""
+    import torch
+    import torch.nn.functional as F
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    out, lse, _, err = _bwd_check(FA, ref, q, k, v, do, causal, what)
+    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
+    nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) \
+        * q.element_size() + 4 * lse.numel()
+    rate = PEAK_BF16_OPS_PER_S if q.dtype == torch.bfloat16 else \
+        PEAK_F32_OPS_PER_S
+    t_ops = 10.0 * D * pairs / rate * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    return dict(
+        max_abs_err=err,
+        ms=_time_graph_ms(lambda: FA.flash_attention_bwd(
+            q, k, v, out, lse, do, causal=causal), flush, 10),
+        plain_ms=_time_grad_graph_ms(
+            lambda *t: ref.ref_attention(*t, causal=causal), leaves, do,
+            flush, 3),
+        library_ms=_time_grad_graph_ms(
+            lambda *t: F.scaled_dot_product_attention(
+                *t, is_causal=causal, enable_gqa=H != k.shape[1]),
+            leaves, do, flush, 10),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _bwd_record(FA, ref, dev, flush) -> dict:
+    """The backward kernel at granite-3-2b's training shape: against
+    autograd through the plain forward, 20 replays bitwise equal, and the
+    times of :func:`_bwd_case_record`; the forward's time there with and
+    without the log-sum-exp, and the kernel's backward through the
+    autograd Function (captured as SDPA's is)."""
+    import torch
+    B, H, H_kv, S, D = TRAIN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, do = (torch.randn((B, H, S, D), generator=g, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, H_kv, S, D), generator=g, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    rec = _bwd_case_record(FA, ref, q, k, v, do, True, flush,
+                           f"granite's training shape {TRAIN_SHAPE}")
+    out, lse = FA._launch(q, k, v, True, None, with_lse=True)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+    for _ in range(20):
+        again = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("flash_attention_bwd replays differ")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    autograd_ms = _time_grad_graph_ms(
+        lambda *t: FA.flash_attention(*t, causal=True), leaves, do, flush,
+        10)
+    fwd_ms = _time_graph_ms(lambda: FA._launch(q, k, v, True, None),
+                            flush, 20)
+    fwd_lse_ms = _time_graph_ms(lambda: FA._launch(q, k, v, True, None,
+                                                   with_lse=True), flush, 20)
+    pairs = B * H * S * (S + 1) // 2
+    print(f"kernel flash_attention_bwd at granite-3-2b's training shape q "
+          f"{tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal: max abs err "
+          f"{rec['max_abs_err']:.3e} against autograd through the plain "
+          f"forward; 20 replays bitwise equal; device times (graph replay, "
+          f"cold L2): kernel {rec['ms']:.4f} ms ({autograd_ms:.4f} through "
+          f"the autograd Function), autograd through the plain forward "
+          f"{rec['plain_ms']:.4f}, SDPA's backward {rec['library_ms']:.4f};"
+          f" bound {rec['bound_ms']:.4f} ({rec['bound_by']}, "
+          f"{10 * D * pairs / 1e9:.1f} GFLOP); {rec['ms'] / rec['library_ms']:.2f}x"
+          f" SDPA's backward. The forward at the same shape: {fwd_ms:.4f} ms"
+          f" serving (no log-sum-exp), {fwd_lse_ms:.4f} ms with it",
+          flush=True)
+    rec["forward_ms"], rec["forward_lse_ms"] = fwd_ms, fwd_lse_ms
+    rec["autograd_function_ms"] = autograd_ms
+    return rec
+
+
+def _device_breakdown(prof, wall_s: float) -> str:
+    """A traced training step's device time by kind of kernel, from
+    ``torch.profiler``'s per-kernel sums, beside the step's host-clock
+    time: the card's busy share, and where its time goes."""
+    from torch.autograd import DeviceType
+    kinds, other = collections.Counter(), collections.Counter()
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = (getattr(e, "self_device_time_total", None)
+              or getattr(e, "self_cuda_time_total", 0))
+        name = e.key
+        kind = ("attention backward" if "bwd_" in name else
+                "attention forward" if "flash_attention" in name else
+                "matrix products" if any(t in name.lower() for t in (
+                    "gemm", "cutlass", "xmma", "nvjet", "cublas")) else
+                "other")
+        kinds[kind] += us / 1e3
+        if kind == "other":
+            other[name[:60]] += us / 1e3
+    busy = sum(kinds.values())
+    if busy == 0:
+        return ("  traced step: the profiler recorded no device time "
+                "(not measured)")
+    return (f"  traced step ({wall_s * 1e3:.1f} ms on the host clock): "
+            f"device busy {busy:.1f} ms ({busy / (wall_s * 1e3):.1%}); " +
+            ", ".join(f"{k} {v:.1f} ms ({v / busy:.1%})"
+                      for k, v in kinds.most_common()) +
+            "; the largest others: " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in other.most_common(6)))
+
+
+def _ckpt_dir() -> Path:
+    """A scratch directory for the trainer's checkpoints inside the
+    checkout (``build/`` is gitignored), emptied first."""
+    import shutil
+    path = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    return path
+
+
+def _train_phase(FA, ref, dev, bwd_ms: float) -> dict:
+    """Phase T2: granite-3-2b at full width and depth trained by the
+    port's ``Trainer`` (remat on) for ``TRAIN["steps"]`` steps on
+    ``SyntheticLM``: the memory reckoned first, then per step the loss,
+    ms, tokens/s, peak memory and the attention kernels' launches (each
+    layer's forward, its recompute under remat, its backward).  Then the
+    same run with the plain attention under autograd in place of the
+    kernels, for its loss curve beside the kernels'."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import Trainer
+
+    cfg = get_config(TRAIN["arch"])
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    n = cfg.n_params()
+    gib = 2.0 ** 30
+    print(f"train {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{n:,} parameters, remat {cfg.remat}, batch {B} x {S} tokens; "
+          f"reckoned: bf16 params {2 * n / gib:.2f} GiB + grads "
+          f"{2 * n / gib:.2f} + float32 moments {8 * n / gib:.2f} = "
+          f"{12 * n / gib:.2f} GiB, float32 logits {B * S * cfg.vocab_size * 4 / gib:.2f}"
+          f" GiB (and their gradient), layer inputs under remat "
+          f"{cfg.n_layers * B * S * cfg.d_model * 2 / gib:.2f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = _ckpt_dir()
+
+    def new_trainer():
+        return Trainer(
+            cfg, str(ckpt), opt_cfg=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                                total_steps=100),
+            data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                global_batch=B, seed=0),
+            n_virtual_workers=4, ckpt_every=10 ** 6, device=dev)
+
+    t0 = time.perf_counter()
+    trainer = new_trainer()
+    torch.cuda.synchronize()
+    print(f"  init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / gib:.2f} GiB allocated",
+          flush=True)
+    # the main path's counts: set to 0 just before it runs
+    FA.flash_attention.launches = 0
+    FA.flash_attention_bwd.launches = 0
+    per_step, losses, times = [], [], []
+    for i in range(TRAIN["steps"]):
+        f0, b0 = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i + 1 < TRAIN["steps"]:
+            m = trainer.run_step()  # ends reading the metrics: synchronized
+        else:  # the last step traced: where its device time goes
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                m = trainer.run_step()
+        dt = time.perf_counter() - t
+        fwd = FA.flash_attention.launches - f0
+        bwd = FA.flash_attention_bwd.launches - b0
+        per_step.append((fwd, bwd))
+        losses.append(m["loss"])
+        times.append(dt)
+        print(f"  step {m['step']}: loss {m['loss']:.4f} (ce {m['ce']:.4f}),"
+              f" grad_norm {m['grad_norm']:.3f}, lr {m['lr']:.2e}; "
+              f"{dt * 1e3:.1f} ms, {B * S / dt:.0f} tokens/s; peak "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB; "
+              f"flash_attention {fwd} (forward {cfg.n_layers} + recompute "
+              f"{fwd - cfg.n_layers}), flash_attention_bwd {bwd}",
+              flush=True)
+    launches = dict(flash_attention=FA.flash_attention.launches,
+                    flash_attention_bwd=FA.flash_attention_bwd.launches)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite training loss: {losses}")
+    want_fwd = cfg.n_layers * (2 if cfg.remat else 1)
+    for fwd, bwd in per_step:
+        if bwd != cfg.n_layers or fwd != want_fwd:
+            raise AssertionError(f"a step launched {fwd} flash_attention and "
+                                 f"{bwd} flash_attention_bwd, not {want_fwd} "
+                                 f"and {cfg.n_layers}")
+    print(_device_breakdown(prof, times[-1]), flush=True)
+    # the traced step is left out: the profiler slows the host
+    steady = float(np.median(times[1:-1]))
+    print(f"train {cfg.name}: losses {[round(x, 4) for x in losses]} all "
+          f"finite; exactly {cfg.n_layers} backward and {want_fwd} forward "
+          f"attention launches a step; steady step {steady * 1e3:.1f} ms "
+          f"(median of steps 2-{len(times) - 1}), {B * S / steady:.0f} tokens/s, "
+          f"peak {torch.cuda.max_memory_allocated() / gib:.2f} GiB; the "
+          f"attention backward ({cfg.n_layers} x {bwd_ms:.4f} ms) is "
+          f"{cfg.n_layers * bwd_ms / (steady * 1e3):.1%} of a step", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same run, same weights and batches, with the plain attention
+    real_fa = ops.flash_attention
+    ops.flash_attention = _plain_attention(ref)
+    try:
+        trainer = new_trainer()
+        plain = [trainer.run_step()["loss"] for _ in range(TRAIN["steps"])]
+    finally:
+        ops.flash_attention = real_fa
+    print(f"train {cfg.name}: losses with the plain attention under autograd"
+          f" {[round(x, 4) for x in plain]}, with the kernels "
+          f"{[round(x, 4) for x in losses]} (largest difference "
+          f"{max(abs(a - b) for a, b in zip(plain, losses)):.4f})",
+          flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(launches=launches, step_ms=steady * 1e3)
+
+
+def _plain_attention(ref):
+    """``ops.flash_attention``'s stand-in for a plain run: the plain
+    forward, which autograd differentiates."""
+    def attend(q, k, v, *, causal=True, window=None):
+        return ref.ref_attention(q, k, v, causal=causal, window=window)
+    return attend
+
+
+def _grad_check_phase(FA, ref, dev) -> None:
+    """Phase T2b: granite-3-2b at full width and depth, one batch's
+    gradients with the attention kernels and, from the same weights and
+    batch, with ``ops.flash_attention`` swapped for the plain forward
+    under autograd: in bf16 (the weights of phase T2), then in float32 at
+    those weights.  float32: every parameter's gradient through the
+    kernels within ``GRAD_TOL_F32`` of its largest entry of the plain
+    attention's.  bf16: every gradient through the kernels no further
+    (2-norm) from the float32 gradient than ``GRAD_NOISE_RATIO_BF16`` x
+    the plain bf16 attention's.  Each kernel run launches one backward a
+    layer, each plain run none."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.models.model import loss_fn
+
+    base = get_config(TRAIN["arch"])
+    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=base.vocab_size, seq_len=S, global_batch=B,
+                   seed=0)).global_batch(0).items()}
+    real_fa = ops.flash_attention
+
+    def grads(cfg, params):
+        """{"kernels": (loss, {name: grad}), "plain": (...)}"""
+        out = {}
+        for name, attend in (("kernels", real_fa),
+                             ("plain", _plain_attention(ref))):
+            b0 = FA.flash_attention_bwd.launches
+            ops.flash_attention = attend
+            try:
+                loss, _ = loss_fn(cfg, params, batch)
+                loss.backward()
+            finally:
+                ops.flash_attention = real_fa
+            n_bwd = FA.flash_attention_bwd.launches - b0
+            if n_bwd != (cfg.n_layers if name == "kernels" else 0):
+                raise AssertionError(f"the {name} run of the gradient check"
+                                     f" launched {n_bwd} backward kernels")
+            out[name] = (float(loss.detach()),
+                         {n: p.grad for n, p in params.named_parameters()})
+            for p in params.parameters():
+                p.grad = None
+        return out
+
+    t0 = time.perf_counter()
+    cfg16 = base
+    cfg32 = dataclasses.replace(base, param_dtype="float32",
+                                compute_dtype="float32")
+    params = init_params(cfg16, 0, device=dev, trainable=True)
+    g16 = grads(cfg16, params)
+    p32 = init_params(cfg32, 0, device=dev, trainable=True)
+    with torch.no_grad():
+        for a, b in zip(p32.parameters(), params.parameters()):
+            a.copy_(b)
+    del params
+    g32 = grads(cfg32, p32)
+    del p32
+    f32_rel, ratio = {}, {}
+    for n, want in g32["plain"][1].items():
+        got = g32["kernels"][1][n]
+        scale = float(want.abs().max()) or 1.0
+        f32_rel[n] = float((got - want).abs().max()) / scale
+        if not bool(torch.isfinite(got).all()) or f32_rel[n] > GRAD_TOL_F32:
+            raise AssertionError(
+                f"{base.name} float32: the gradient of {n} through the "
+                f"kernels differs from the plain attention's by "
+                f"{f32_rel[n]:.3e} of its largest entry (> {GRAD_TOL_F32})")
+        kern, plain = (float((g16[k][1][n].float() - want).norm())
+                       for k in ("kernels", "plain"))
+        ratio[n] = (kern, plain)
+        if (not bool(torch.isfinite(g16["kernels"][1][n]).all())
+                or kern > GRAD_NOISE_RATIO_BF16 * plain):
+            raise AssertionError(
+                f"{base.name} bf16: the gradient of {n} through the kernels "
+                f"is {kern:.3e} from the float32 gradient, the plain "
+                f"attention's {plain:.3e} (more than "
+                f"{GRAD_NOISE_RATIO_BF16}x)")
+    norms = {n: float(g.norm()) or 1.0 for n, g in g32["plain"][1].items()}
+    share = {n: k / max(p, 1e-30) for n, (k, p) in ratio.items()}
+    worst = max(share, key=share.get)
+    print(f"gradient check {base.name} at full width and depth (batch {B} "
+          f"x {S}), {len(f32_rel)} parameters: float32 through the kernels "
+          f"within {max(f32_rel.values()):.3e} of each gradient's largest "
+          f"entry of the plain attention's (median "
+          f"{float(np.median(list(f32_rel.values()))):.3e}; bound "
+          f"{GRAD_TOL_F32}); bf16 distance to the float32 gradient, "
+          f"relative to its norm, through the kernels up to "
+          f"{max(k / norms[n] for n, (k, _) in ratio.items()):.3e}, with "
+          f"the plain attention up to "
+          f"{max(p / norms[n] for n, (_, p) in ratio.items()):.3e}; the "
+          f"largest ratio {share[worst]:.3f} ({worst}; "
+          f"bound {GRAD_NOISE_RATIO_BF16}); losses bf16 "
+          f"{g16['kernels'][0]:.6f} / {g16['plain'][0]:.6f}, float32 "
+          f"{g32['kernels'][0]:.6f} / {g32['plain'][0]:.6f} (kernels / "
+          f"plain); {time.perf_counter() - t0:.1f} s", flush=True)
+    del g16, g32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _fault_phase(dev) -> None:
+    """Phase T3: the trainer's fault path at full width, granite-3-2b cut
+    to ``FAULT_LAYERS`` layers: a checkpoint through the grid store and
+    the coordinator, a step past it, ``crash_and_recover`` (params and
+    moments bitwise equal to the saved ones, training resumes at the
+    committed step), a straggler step and ``scale_workers`` committing
+    through the coordinator."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.train_loop import Trainer
+
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=FAULT_LAYERS)
+    ckpt = _ckpt_dir()
+    trainer = Trainer(cfg, str(ckpt), data_cfg=DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN["seq_len"],
+        global_batch=TRAIN["batch"], seed=1), n_virtual_workers=3,
+        ckpt_every=10 ** 6, device=dev)
+    trainer.run(2)
+    t0 = time.perf_counter()
+    trainer.checkpoint()
+    t_save = time.perf_counter() - t0
+    saved = {n: p.detach().cpu().clone()
+             for n, p in trainer.state.params.named_parameters()}
+    moments = {part: {n: t.cpu().clone()
+                      for n, t in trainer.state.opt_state[part].items()}
+               for part in ("m", "v")}
+    trainer.run_step()
+    t0 = time.perf_counter()
+    step = trainer.crash_and_recover()
+    t_restore = time.perf_counter() - t0
+    if step != 2 or trainer.coord.view.committed_ckpt != 2:
+        raise AssertionError(f"restored step {step}, committed "
+                             f"{trainer.coord.view.committed_ckpt}")
+    for n, p in trainer.state.params.named_parameters():
+        if not torch.equal(p.detach().cpu(), saved[n]):
+            raise AssertionError(f"restored parameter {n} differs")
+    for part in ("m", "v"):
+        for n, t in trainer.state.opt_state[part].items():
+            if not torch.equal(t.cpu(), moments[part][n]):
+                raise AssertionError(f"restored moment {part}/{n} differs")
+    m = trainer.run_step(straggler=1)
+    if not np.isfinite(m["loss"]) or m["step"] != 2:
+        raise AssertionError(f"the step after recovery: {m}")
+    view = trainer.coord.view
+    if view.committed_step < 1 or not any(view.step_noops.values()):
+        raise AssertionError("the straggler's step did not commit by noops")
+    g0 = view.generation
+    trainer.scale_workers(5)
+    trainer.run_step()
+    view = trainer.coord.view
+    if (len(view.workers) != 5 or view.generation <= g0
+            or view.committed_step != 3):
+        raise AssertionError(f"scale_workers: {view}")
+    n_bytes = sum(t.numel() * t.element_size() for t in saved.values()) + \
+        sum(t.numel() * 4 for part in moments.values() for t in part.values())
+    print(f"fault path {cfg.name} cut to {FAULT_LAYERS} layers (reduced: "
+          f"depth 40 -> {FAULT_LAYERS}): checkpoint of {n_bytes / 2**30:.2f}"
+          f" GiB (params and moments, written to 2 rows x 2 columns) in "
+          f"{t_save:.1f} s, crash_and_recover in {t_restore:.1f} s: "
+          f"{len(saved)} parameters and their moments bitwise equal to the "
+          f"saved ones; the straggler's step committed by noop fills, "
+          f"scale_workers(5) committed step {view.committed_step} "
+          f"(generation {view.generation})", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def _whisper_phase(FA, FD, ref, dev, flush) -> dict:
+    """Phase W: whisper-tiny at full width and depth (4 encoder and 4
+    decoder layers, d_model 384, 6 heads of 64, vocab 51,865, bf16,
+    random seeded weights): a prefill over random frames (B, 1500, 384)
+    and 32 greedy decode steps, with the attention launches per prefill
+    (4 non-causal encoder, 4 causal decoder, 4 cross) and per decode step
+    (8 ``flash_decode``: self and cross) checked; the encoder's, the
+    decoder's causal and the cross-attention's ``flash_attention`` and the
+    cross ``flash_decode`` against their plain versions on the tensors
+    the path handed them; the smoke config in float32 on the card against
+    the CPU; one ``make_train_step`` step with frames, so the backward
+    runs at S_q != S_k, and the backward of each kind of attention
+    against autograd through the plain forward on the q, k, v and the
+    direction of the cotangent that step gave it (scaled to a largest
+    entry of 1, so ``BWD_TOL``'s atol does not swallow the error)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg = get_config("whisper-tiny")
+    B, P, new = WHISPER["batch"], WHISPER["prompt"], WHISPER["new"]
+    params = init_params(cfg, 0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    frames = torch.randn((B, cfg.encoder_seq_len, cfg.d_model), generator=g,
+                         device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                           device=dev, dtype=torch.int32)
+    kinds = collections.Counter()
+    caught = {}
+    real_fa, real_fd = ops.flash_attention, ops.flash_decode
+
+    def catch_fa(q, k, v, *, causal=True, window=None):
+        kind = ("cross" if q.shape[2] != k.shape[2] else
+                "causal" if causal else "encoder")
+        kinds[kind] += 1
+        caught.setdefault(kind, (q, k, v))
+        return real_fa(q, k, v, causal=causal, window=window)
+
+    def catch_fd(q, k_cache, v_cache, cache_len):
+        kinds["decode"] += 1
+        if k_cache.shape[2] == cfg.encoder_seq_len:
+            caught["cross_decode"] = (q, k_cache, v_cache, cache_len)
+        return real_fd(q, k_cache, v_cache, cache_len)
+
+    ops.flash_attention, ops.flash_decode = catch_fa, catch_fd
+    try:
+        FA.flash_attention.launches = FD.flash_decode.launches = 0
+        with torch.inference_mode():
+            logits, caches = prefill(cfg, params, tokens, frames=frames,
+                                     cache_len=P + new)
+            fa_prefill = FA.flash_attention.launches
+            want = {"encoder": cfg.n_encoder_layers, "causal": cfg.n_layers,
+                    "cross": cfg.n_layers}
+            if dict(kinds) != want or fa_prefill != sum(want.values()):
+                raise AssertionError(f"whisper prefill launched {dict(kinds)}"
+                                     f" ({fa_prefill} kernels), not {want}")
+            tok, out = tokens[:, -1:], []
+            for _ in range(new):
+                before = FD.flash_decode.launches
+                logits, caches = decode_step(cfg, params, caches, tok)
+                if FD.flash_decode.launches - before != 2 * cfg.n_layers:
+                    raise AssertionError(f"a whisper decode step did not "
+                                         f"launch {2 * cfg.n_layers} "
+                                         f"flash_decode")
+                tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+                out.append(tok)
+            out = torch.cat(out, dim=1)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite whisper logits")
+        launches = dict(flash_attention=FA.flash_attention.launches,
+                        flash_decode=FD.flash_decode.launches)
+    finally:
+        ops.flash_attention, ops.flash_decode = real_fa, real_fd
+    print(f"whisper-tiny at full width and depth ({cfg.n_encoder_layers} "
+          f"encoder + {cfg.n_layers} decoder layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim}, bf16, "
+          f"{cfg.n_params():,} parameters): prefill of {P} tokens over frames "
+          f"{tuple(frames.shape)} launched {want} flash_attention; {new} "
+          f"greedy decode steps, {2 * cfg.n_layers} flash_decode each "
+          f"({cfg.n_layers} self, {cfg.n_layers} cross against "
+          f"{cfg.encoder_seq_len} rows); tokens {out[0, :8].tolist()}...",
+          flush=True)
+
+    # each kind of attention's kernel on the tensors the path handed it
+    shapes = {}
+    for kind in ("encoder", "causal", "cross"):
+        q, k, v = caught[kind]
+        causal = kind == "causal"
+        err = _close("flash_attention",
+                     FA.flash_attention(q, k, v, causal=causal),
+                     ref.ref_attention(q, k, v, causal=causal),
+                     f"whisper {kind} {tuple(q.shape)} x {tuple(k.shape)}")
+        Bq, H, Sq, D = q.shape
+        pairs = Bq * H * (Sq * (Sq + 1) // 2 if causal else Sq * k.shape[2])
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound, by = _attention_bound_ms(pairs, D, nbytes, q.dtype)
+        shapes[kind] = dict(
+            max_abs_err=err,
+            ms=_time_graph_ms(lambda: FA.flash_attention(
+                q, k, v, causal=causal), flush, 20),
+            plain_ms=_time_graph_ms(lambda: ref.ref_attention(
+                q, k, v, causal=causal), flush, 5),
+            library_ms=_time_graph_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), flush, 20),
+            bound_ms=bound, bound_by=by)
+        print(f"kernel flash_attention at whisper's {kind} attention q "
+              f"{tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype}: max abs "
+              f"err {err:.3e}; device times " + ", ".join(
+                  f"{key} {val:.4f}" for key, val in shapes[kind].items()
+                  if key.endswith("ms")) + f" ({by})", flush=True)
+    fa_rec = dict(shapes["cross"], launches=launches["flash_attention"],
+                  shapes=shapes)
+    fd_rec = _decode_record(FD, ref, *caught["cross_decode"], flush)
+    fd_rec["launches"] = launches["flash_decode"]
+
+    # the smoke config in float32: the card against the CPU
+    small = get_config("whisper-tiny").smoke()
+    on_cpu = init_params(small, 0, device="cpu")
+    on_gpu = copy.deepcopy(on_cpu).to(dev)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, small.vocab_size, (2, 24))
+                            .astype(np.int32))
+    fr = torch.from_numpy(rng.standard_normal(
+        (2, small.encoder_seq_len, small.d_model)).astype(np.float32))
+    lc, _ = forward(small, on_cpu, toks, frames=fr)
+    lg, _ = forward(small, on_gpu, toks.to(dev), frames=fr.to(dev))
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    greedy = []
+    for d, p in (("cpu", on_cpu), (dev, on_gpu)):
+        _, c = prefill(small, p, toks[:1].to(d), frames=fr[:1].to(d),
+                       cache_len=24 + 8)
+        t, seq = toks[:1, -1:].to(d), []
+        for _ in range(8):
+            lo, c = decode_step(small, p, c, t)
+            t = torch.argmax(lo, dim=-1).to(torch.int32)[:, None]
+            seq.append(int(t[0, 0]))
+        greedy.append(seq)
+    if greedy[0] != greedy[1]:
+        raise AssertionError(f"whisper greedy tokens differ: {greedy}")
+
+    # one train step with frames: the cross-attention backward at S_q !=
+    # S_k; each kind's first call caught with its output's cotangent
+    params.requires_grad_(True)
+    labels = torch.roll(tokens, -1, dims=1)
+    in_step = {}
+
+    def catch_train(q, k, v, *, causal=True, window=None):
+        out = real_fa(q, k, v, causal=causal, window=window)
+        kind = ("cross" if q.shape[2] != k.shape[2] else
+                "causal" if causal else "encoder")
+        if kind not in in_step:  # the recompute under remat is skipped
+            in_step[kind] = [q.detach(), k.detach(), v.detach(), None]
+            out.register_hook(
+                lambda g, kind=kind: in_step[kind].__setitem__(3, g))
+        return out
+
+    b0 = FA.flash_attention_bwd.launches
+    ops.flash_attention = catch_train
+    try:
+        _, _, m = make_train_step(cfg)(params, init_opt_state(params), {
+            "tokens": tokens, "labels": labels, "frames": frames})
+        n_bwd = FA.flash_attention_bwd.launches - b0
+    finally:
+        ops.flash_attention = real_fa
+    if (not np.isfinite(float(m["loss"]))
+            or n_bwd != cfg.n_encoder_layers + 2 * cfg.n_layers):
+        raise AssertionError(f"whisper train step: loss {float(m['loss'])}, "
+                             f"{n_bwd} flash_attention_bwd launches")
+    bwd_shapes = {}
+    for kind in ("encoder", "causal", "cross"):
+        q, k, v, g_out = in_step[kind]
+        if g_out is None:
+            raise AssertionError(f"whisper's {kind} attention got no "
+                                 f"cotangent in the train step")
+        do = g_out / g_out.abs().max()
+        bwd_shapes[kind] = _bwd_case_record(
+            FA, ref, q, k, v, do, kind == "causal", flush,
+            f"whisper's {kind} train-step attention {tuple(q.shape)} x "
+            f"{tuple(k.shape)}")
+        print(f"kernel flash_attention_bwd at whisper's {kind} attention q "
+              f"{tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype} (the train "
+              f"step's tensors and cotangent direction): max abs err "
+              f"{bwd_shapes[kind]['max_abs_err']:.3e} against autograd "
+              f"through the plain forward; device times (graph replay, cold "
+              f"L2) " + ", ".join(
+                  f"{key} {val:.4f}" for key, val in bwd_shapes[kind].items()
+                  if key.endswith("ms")) +
+              f" ({bwd_shapes[kind]['bound_by']})", flush=True)
+    bwd_rec = dict(bwd_shapes["cross"], launches=n_bwd, shapes=bwd_shapes)
+    print(f"whisper-tiny: cuda == cpu on the float32 smoke config (logits "
+          f"within 1e-4, max abs diff {float((lg.cpu() - lc).abs().max()):.2e};"
+          f" 8 greedy tokens equal); one train step with frames: loss "
+          f"{float(m['loss']):.4f}, grad_norm {float(m['grad_norm']):.3f}, "
+          f"{n_bwd} flash_attention_bwd ({cfg.n_encoder_layers} encoder, "
+          f"{cfg.n_layers} causal, {cfg.n_layers} cross at S_q {P} x S_k "
+          f"{cfg.encoder_seq_len})", flush=True)
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(flash_attention=fa_rec, flash_decode=fd_rec,
+                flash_attention_bwd=bwd_rec)
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -1570,11 +2356,12 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    kernels = (("latency_hist.cu", LH), ("flash_attention.cu", FA),
-               ("decode_attention.cu", FD), ("rglru_scan.cu", RS),
-               ("wkv6.cu", WK))
+    kernels = (("latency_hist.cu", LH.build), ("flash_attention.cu", FA.build),
+               ("flash_attention_bwd.cu", FA.build_bwd),
+               ("decode_attention.cu", FD.build), ("rglru_scan.cu", RS.build),
+               ("wkv6.cu", WK.build))
     with ThreadPoolExecutor(len(kernels)) as pool:
-        logs = list(pool.map(lambda kv: kv[1].build(), kernels))
+        logs = list(pool.map(lambda kv: kv[1](), kernels))
     print(f"build: {', '.join(k for k, _ in kernels)} in "
           f"{time.perf_counter() - t0:.1f} s (one nvcc each, together)")
     for (src, _), log in zip(kernels, logs):
@@ -1622,6 +2409,25 @@ def main() -> int:
           f"{n_wkv} edge cases (B 1/8, S 1-4096, logw model/-5/0/-20, s0 zero "
           f"and given, strided and dense; y and s_last), using at most "
           f"{used} of it", flush=True)
+    # -- T1. the attention backward against its plain version ---------------
+    t0 = time.perf_counter()
+    n_bwd = _bwd_edge_cases(FA, ref, dev)
+    print(f"kernel check: flash_attention_bwd (dq, dk, dv through the "
+          f"autograd Function on the kernel's forward and log-sum-exp) within "
+          f"(rtol x largest entry, atol) {BWD_TOL} of autograd through the "
+          f"plain forward in {n_bwd} edge cases (S 1/17/127/300/1500/2048, "
+          f"S_q x S_k 1/17/448/1500 x 1500, groups 1/4/8, d 64/128/256, "
+          f"causal, windowed and full; f32 and bf16) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    bwd_rec = _bwd_record(FA, ref, dev, flush)
+    B_, H_, H_kv_, S_, D_ = TRAIN_SHAPE
+    g_ = torch.Generator(device=dev).manual_seed(8)
+    train_fa_rec = _prefill_record(
+        FA, ref, *(torch.randn((B_, h, S_, D_), generator=g_, device=dev,
+                               dtype=torch.bfloat16)
+                   for h in (H_, H_kv_, H_kv_)), True, None, flush)
+    del g_
 
     sweep = P.compile_sweep(P.SweepSpec(**GRID))
     if len(sweep) != 32:
@@ -1739,14 +2545,26 @@ def main() -> int:
     # -- 10. the card against the CPU on the models -------------------------
     for arch in SERVE:
         _model_cuda_vs_cpu(dev, arch)
+
+    # -- T2.-T3. the training path; W. whisper-tiny ---------------------------
+    train = _train_phase(FA, ref, dev, bwd_rec["ms"])
+    _grad_check_phase(FA, ref, dev)
+    _fault_phase(dev)
+    whisper = _whisper_phase(FA, FD, ref, dev, flush)
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
           f" s", flush=True)
 
+    # the backward has no Pallas counterpart: the reference differentiates
+    # its jnp oracle of the forward
     where = {
-        "rglru_scan": ("rglru_scan.cu", "rglru_scan.py:23"),
-        "wkv6": ("wkv6.cu", "rwkv6_scan.py:24"),
-        "flash_attention": ("flash_attention.cu", "flash_attention.py:34"),
-        "flash_decode": ("decode_attention.cu", "decode_attention.py:31")}
+        "rglru_scan": ("rglru_scan.cu", "kernels/rglru_scan.py:23"),
+        "wkv6": ("wkv6.cu", "kernels/rwkv6_scan.py:24"),
+        "flash_attention": ("flash_attention.cu",
+                            "kernels/flash_attention.py:34"),
+        "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                "models/attention.py:76"),
+        "flash_decode": ("decode_attention.cu",
+                         "kernels/decode_attention.py:31")}
     rows = [dict(name="latency_hist", route="cuda",
                  source="src/repro_torch/kernels/csrc/latency_hist.cu",
                  replaces="src/repro/kernels/latency_hist.py:23",
@@ -1756,12 +2574,17 @@ def main() -> int:
                  source="src/repro_torch/kernels/csrc/latency_hist.cu",
                  replaces="src/repro/kernels/latency_hist.py:23",
                  path="transient", library_ms=None, **transient)]
+    train_fa_rec["launches"] = train["launches"]["flash_attention"]
+    bwd_rec["launches"] = train["launches"]["flash_attention_bwd"]
+    served["training"] = dict(flash_attention=train_fa_rec,
+                              flash_attention_bwd=bwd_rec)
+    served["whisper-tiny"] = whisper
     for arch, records in served.items():
         for name, rec in records.items():
             src, tpu = where[name]
             rows.append(dict(name=name, route="cuda",
                              source=f"src/repro_torch/kernels/csrc/{src}",
-                             replaces=f"src/repro/kernels/{tpu}", path=arch,
+                             replaces=f"src/repro/{tpu}", path=arch,
                              **rec))
     print(json.dumps({"kernels": rows}))
     print(_nvidia_smi())

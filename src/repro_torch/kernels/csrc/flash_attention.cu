@@ -1,14 +1,22 @@
-// Flash attention forward (prefill) for Hopper (sm_90a).
+// Flash attention forward (prefill, and the training forward) for Hopper
+// (sm_90a).
 //
 // Replaces the Pallas kernel src/repro/kernels/flash_attention.py:
-// _flash_kernel.  For q (B, H, S, d) and k, v (B, H_kv, S, d), query head h
-// reading kv head h / (H / H_kv):
+// _flash_kernel.  For q (B, H, S_q, d) and k, v (B, H_kv, S_k, d), query
+// head h reading kv head h / (H / H_kv):
 //   o[b, h, i] = sum_j softmax_j(q_i . k_j * d^-1/2) v_j
 // over j <= i when causal, over all j otherwise, and with a window w > 0
 // only over i - j < w besides (the reference's local attention,
-// src/repro/models/attention.py:chunked_attention).  Scores, running max
-// and running sum are float32; masked scores are -1e30 (the reference's
-// value, not -inf); the output is acc / max(l, 1e-30) in the input type.
+// src/repro/models/attention.py:chunked_attention).  A causal or windowed
+// call has S_q == S_k (the wrapper checks); a full one takes any S_k
+// (whisper's cross-attention: the decoder's queries against the encoder's
+// 1500 keys).  Scores, running max and running sum are float32; masked
+// scores are -1e30 (the reference's value, not -inf); the output is
+// acc / max(l, 1e-30) in the input type.  Given a non-null `lse` (the
+// training forward) the kernel also writes each row's float32 log-sum-exp
+// of its scaled scores, m + ln l, (B, H, S_q) dense, from which the
+// backward (flash_attention_bwd.cu) recomputes P; serving passes null and
+// runs as before.
 // Inputs are float32 or bfloat16, head dim 16, 32, 64, 128 or 256, and
 // any S: the ragged last tile is masked here (the TPU kernel asserted that
 // S divides by its 128-row blocks).  Each tensor comes with its own
@@ -124,8 +132,9 @@ __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int group, int S, float scale, int causal, int window,
-                       Strides qs, Strides ks, Strides vs, Strides os) {
+                       float* __restrict__ lse, int group, int Sq, int Sk,
+                       float scale, int causal, int window, Strides qs,
+                       Strides ks, Strides vs, Strides os) {
   constexpr int LD = D + 4;  // padded row, float4-aligned
   constexpr int NC = D / 16;  // output columns per thread
   extern __shared__ float4 smem4[];
@@ -141,7 +150,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
   const float* qb = q + b * qs.b + h * qs.h + (long long)q0 * qs.s;
-  load_tile<D, LD>(sq, qb, qs, 0, S - q0);
+  load_tile<D, LD>(sq, qb, qs, 0, Sq - q0);
   const float* kb = k + b * ks.b + hk * ks.h;
   const float* vb = v + b * vs.b + hk * vs.h;
 
@@ -154,13 +163,13 @@ flash_attention_kernel(const float* __restrict__ q,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  const int n_kt_all = (S + BK - 1) / BK;
+  const int n_kt_all = (Sk + BK - 1) / BK;
   const int n_kt = causal ? min(n_kt_all, (q0 + BQ - 1) / BK + 1) : n_kt_all;
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
   for (int kt = kt_lo; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
-    load_tile<D, LD>(sk, kb, ks, k0, S);
-    load_tile<D, LD>(sv, vb, vs, k0, S);
+    load_tile<D, LD>(sk, kb, ks, k0, Sk);
+    load_tile<D, LD>(sv, vb, vs, k0, Sk);
     __syncthreads();
 
     // scores s[i][j] = q[4ty+i] . k[tx+16j]
@@ -197,7 +206,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < S && (!causal || kpos <= qpos) &&
+        const bool ok = kpos < Sk && (!causal || kpos <= qpos) &&
                         (window <= 0 || qpos - kpos < window);
         s[i][j] = ok ? s[i][j] * scale : NEG;
         mx = fmaxf(mx, s[i][j]);
@@ -253,11 +262,13 @@ flash_attention_kernel(const float* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * ty + i;
-    if (qpos >= S) continue;
+    if (qpos >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < NC; ++c)
       ob[(long long)qpos * os.s + tx + 16 * c] = acc[i][c] / denom;
+    if (lse != nullptr && tx == 0)
+      lse[((long long)b * gridDim.y + h) * Sq + qpos] = m[i] + logf(denom);
   }
 }
 
@@ -268,6 +279,7 @@ flash_attention_kernel(const float* __restrict__ q,
 #include "mma_bf16.cuh"
 
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 struct MmaTile {
@@ -286,8 +298,9 @@ __global__ void __launch_bounds__(MmaTile<D>::THREADS, 2)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
-                           __nv_bfloat16* __restrict__ o, int H, int group,
-                           int S, float scale_log2, int causal, int window,
+                           __nv_bfloat16* __restrict__ o,
+                           float* __restrict__ lse, int H, int group, int Sq,
+                           int Sk, float scale_log2, int causal, int window,
                            Strides qs, Strides ks, Strides vs, Strides os) {
   using T = MmaTile<D>;
   constexpr int BQT = T::BQ, BKT = T::BK, LD = T::LD, NTH = T::THREADS;
@@ -320,13 +333,13 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
   const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
 
-  const int n_kt_all = (S + BKT - 1) / BKT;
+  const int n_kt_all = (Sk + BKT - 1) / BKT;
   const int n_kt = causal ? min(n_kt_all, (q0 + BQT - 1) / BKT + 1) : n_kt_all;
   const int kt_lo = window > 0 ? max(0, q0 - window + 1) / BKT : 0;
 
-  copy_tile<BQT, D, NTH>(sq, qb, qs.s, 0, S - q0);
-  copy_tile<BKT, D, NTH>(sk, kb, ks.s, kt_lo * BKT, S);
-  copy_tile<BKT, D, NTH>(sv, vb, vs.s, kt_lo * BKT, S);
+  copy_tile<BQT, D, NTH>(sq, qb, qs.s, 0, Sq - q0);
+  copy_tile<BKT, D, NTH>(sk, kb, ks.s, kt_lo * BKT, Sk);
+  copy_tile<BKT, D, NTH>(sv, vb, vs.s, kt_lo * BKT, Sk);
   cp_async_commit();
 
   uint32_t qa[Q_REGS ? KS : 1][4];
@@ -345,8 +358,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncthreads();      // ... for every thread; the other stage is free
     if (kt + 1 < n_kt) {
       const int nxt = (stage ^ 1) * BKT * LD;
-      copy_tile<BKT, D, NTH>(sk + nxt, kb, ks.s, (kt + 1) * BKT, S);
-      copy_tile<BKT, D, NTH>(sv + nxt, vb, vs.s, (kt + 1) * BKT, S);
+      copy_tile<BKT, D, NTH>(sk + nxt, kb, ks.s, (kt + 1) * BKT, Sk);
+      copy_tile<BKT, D, NTH>(sv + nxt, vb, vs.s, (kt + 1) * BKT, Sk);
       cp_async_commit();
     }
     if constexpr (Q_REGS) {
@@ -359,8 +372,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     const int k0 = kt * BKT;
     // a tile none of the warp's rows can see (past its diagonal, before
-    // its window, or rows all past S) changes nothing: skip it
-    if (row_lo >= S || (causal && k0 > row_lo + 15) ||
+    // its window, or rows all past S_q) changes nothing: skip it
+    if (row_lo >= Sq || (causal && k0 > row_lo + 15) ||
         (window > 0 && k0 + BKT - 1 <= row_lo - window))
       continue;
     const __nv_bfloat16* skt = sk + stage * BKT * LD;
@@ -391,11 +404,11 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // scores into log2 units (scale sc); mask only a tile that crosses
-    // the warp's diagonal, its window's start or S, scaling it here (sc
+    // the warp's diagonal, its window's start or S_k, scaling it here (sc
     // becomes 1); an interior tile's scale rides in the exponent's FMA.
     // Element e of tile n is row (e < 2 ? a : b), key k0 + 8n + 2tig +
     // (e & 1)
-    const bool edge = k0 + BKT > S || (causal && k0 + BKT - 1 > row_lo) ||
+    const bool edge = k0 + BKT > Sk || (causal && k0 + BKT - 1 > row_lo) ||
                       (window > 0 && row_lo + 15 - k0 >= window);
     float sc = scale_log2;
     if (edge) {
@@ -405,7 +418,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) {
           const int key = k0 + n * 8 + tig * 2 + (e & 1);
           const int row = e < 2 ? row_a : row_b;
-          const bool ok = key < S && (!causal || key <= row) &&
+          const bool ok = key < Sk && (!causal || key <= row) &&
                           (window <= 0 || row - key < window);
           s[n][e] = ok ? s[n][e] * scale_log2 : NEG;
         }
@@ -467,12 +480,18 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  if (row_lo >= S) return;
+  if (row_lo >= Sq) return;
 
 #pragma unroll
   for (int off = 1; off < 4; off <<= 1) {
     l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  if (lse != nullptr && tig == 0) {
+    // m is in log2 units: ln(sum) = (m + log2 l) ln 2
+    float* lb = lse + ((long long)b * H + h) * Sq;
+    if (row_a < Sq) lb[row_a] = (m_a + log2f(fmaxf(l_a, 1e-30f))) * LN2;
+    if (row_b < Sq) lb[row_b] = (m_b + log2f(fmaxf(l_b, 1e-30f))) * LN2;
   }
   // the output through the warp's own 16 rows of the Q tile (no other
   // warp reads them), then out in 16-byte stores
@@ -493,16 +512,17 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = lane; i < 16 * CH; i += 32) {
     const int r = i / CH, c = (i % CH) * 8, row = row_lo + r;
-    if (row < S)
+    if (row < Sq)
       *reinterpret_cast<uint4*>(ob + (long long)row * os.s + c) =
           *reinterpret_cast<const uint4*>(so + r * LD + c);
   }
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int H_kv, int S, int causal, int window, float scale,
-               const long long* st, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int H_kv, int Sq, int Sk, int causal,
+               int window, float scale, const long long* st,
+               cudaStream_t stream) {
   using T = MmaTile<D>;
   static bool attr_set = false;  // once per instantiation and process
   if (!attr_set) {
@@ -514,20 +534,21 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
   }
   // query tiles on the slowest axis: with a causal mask the tiles with the
   // most key tiles of every (b, h) go first
-  const dim3 grid(B * H, (S + T::BQ - 1) / T::BQ);
+  const dim3 grid(B * H, (Sq + T::BQ - 1) / T::BQ);
   flash_attention_mma_kernel<D><<<grid, T::THREADS, T::SMEM, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), H,
-      H / H_kv, S, scale * LOG2E, causal, window, Strides{st[0], st[1], st[2]},
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      lse, H, H / H_kv, Sq, Sk, scale * LOG2E, causal, window, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]});
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
-               int H, int H_kv, int S, int causal, int window, float scale,
-               const long long* st, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int H, int H_kv, int Sq, int Sk, int causal,
+               int window, float scale, const long long* st,
+               cudaStream_t stream) {
   constexpr size_t shmem =
       sizeof(float) * (size_t)(BQ * (D + 4) + 2 * BK * (D + 4) + BQ * LDP);
   static bool attr_set = false;  // once per instantiation and process
@@ -538,11 +559,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_attention_kernel<D><<<grid, THREADS, shmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), H / H_kv, S,
-      scale, causal, window, Strides{st[0], st[1], st[2]},
+      static_cast<const float*>(v), static_cast<float*>(o), lse, H / H_kv,
+      Sq, Sk, scale, causal, window, Strides{st[0], st[1], st[2]},
       Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]});
   return (int)cudaGetLastError();
@@ -552,16 +573,20 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B,
 
 // C entry point: launches on `stream` and returns cudaGetLastError().
 // is_bf16 selects bfloat16 (1, the tensor-core kernel) or float32 (0, the
-// CUDA-core kernel) for q, k, v and o alike.  window: 0 for none, else
-// query i sees key j only where i - j < window.  strides: 12 element
-// strides, (batch, head, seq) of q, k, v, o in turn.
+// CUDA-core kernel) for q, k, v and o alike.  lse: null, or float32
+// (B, H, S_q) dense for each row's log-sum-exp.  S_q == S_k where causal
+// or windowed.  window: 0 for none, else query i sees key j only where
+// i - j < window.  strides: 12 element strides, (batch, head, seq) of q,
+// k, v, o in turn.
 extern "C" int flash_attention_launch(int is_bf16, int d, const void* q,
                                       const void* k, const void* v, void* o,
-                                      int B, int H, int H_kv, int S,
-                                      int causal, int window, float scale,
-                                      const long long* strides, void* stream) {
+                                      float* lse, int B, int H, int H_kv,
+                                      int Sq, int Sk, int causal, int window,
+                                      float scale, const long long* strides,
+                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_ARGS q, k, v, o, B, H, H_kv, S, causal, window, scale, strides, st
+#define FA_ARGS \
+  q, k, v, o, lse, B, H, H_kv, Sq, Sk, causal, window, scale, strides, st
   switch (d * 2 + (is_bf16 ? 1 : 0)) {
     case 16 * 2: return launch_f32<16>(FA_ARGS);
     case 32 * 2: return launch_f32<32>(FA_ARGS);

@@ -1,8 +1,8 @@
-"""Flash attention forward (prefill): the hand-written CUDA kernel and its
-wrapper.
+"""Flash attention, forward (prefill, training) and backward (training):
+the hand-written CUDA kernels and their wrappers.
 
-Replaces the Pallas kernel ``src/repro/kernels/flash_attention.py:
-_flash_kernel``.  The CUDA source is ``csrc/flash_attention.cu``: one
+The forward replaces the Pallas kernel ``src/repro/kernels/
+flash_attention.py:_flash_kernel``.  The CUDA source is ``csrc/flash_attention.cu``: one
 block per (batch, head, query tile) walks the K/V tiles from the first its
 rows can see (0, or the window's start) up to the diagonal with an online
 softmax in float32 registers - bfloat16 inputs on the tensor cores
@@ -11,20 +11,35 @@ float32 accumulation), float32 inputs in float32 FMAs on the CUDA cores.
 At the serving path's shapes it is bound by operations (see the source's
 note).
 
-The wrapper takes the JAX kernel's layout, q (B, H, S, d) and k/v
-(B, H_kv, S, d), as any strided views whose last dimension is contiguous,
-and returns (B, H, S, d) laid out as a (B, S, H, d) tensor, so the model's
-``out.transpose(1, 2).reshape(B, S, H * d)`` costs no copy.  A view whose
-rows a 16-byte copy cannot read is copied first (:func:`aligned_rows`).  A
-CUDA tensor launches the kernel (or the call raises); a CPU tensor runs
-the plain version :func:`repro_torch.kernels.ref.ref_attention`.
-``flash_attention.launches`` counts kernel launches, and only those.
+The wrapper takes the JAX kernel's layout, q (B, H, S_q, d) and k/v
+(B, H_kv, S_k, d), as any strided views whose last dimension is
+contiguous, and returns (B, H, S_q, d) laid out as a (B, S_q, H, d)
+tensor, so the model's ``out.transpose(1, 2).reshape(B, S, H * d)`` costs
+no copy.  S_q and S_k differ only without a causal mask or a window
+(cross-attention).  A view whose rows a 16-byte copy cannot read is copied
+first (:func:`aligned_rows`).  A CUDA tensor launches the kernel (or the
+call raises); a CPU tensor runs the plain version
+:func:`repro_torch.kernels.ref.ref_attention`.
+
+Where q, k or v requires grad (and grad mode is on) the call goes through
+:class:`FlashAttention`, a ``torch.autograd.Function``: its forward also
+writes each row's log-sum-exp, and its backward runs
+:func:`flash_attention_bwd` - on the card the hand-written backward
+kernel ``csrc/flash_attention_bwd.cu`` (P recomputed from the saved
+log-sum-exp, dK and dV summed over each kv head's group inside one block:
+no atomics, the same bits every run; bfloat16 at head dims 64 and 128 on
+the tensor cores, the rest on the CUDA cores).  A CPU tensor is not sent
+through it: autograd differentiates the plain version.  Head dims 64, 128
+and 256 train.  ``flash_attention.launches`` and
+``flash_attention_bwd.launches`` count kernel launches (one per call),
+and only those; a serving call passes no log-sum-exp buffer and runs the
+forward kernel as before.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,8 +49,13 @@ from .ref import ref_attention
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
+#: head dims the backward kernel takes
+BWD_HEAD_DIMS = (64, 128, 256)
+
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
+_bwd_lib: Optional[ctypes.CDLL] = None
+_bwd_build_log = ""
 
 
 def build() -> str:
@@ -46,14 +66,28 @@ def build() -> str:
         return _build_log
     lib, _build_log = build_library("flash_attention.cu")
     fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _lib = lib
     return _build_log
+
+
+def build_bwd() -> str:
+    """Compile ``csrc/flash_attention_bwd.cu`` (once per source and flags)
+    and load it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
+    global _bwd_lib, _bwd_build_log
+    if _bwd_lib is not None:
+        return _bwd_build_log
+    lib, _bwd_build_log = build_library("flash_attention_bwd.cu")
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    _bwd_lib = lib
+    return _bwd_build_log
 
 
 #: head dim -> (query rows per block, keys per tile) of the bfloat16
@@ -82,15 +116,18 @@ def aligned_rows(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: Optional[int]) -> None:
+           causal: bool, window: Optional[int]) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"q (B, H, S, d) and k/v (B, H_kv, S, d) expected: "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+        raise ValueError(f"q (B, H, S_q, d) and k/v (B, H_kv, S_k, d) "
+                         f"expected: {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, S, D = q.shape
-    if k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, D):
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != D
+            or k.shape[2] == 0
+            or ((causal or window is not None) and k.shape[2] != S)):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} (S_q == "
+                         f"S_k where causal or windowed, S_k >= 1)")
     if k.shape[1] == 0 or H % k.shape[1] != 0:
         raise ValueError(f"{H} query heads do not group over {k.shape[1]} "
                          f"kv heads")
@@ -105,15 +142,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, window: Optional[int]) -> torch.Tensor:
+            causal: bool, window: Optional[int], with_lse: bool = False
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The forward kernel: (out, the float32 (B, H, S_q) log-sum-exp with
+    ``with_lse``, else None - the serving path's null pointer)."""
     B, H, S, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
     q, k, v = (aligned_rows(t) for t in (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return out, lse
     build()
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
@@ -121,31 +163,120 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = _lib.flash_attention_launch(
             int(q.dtype == torch.bfloat16), D, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), B, H, k.shape[1], S, int(causal),
-            window or 0, 1.0 / math.sqrt(D), strides, stream)
+            v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if lse is not None else None, B, H, k.shape[1],
+            S, k.shape[2], int(causal), window or 0, 1.0 / math.sqrt(D),
+            strides, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     flash_attention.launches += 1
-    return out
+    return out, lse
+
+
+def _launch_bwd(q, k, v, out, lse, dout, causal: bool,
+                window: Optional[int]):
+    B, H, S, D = q.shape
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in the backward kernel's "
+                         f"{BWD_HEAD_DIMS}")
+    # the tensor-core path copies rows in 16-byte pieces
+    q, k, v, dout = (aligned_rows(t) for t in (q, k, v, dout))
+    out = out if out.stride(-1) == 1 else out.contiguous()
+    dq = torch.empty((B, S, H, D), dtype=q.dtype,
+                     device=q.device).transpose(1, 2)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    build_bwd()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib.flash_attention_bwd_launch(
+            int(q.dtype == torch.bfloat16), D, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.contiguous().data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], S, k.shape[2],
+            int(causal), window or 0, 1.0 / math.sqrt(D), strides, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of :func:`flash_attention` at (q, k, v),
+    given its output ``out``, its float32 log-sum-exp ``lse`` (B, H, S_q)
+    and the output's cotangent ``dout`` (q's shape and dtype).  CUDA
+    tensors run the hand-written kernel (head dims 64, 128, 256); CPU
+    tensors autograd through the plain version (``out`` and ``lse`` are
+    not read there)."""
+    _check(q, k, v, causal, window)
+    if q.device.type == "cpu":
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = ref_attention(*qkv, causal=causal, window=window)
+            return torch.autograd.grad(o, qkv, dout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
+                         f"{q.device}")
+    return _launch_bwd(q, k, v, out, lse, dout, causal, window)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` on CUDA tensors with its gradient: the
+    forward kernel also writes the log-sum-exp and saves q, k, v, the
+    output and it; the backward is the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        out, lse = _launch(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, S, d); k/v: (B, H_kv, S, d), H % H_kv == 0, float32 or
-    bfloat16.  Returns (B, H, S, d) in q's dtype.  With a ``window``, query
-    i sees key j only where ``i - j < window`` (local attention).
+    """q: (B, H, S_q, d); k/v: (B, H_kv, S_k, d), H % H_kv == 0, float32 or
+    bfloat16; S_q == S_k when ``causal`` or with a ``window``.  Returns
+    (B, H, S_q, d) in q's dtype.  With a ``window``, query i sees key j
+    only where ``i - j < window`` (local attention).
 
     CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128,
-    256); CPU tensors run the plain version.  Any other device raises."""
-    _check(q, k, v, window)
+    256), differentiable through :class:`FlashAttention` where an input
+    requires grad; CPU tensors run the plain version, which autograd
+    differentiates.  Any other device raises."""
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         return ref_attention(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
-    return _launch(q, k, v, causal, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window)
+    return _launch(q, k, v, causal, window)[0]
 
 
 flash_attention.launches = 0

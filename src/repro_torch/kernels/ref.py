@@ -46,21 +46,23 @@ def ref_latency_hist(samples: torch.Tensor, valid: torch.Tensor,
 def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True,
                   window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, S, d); k/v: (B, H_kv, S, d), H % H_kv == 0 (query head h
-    reads kv head h // (H / H_kv)).  Full-softmax attention with float32
+    """q: (B, H, S_q, d); k/v: (B, H_kv, S_k, d), H % H_kv == 0 (query head
+    h reads kv head h // (H / H_kv)).  Full-softmax attention with float32
     scores, a -1e30 mask and float32 softmax; the output has q's dtype.
     Query i sees key j where ``j <= i`` (causal) and, with a ``window``,
     where ``i - j < window`` too (the reference's local-attention mask,
-    ``models/attention.py:chunked_attention``).  Any strides are taken."""
+    ``models/attention.py:chunked_attention``); both need S_q == S_k, and
+    without them any S_k is taken (cross-attention).  Any strides are
+    taken."""
     B, H, S, D = q.shape
-    H_kv = k.shape[1]
+    H_kv, S_k = k.shape[1], k.shape[2]
     group = H // H_kv
     qg = q.reshape(B, H_kv, group, S, D).float()
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(D)
     if causal or window is not None:
         pos = torch.arange(S, device=q.device)
         diff = pos[:, None] - pos[None, :]  # query minus key position
-        mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+        mask = torch.ones((S, S_k), dtype=torch.bool, device=q.device)
         if causal:
             mask &= diff >= 0
         if window is not None:

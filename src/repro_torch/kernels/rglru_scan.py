@@ -173,12 +173,20 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
     from ``h = h0`` (or 0) with a float32 carry.
 
     CUDA tensors run the hand-written kernel; CPU tensors run the plain
-    version.  Any other device raises."""
+    version, which autograd differentiates.  The kernel has no backward
+    yet: a CUDA input that requires grad raises ``NotImplementedError``.
+    Any other device raises."""
     _check(x, a, h0)
     if x.device.type == "cpu":
         return ref_rglru(x, a, h0)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu, not {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, a, h0)):
+        raise NotImplementedError(
+            "rglru_scan has no backward kernel yet: training "
+            "recurrentgemma on the card waits for ROADMAP.md queue 2, item "
+            "A7 (train on the CPU meanwhile)")
     return _launch(x, a, h0)
 
 

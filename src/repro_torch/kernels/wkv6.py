@@ -149,12 +149,21 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``S <- diag(exp(logw_t)) S + k_t^T v_t`` from ``S = s0`` (or 0).
 
     CUDA tensors run the hand-written kernel; CPU tensors run the plain
-    version.  Any other device raises."""
+    version, which autograd differentiates.  The kernel has no backward
+    yet: a CUDA input that requires grad raises ``NotImplementedError``.
+    Any other device raises."""
     _check(r, k, v, logw, u, s0)
     if r.device.type == "cpu":
         return ref_wkv6(r, k, v, logw, u, s0)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, logw, u, s0)):
+        raise NotImplementedError(
+            "wkv6 has no backward kernel yet: training rwkv6 on the card "
+            "waits for ROADMAP.md queue 2, item A6 (train on the CPU "
+            "meanwhile)")
     return _launch(r, k, v, logw, u, s0)
 
 

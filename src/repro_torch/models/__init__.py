@@ -1,8 +1,10 @@
-"""PyTorch model zoo of the port: the decoder models of ``model.py``."""
+"""PyTorch model zoo of the port: the models of ``model.py``."""
 from .model import (
     Transformer,
     build_segments,
+    cache_specs,
     decode_step,
+    encode,
     forward,
     init_cache,
     init_params,
@@ -10,5 +12,6 @@ from .model import (
     prefill,
 )
 
-__all__ = ["Transformer", "build_segments", "decode_step", "forward",
-           "init_cache", "init_params", "loss_fn", "prefill"]
+__all__ = ["Transformer", "build_segments", "cache_specs", "decode_step",
+           "encode", "forward", "init_cache", "init_params", "loss_fn",
+           "prefill"]

@@ -6,7 +6,10 @@ The reference keeps each segment's layers stacked on a leading
 These functions unstack (and restack) in the reference's layer order, so
 both packages compute on the same weights in the tests; a MoE layer's
 {"router", "experts", "shared"} tree lands in its module as it is, the
-experts' leaves stacked (E, ...) in both.  They take and
+experts' leaves stacked (E, ...) in both; an encoder-decoder's
+``enc_segments`` land in its ``encoder`` layers, ``enc_final_norm`` as
+it is, and an ``xattn`` layer's ``ln_x`` and ``xattn`` leaves beside its
+``attn``.  They take and
 give numpy arrays (``jax.tree.map(np.asarray, tree)`` on the reference's
 side), never JAX arrays: the port imports no JAX.
 """
@@ -18,16 +21,21 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from .model import Transformer, build_segments
+from .model import Transformer, build_segments, encoder_signatures, \
+    split_segments
 
 if TYPE_CHECKING:
     from ..configs.base import ModelConfig
 
 
-def _layer_slots(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
-    """(segment, repeat, pattern position) of every layer, in order."""
+def _layer_slots(cfg: ModelConfig, encoder: bool = False
+                 ) -> List[Tuple[int, int, int]]:
+    """(segment, repeat, pattern position) of every layer, in order: the
+    decoder's, or with ``encoder`` the encoder's."""
+    segs = (split_segments(encoder_signatures(cfg)) if encoder
+            else build_segments(cfg))
     return [(si, r, p)
-            for si, seg in enumerate(build_segments(cfg))
+            for si, seg in enumerate(segs)
             for r in range(seg.repeats)
             for p in range(len(seg.pattern))]
 
@@ -67,6 +75,13 @@ def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any],
     for layer, (si, r, p) in zip(model.layers, _layer_slots(cfg)):
         stacked = tree["segments"][si][p]
         _assign(layer, _take(stacked, r), "layer")
+    if cfg.is_encoder_decoder:
+        _assign(model.enc_final_norm, tree["enc_final_norm"],
+                "enc_final_norm")
+        for layer, (si, r, p) in zip(model.encoder,
+                                     _layer_slots(cfg, encoder=True)):
+            _assign(layer, _take(tree["enc_segments"][si][p], r),
+                    "encoder layer")
     return model
 
 

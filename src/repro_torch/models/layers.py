@@ -22,8 +22,10 @@ from torch import nn
 class ParamModule(nn.Module):
     """A module whose own parameters and submodules carry the reference's
     names and index like its dicts: ``m["w_q"]``, ``"b_q" in m``,
-    ``moe["experts"]["w_up"]``.  Parameters are for inference
-    (``requires_grad=False``); training is a later slice."""
+    ``moe["experts"]["w_up"]``.  Parameters are made with
+    ``requires_grad=False``, so serving records no graph; training turns
+    them on (``init_params(..., trainable=True)``, or
+    ``requires_grad_(True)`` on the model)."""
 
     def __getitem__(self, name: str):
         if name in self._parameters:

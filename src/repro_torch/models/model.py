@@ -10,9 +10,10 @@ module keeps the JAX package's parameter names and ``(in, out)`` layouts,
 so its parameters index like the reference's dicts
 (``block.attn["w_q"]``) and :mod:`repro_torch.models.convert` can carry
 the reference's weights over one to one.  ``forward``, ``loss_fn``,
-``prefill``, ``decode_step`` and ``init_cache`` keep the reference's
-names and signatures as thin functions over the modules, so the serving
-code reads the same in both packages.
+``prefill``, ``decode_step``, ``init_cache``, ``encode`` and
+``cache_specs`` keep the reference's names and signatures as thin
+functions over the modules, so the serving and training code reads the
+same in both packages.
 
 Layers run as a Python loop; the reference's segments (stacked
 ``lax.scan`` bodies) are a JAX compile-time device and are kept only to map
@@ -20,7 +21,11 @@ its stacked weights and caches onto layers (:func:`build_segments`).
 
 The port covers mixers ``"attn"``, ``"local_attn"`` (windowed, with a
 ring-buffer cache), ``"rglru"`` (the RG-LRU recurrent block, whose cache
-is its state) and ``"rwkv6"`` (RWKV-6's time mix, likewise), channels
+is its state), ``"rwkv6"`` (RWKV-6's time mix, likewise), ``"enc_attn"``
+(the encoder's full self-attention) and ``"xattn"`` (causal
+self-attention, then ``ln_x`` and cross-attention to the encoder's output,
+whose keys and values join the layer's cache as ``cross_k`` /
+``cross_v``), channels
 ``"mlp"`` (all five kinds), ``"moe"`` (routed experts, dense or
 capacity-dispatched, with an auxiliary load-balance loss that ``forward``
 sums over the layers) and ``"rwkv_cm"`` (RWKV-6's channel mix, whose
@@ -28,18 +33,27 @@ state joins the mixer's in the layer's cache), rmsnorm or layernorm,
 rope, M-RoPE or none, optional QKV bias, tied or untied embeddings -
 granite-3-2b, phi3-medium-14b, qwen1.5-32b, nemotron-4-15b, the
 qwen2-vl-72b text backbone, recurrentgemma-2b, rwkv6-7b,
-deepseek-moe-16b and qwen3-moe-30b-a3b.  The encoder-decoder
-(whisper-tiny) raises ``NotImplementedError`` naming its ``ROADMAP.md``
-item.  ``decode_step`` writes the attention layers' K/V caches in place
-and returns new recurrent states.
+deepseek-moe-16b, qwen3-moe-30b-a3b and the encoder-decoder whisper-tiny
+(its encoder over precomputed frame embeddings, as the reference's conv
+stub, with sinusoidal positions in both stacks).  ``decode_step`` writes
+the attention layers' K/V caches in place and returns new recurrent
+states.
+
+Training: with ``cfg.remat`` and grad mode on, each layer runs under
+``torch.utils.checkpoint`` (its activations recomputed in the backward),
+as the reference wraps each layer in ``jax.checkpoint``; the
+``remat_policy`` ``"dots"`` of the reference (keep the products) has no
+counterpart and recomputes the whole layer too.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.device import resolve_device
 from . import attention as attn_lib
@@ -65,11 +79,6 @@ if TYPE_CHECKING:  # configs.base imports models.moe
     from ..configs.base import ModelConfig
 
 LayerSig = Tuple[str, str]  # (mixer, channel): ("attn", "mlp"), ...
-
-#: Where each part of the model zoo that the port leaves out is queued.
-_NOT_PORTED = {
-    "xattn": "ROADMAP.md queue 1, item 3 (whisper encoder-decoder)",
-}
 
 
 @dataclass(frozen=True)
@@ -109,17 +118,16 @@ def build_segments(cfg: ModelConfig) -> List[Segment]:
     return split_segments(layer_signatures(cfg))
 
 
+def encoder_signatures(cfg: ModelConfig) -> List[LayerSig]:
+    """The encoder's layers (an encoder-decoder's; none otherwise)."""
+    return [("enc_attn", "mlp")] * (cfg.n_encoder_layers
+                                    if cfg.is_encoder_decoder else 0)
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
-                                  f"not ported yet: {_NOT_PORTED['xattn']}")
-    for mixer, channel in layer_signatures(cfg):
-        for part in (mixer, channel):
-            if part in _NOT_PORTED:
-                raise NotImplementedError(f"{cfg.name}: {part!r} layers are "
-                                          f"not ported yet: "
-                                          f"{_NOT_PORTED[part]}")
+    """Raise ``ValueError`` for a layer or MLP kind the port does not
+    know."""
+    for mixer, channel in layer_signatures(cfg) + encoder_signatures(cfg):
         if mixer not in MIXERS or channel not in CHANNELS:
             raise ValueError(f"{cfg.name}: unknown layer {mixer}/{channel}")
     if cfg.mlp_kind not in MLP_KINDS:
@@ -154,10 +162,11 @@ class Attention(ParamModule):
     step (``step``) and makes its empty cache (``empty_cache``)."""
 
     def __init__(self, cfg: ModelConfig, gen, dtype, device,
-                 window: Optional[int] = None) -> None:
+                 window: Optional[int] = None, causal: bool = True) -> None:
         super().__init__()
         self.cfg = cfg
         self.window = window
+        self.causal = causal
         d, H, H_kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         self.add("w_q", dense_init(gen, d, H * dh, dtype, device=device))
         self.add("w_k", dense_init(gen, d, H_kv * dh, dtype, device=device))
@@ -186,7 +195,7 @@ class Attention(ParamModule):
         q, k, v = attn_lib.qkv_project(self, x, **self._akw())
         q, k = attn_lib._rope_qk(q, k, positions, cfg.rope_mode,
                                  cfg.rope_theta, cfg.mrope_sections)
-        out = attn_lib.chunked_attention(q, k, v, causal=True,
+        out = attn_lib.chunked_attention(q, k, v, causal=self.causal,
                                          window=self.window)
         out = out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ self["w_o"]
         if cache_len is None:
@@ -203,6 +212,40 @@ class Attention(ParamModule):
             buf[:, :S] = t
             entry[name] = buf
         return out, entry
+
+    def _query(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        q = x @ self["w_q"]
+        if "b_q" in self:
+            q = q + self["b_q"]
+        return q.reshape(x.shape[0], x.shape[1], cfg.n_heads, cfg.head_dim)
+
+    def cross(self, x: torch.Tensor, ctx: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Cross-attention of a whole sequence: queries from x (B, S,
+        d_model), keys and values from the encoder's output ctx (B, S_enc,
+        d_model), no mask.  Returns (output (B, S, d_model), the keys and
+        values (B, S_enc, H_kv, d): the layer's ``cross_k`` / ``cross_v``
+        cache)."""
+        cfg = self.cfg
+        B, S, _ = x.shape
+        _, kc, vc = attn_lib.qkv_project(self, ctx, **self._akw())
+        out = attn_lib.chunked_attention(self._query(x), kc, vc,
+                                         causal=False)
+        return (out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ self["w_o"],
+                kc, vc)
+
+    def cross_step(self, x: torch.Tensor, cross_k: torch.Tensor,
+                   cross_v: torch.Tensor) -> torch.Tensor:
+        """One decode step's cross-attention against the cached encoder
+        keys and values (B, S_enc, H_kv, d), all S_enc rows of them."""
+        cfg = self.cfg
+        B = x.shape[0]
+        cache_len = torch.full((B,), cross_k.shape[1], dtype=torch.int32,
+                               device=x.device)
+        out = attn_lib.decode_attention(self._query(x), cross_k, cross_v,
+                                        cache_len)
+        return out.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ self["w_o"]
 
     def step(self, x: torch.Tensor, cache: dict) -> Tuple[torch.Tensor, dict]:
         """One decode step.  x: (B, 1, d_model); the cache's K/V are
@@ -229,6 +272,9 @@ MIXERS = {
     "local_attn": ("attn", Attention, lambda cfg: {"window": cfg.attn_window}),
     "rglru": ("rec", RecurrentBlock, lambda cfg: {}),
     "rwkv6": ("tm", TimeMix, lambda cfg: {}),
+    "enc_attn": ("attn", Attention, lambda cfg: {"causal": False}),
+    # causal self-attention; the layer adds ``ln_x`` and ``xattn``
+    "xattn": ("attn", Attention, lambda cfg: {}),
 }
 
 
@@ -276,9 +322,12 @@ class DecoderBlock(nn.Module):
     """Pre-norm decoder layer: x + mixer(ln1(x)), then + channel(ln2(x)).
     The mixer (:data:`MIXERS`) and the channel (:data:`CHANNELS`) sit under
     the reference's names for them: ``attn`` (an :class:`Attention`,
-    windowed for ``local_attn``), ``rec`` (a :class:`RecurrentBlock`) or
-    ``tm`` (a :class:`TimeMix`); ``mlp`` (an :class:`MLP`), ``moe`` (a
-    :class:`MoE`) or ``cm`` (a :class:`ChannelMix`)."""
+    windowed for ``local_attn``, full for ``enc_attn``), ``rec`` (a
+    :class:`RecurrentBlock`) or ``tm`` (a :class:`TimeMix`); ``mlp`` (an
+    :class:`MLP`), ``moe`` (a :class:`MoE`) or ``cm`` (a
+    :class:`ChannelMix`).  An ``xattn`` layer also has ``ln_x`` and
+    ``xattn`` (a second :class:`Attention`): x + xattn(ln_x(x), ctx) after
+    the self-attention, ctx being the encoder's output."""
 
     def __init__(self, cfg: ModelConfig, mixer: str, channel: str, gen,
                  device) -> None:
@@ -289,6 +338,10 @@ class DecoderBlock(nn.Module):
         self.names = (name, cname)
         self.ln1 = Norm(cfg.norm, cfg.d_model, dtype, device)
         self.add_module(name, module(cfg, gen, dtype, device, **kwargs(cfg)))
+        self.cross = mixer == "xattn"
+        if self.cross:
+            self.ln_x = Norm(cfg.norm, cfg.d_model, dtype, device)
+            self.xattn = Attention(cfg, gen, dtype, device, causal=False)
         self.ln2 = Norm(cfg.norm, cfg.d_model, dtype, device)
         self.add_module(cname, cmodule(cfg, gen, dtype, device))
 
@@ -301,16 +354,22 @@ class DecoderBlock(nn.Module):
         return getattr(self, self.names[1])
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
-                cache_len: Optional[int] = None
+                cache_len: Optional[int] = None,
+                ctx: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[dict],
                            Optional[torch.Tensor]]:
         """Whole-sequence step (forward, prefill): (x, the layer's cache
         with ``cache_len`` else None, the channel's auxiliary loss or
         None).  A prefill, as the reference's, makes no use of the
         auxiliary loss, so only ``forward`` (no ``cache_len``) asks for
-        it."""
+        it.  ``ctx``: the encoder's output, for an ``xattn`` layer."""
         out, entry = self.mix(self.ln1(x), positions, cache_len)
         x = x + out
+        if self.cross:
+            out, kc, vc = self.xattn.cross(self.ln_x(x), ctx)
+            x = x + out
+            if cache_len is not None:
+                entry = {"self": entry, "cross_k": kc, "cross_v": vc}
         out, c_entry, aux = self.channel(self.ln2(x), None, cache_len is None)
         if cache_len is None:
             return x + out, None, aux
@@ -323,14 +382,24 @@ class DecoderBlock(nn.Module):
             cache, c_state = cache[self.names[0]], cache[self.names[1]]
         else:
             c_state = None
-        out, new_cache = self.mix.step(self.ln1(x), cache)
-        x = x + out
+        if self.cross:
+            out, new_self = self.mix.step(self.ln1(x), cache["self"])
+            x = x + out
+            x = x + self.xattn.cross_step(self.ln_x(x), cache["cross_k"],
+                                          cache["cross_v"])
+            new_cache = {"self": new_self, "cross_k": cache["cross_k"],
+                         "cross_v": cache["cross_v"]}
+        else:
+            out, new_cache = self.mix.step(self.ln1(x), cache)
+            x = x + out
         out, c_new, _ = self.channel(self.ln2(x), c_state)
         return x + out, _layer_cache(self.names, new_cache, c_new)
 
 
 class Transformer(nn.Module):
-    """Embedding, decoder layers, final norm; tied or untied unembedding."""
+    """Embedding, decoder layers, final norm; tied or untied unembedding;
+    for an encoder-decoder also the encoder's layers (``encoder``, the
+    reference's ``enc_segments``) and ``enc_final_norm``."""
 
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator],
                  device) -> None:
@@ -350,6 +419,11 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             DecoderBlock(cfg, mixer, channel, gen, device)
             for mixer, channel in layer_signatures(cfg))
+        if cfg.is_encoder_decoder:
+            self.encoder = nn.ModuleList(
+                DecoderBlock(cfg, mixer, channel, gen, device)
+                for mixer, channel in encoder_signatures(cfg))
+            self.enc_final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
 
     @property
     def device(self) -> torch.device:
@@ -362,20 +436,50 @@ class Transformer(nn.Module):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         return unembed(self.embed, self.final_norm(x)).float()
 
+    def _layer(self, layer: DecoderBlock, x, positions, cache_len, ctx):
+        """One layer, under ``torch.utils.checkpoint`` where the config
+        asks for remat and a gradient is being recorded (a forward that
+        collects caches is never trained)."""
+        if self.cfg.remat and cache_len is None and torch.is_grad_enabled():
+            return checkpoint(layer, x, positions, None, ctx,
+                              use_reentrant=False)
+        return layer(x, positions, cache_len, ctx)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over precomputed frame embeddings (B, S_enc,
+        d_model): sinusoidal positions, the ``enc_attn`` layers, the
+        encoder's final norm."""
+        cfg = self.cfg
+        x = frames.to(device=self.device, dtype=cfg.cdtype())
+        B, S, _ = x.shape
+        x = x + sinusoid_positions(S, cfg.d_model, device=x.device
+                                   ).to(x.dtype)
+        positions = _positions_for(cfg, B, S, x.device)
+        for layer in self.encoder:
+            x, _, _ = self._layer(layer, x, positions, None, None)
+        return self.enc_final_norm(x)
+
     def forward(self, tokens: torch.Tensor,
-                cache_len: Optional[int] = None
+                cache_len: Optional[int] = None,
+                frames: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Union[torch.Tensor, List[dict]]]:
-        """tokens (B, S).  Without ``cache_len``: (logits (B, S, V) float32,
-        the layers' auxiliary losses summed, a float32 scalar - 0 without
-        MoE layers).  With it: (last position's logits (B, V), per-layer
-        caches)."""
+        """tokens (B, S); ``frames`` (B, S_enc, d_model) for an
+        encoder-decoder.  Without ``cache_len``: (logits (B, S, V)
+        float32, the layers' auxiliary losses summed, a float32 scalar - 0
+        without MoE layers).  With it: (last position's logits (B, V),
+        per-layer caches)."""
         B, S = tokens.shape
         x = self._embed(tokens)
+        ctx = None
+        if self.cfg.is_encoder_decoder:
+            x = x + sinusoid_positions(S, self.cfg.d_model, device=x.device
+                                       ).to(x.dtype)
+            ctx = self.encode(frames)
         positions = _positions_for(self.cfg, B, S, x.device)
         caches = [] if cache_len is not None else None
         auxes = []
         for layer in self.layers:
-            x, entry, aux = layer(x, positions, cache_len)
+            x, entry, aux = self._layer(layer, x, positions, cache_len, ctx)
             if caches is not None:
                 caches.append(entry)
             if aux is not None:
@@ -390,6 +494,10 @@ class Transformer(nn.Module):
     def decode(self, caches: List[dict], token: torch.Tensor
                ) -> Tuple[torch.Tensor, List[dict]]:
         x = self._embed(token)
+        if self.cfg.is_encoder_decoder:
+            # the absolute position: the first attention layer's cache pos
+            x = x + _sinusoid_at(_first_attn_pos(caches, x.device),
+                                 self.cfg.d_model).to(x.dtype)
         new_caches = []
         for layer, cache in zip(self.layers, caches):
             x, nc = layer.decode(x, cache)
@@ -397,11 +505,46 @@ class Transformer(nn.Module):
         return self._logits(x)[:, 0], new_caches
 
 
-def _positions_for(cfg: ModelConfig, batch: int, seq: int, device):
+def _positions_for(cfg: ModelConfig, batch: int, seq: int, device,
+                   offset=0):
     if cfg.rope_mode == "mrope":
-        return text_mrope_positions(batch, seq, device=device)
-    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+        return text_mrope_positions(batch, seq, offset, device=device)
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
     return pos.expand(batch, seq)
+
+
+def _inv_frequencies(dim: int, device) -> torch.Tensor:
+    return torch.exp(-torch.arange(0, dim, 2, dtype=torch.float32,
+                                   device=device)
+                     * (math.log(10_000.0) / dim))
+
+
+def sinusoid_positions(seq: int, dim: int, offset=0,
+                       device=None) -> torch.Tensor:
+    """(1, seq, dim) float32 whisper-style absolute positions: sin of
+    position x frequency, then cos (the reference's)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device) + offset
+    ang = pos[:, None] * _inv_frequencies(dim, device)[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None]
+
+
+def _sinusoid_at(pos: torch.Tensor, dim: int) -> torch.Tensor:
+    """(1, 1, dim) sinusoid of one position, a 0-d tensor on the device
+    (read there: the host never waits for it)."""
+    ang = pos.float() * _inv_frequencies(dim, pos.device)
+    return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :]
+
+
+def _first_attn_pos(caches: List, device) -> torch.Tensor:
+    """The ``pos`` of the first attention layer's cache (of the
+    self-attention in an ``xattn`` layer's), or 0."""
+    for entry in caches:
+        if isinstance(entry, dict):
+            if "pos" in entry:
+                return entry["pos"]
+            if "self" in entry:
+                return entry["self"]["pos"]
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -411,34 +554,46 @@ def _positions_for(cfg: ModelConfig, batch: int, seq: int, device):
 
 def init_params(cfg: ModelConfig,
                 gen: Union[torch.Generator, int, None] = 0,
-                device=None) -> Transformer:
+                device=None, trainable: bool = False) -> Transformer:
     """Random weights with the reference's distributions, drawn from ``gen``
     (a ``torch.Generator`` on the target device, or an int seed) on
     ``device`` (``None`` means cuda: without a card this raises unless
-    ``device="cpu"``)."""
+    ``device="cpu"``).  ``trainable`` makes every parameter require
+    grad (for serving they do not)."""
     dev = resolve_device(device)
     if not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(gen or 0))
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, weights on {dev}")
-    return Transformer(cfg, gen, dev)
+    return Transformer(cfg, gen, dev).requires_grad_(trainable)
 
 
-def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor
+def encode(cfg: ModelConfig, params: Transformer,
+           frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over precomputed frame embeddings (B, S_enc,
+    d_model): (B, S_enc, d_model) in the compute dtype."""
+    return params.encode(frames)
+
+
+def forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+            frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, S, V) float32, aux loss:
     the MoE layers' load-balance losses summed in layer order, 0 for a
-    model without them)."""
-    return params(tokens)
+    model without them).  ``frames``: the encoder's input, for an
+    encoder-decoder."""
+    return params(tokens, frames=frames)
 
 
 def loss_fn(cfg: ModelConfig, params: Transformer,
             batch: Dict[str, torch.Tensor], aux_coef: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy plus ``aux_coef`` times the aux loss.
-    ``batch``: "tokens" and "labels" (B, S), optionally "loss_mask" (B, S).
-    Returns (loss, {"loss", "ce", "aux"})."""
-    logits, aux = forward(cfg, params, batch["tokens"])
+    ``batch``: "tokens" and "labels" (B, S), optionally "loss_mask" (B, S)
+    and, for an encoder-decoder, "frames" (B, S_enc, d_model).  Returns
+    (loss, {"loss", "ce", "aux"})."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          frames=batch.get("frames"))
     labels = batch["labels"].to(logits.device)
     mask = batch.get("loss_mask")
     ce = softmax_cross_entropy(logits, labels,
@@ -449,12 +604,16 @@ def loss_fn(cfg: ModelConfig, params: Transformer,
 
 
 def prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
+            frames: Optional[torch.Tensor] = None,
             cache_len: Optional[int] = None
             ) -> Tuple[torch.Tensor, List[dict]]:
     """Forward + cache collection.  Returns (last logits (B, V), caches);
     ``cache_len`` reserves room in the full-attention KV caches for later
-    decode steps (default S + 128)."""
-    return params(tokens, cache_len=cache_len or (tokens.shape[1] + 128))
+    decode steps (default S + 128).  ``frames``: the encoder's input, for
+    an encoder-decoder (its keys and values per ``xattn`` layer join the
+    caches)."""
+    return params(tokens, cache_len=cache_len or (tokens.shape[1] + 128),
+                  frames=frames)
 
 
 def decode_step(cfg: ModelConfig, params: Transformer, caches: List[dict],
@@ -466,18 +625,36 @@ def decode_step(cfg: ModelConfig, params: Transformer, caches: List[dict],
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device=None) -> List[dict]:
-    """Zeroed per-layer caches at ``pos`` 0: ``cache_len`` rows of K/V for
-    ``attn``, ``min(window, cache_len)`` for ``local_attn``, and a zero
-    state for ``rglru`` and ``rwkv6`` (with the ``rwkv_cm`` channel's)."""
+               device=None, fill_pos: int = 0) -> List[dict]:
+    """Zeroed per-layer caches with ``pos`` = ``fill_pos``: ``cache_len``
+    rows of K/V for ``attn``, ``min(window, cache_len)`` for
+    ``local_attn``, for ``xattn`` {"self": those, "cross_k", "cross_v":
+    (batch, encoder_seq_len, H_kv, d) zeros}, and a zero state for
+    ``rglru`` and ``rwkv6`` (with the ``rwkv_cm`` channel's).  On
+    ``device="meta"`` nothing is allocated (:func:`cache_specs`)."""
     check_supported(cfg)
     dev = resolve_device(device)
     caches = []
     for mixer, channel in layer_signatures(cfg):
         name, module, kwargs = MIXERS[mixer]
         cname, cmodule = CHANNELS[channel]
+        entry = module.empty_cache(cfg, batch, cache_len, dev, **kwargs(cfg))
+        if "pos" in entry:
+            entry["pos"] = torch.full((), fill_pos, dtype=torch.int32,
+                                      device=dev)
+        if mixer == "xattn":
+            shape = (batch, cfg.encoder_seq_len, cfg.n_kv_heads, cfg.head_dim)
+            entry = {"self": entry,
+                     "cross_k": torch.zeros(shape, dtype=cfg.kv_dtype(),
+                                            device=dev),
+                     "cross_v": torch.zeros(shape, dtype=cfg.kv_dtype(),
+                                            device=dev)}
         caches.append(_layer_cache(
-            (name, cname),
-            module.empty_cache(cfg, batch, cache_len, dev, **kwargs(cfg)),
-            cmodule.empty_cache(cfg, batch, dev)))
+            (name, cname), entry, cmodule.empty_cache(cfg, batch, dev)))
     return caches
+
+
+def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> List[dict]:
+    """:func:`init_cache`'s tree as tensors on ``torch.device("meta")``:
+    shapes and dtypes, nothing allocated (the dry run's inputs)."""
+    return init_cache(cfg, batch, cache_len, device="meta")

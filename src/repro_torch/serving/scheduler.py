@@ -80,7 +80,11 @@ class ContinuousBatcher:
                 self.tokens[i, 0] = req.prompt[-1]
 
     # -- decode loop -----------------------------------------------------------
+    @torch.inference_mode()
     def step(self) -> None:
+        """Admit what fits, then one decode step over every slot; under
+        ``torch.inference_mode()``, so weights that require grad (a model
+        being trained) record no graph here."""
         self._admit()
         active = [i for i, s in enumerate(self.slots) if s is not None]
         if not active:

@@ -73,21 +73,26 @@ class ModelServingSM(StateMachine):
             if self.params is None:
                 raise RuntimeError("no weights installed")
             self.inferences += 1
-            tokens = torch.tensor([list(prompt)], dtype=torch.int32,
-                                  device=self.device)
-            _, caches = prefill(self.cfg, self.params, tokens,
-                                cache_len=tokens.shape[1] + max_new)
-            tok = tokens[:, -1:]
-            out: List[torch.Tensor] = []
-            for _ in range(max_new):
-                logits, caches = decode_step(self.cfg, self.params, caches,
-                                             tok)
-                tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-                out.append(tok[0, 0])
-            # one wait on the device per request, not per token
-            toks = torch.stack(out).tolist() if out else []
-            return ("v%d" % self.version, tuple(toks))
+            return ("v%d" % self.version, self._generate(prompt, max_new))
         raise ValueError(f"unknown op {op!r}")
+
+    @torch.inference_mode()
+    def _generate(self, prompt, max_new: int) -> Tuple[int, ...]:
+        """Greedy tokens after ``prompt``, under
+        ``torch.inference_mode()``: weights that require grad record no
+        graph here."""
+        tokens = torch.tensor([list(prompt)], dtype=torch.int32,
+                              device=self.device)
+        _, caches = prefill(self.cfg, self.params, tokens,
+                            cache_len=tokens.shape[1] + max_new)
+        tok = tokens[:, -1:]
+        out: List[torch.Tensor] = []
+        for _ in range(max_new):
+            logits, caches = decode_step(self.cfg, self.params, caches, tok)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            out.append(tok[0, 0])
+        # one wait on the device per request, not per token
+        return tuple(torch.stack(out).tolist() if out else [])
 
     def is_read(self, op: Tuple) -> bool:
         return op[0] == "infer"

@@ -32,7 +32,11 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import repro_torch.models.moe\n"
         "import repro_torch.models.convert\n"
         "import repro_torch.serving.scheduler, repro_torch.serving.server\n"
-        "import repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.optim.adamw, repro_torch.optim.compression\n"
+        "import repro_torch.data.pipeline, repro_torch.checkpoint.store\n"
+        "import repro_torch.runtime.coordinator, repro_torch.runtime.steps\n"
+        "import repro_torch.runtime.train_loop\n"
         "repro_torch.configs.get_config('granite-3-2b')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
@@ -97,9 +101,12 @@ def test_serving_entry_points_default_to_cuda_and_raise_without_a_card(
     from repro_torch.serving.scheduler import ContinuousBatcher
     from repro_torch.serving.server import ServingDeployment
 
+    from repro_torch.runtime.train_loop import Trainer
+
     cfg = get_config("granite-3-2b").smoke()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: init_params(cfg, 0),
+                 lambda: Trainer(cfg, "unused"),
                  lambda: init_cache(cfg, 1, 8),
                  lambda: ServingDeployment(cfg),
                  lambda: ContinuousBatcher(cfg, None),

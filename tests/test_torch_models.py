@@ -20,7 +20,13 @@ deepseek-moe-16b (a dense layer 0, then MoE layers with a shared expert)
 and qwen3-moe-30b-a3b, with the smoke configs' drop-free dense experts
 and with GShard capacity dispatch ("/gshard"): the forward's 24 tokens
 dispatch in gcd groups of 8 at capacity 3, so choices are dropped, and
-the summed auxiliary loss is held to the reference's too.
+the summed auxiliary loss is held to the reference's too.  whisper-tiny
+(the encoder-decoder: two encoder layers of full self-attention over 16
+precomputed frames, decoder layers of causal self-attention, ``ln_x`` and
+cross-attention, sinusoidal positions in both, and the {"self",
+"cross_k", "cross_v"} caches), with frames drawn from the same seed.
+``check_supported`` raises for no config; the MoE's ``moe_impl="a2a"``
+(the distributed runtime's) still raises ``NotImplementedError``.
 """
 import dataclasses
 
@@ -34,15 +40,18 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro import models as jmodels  # noqa: E402
+from repro.models import model as jmodel  # noqa: E402
 from repro.models.attention import chunked_attention as j_chunked  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.models import (  # noqa: E402
+    cache_specs,
     decode_step,
     forward,
     init_cache,
     init_params,
     prefill,
 )
+from repro_torch.models.model import check_supported  # noqa: E402
 from repro_torch.models.attention import chunked_attention  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     caches_from_jax,
@@ -58,8 +67,10 @@ RWKV = ["rwkv6-7b", "rwkv6-7b/4 layers"]
 MOE = ["deepseek-moe-16b", "deepseek-moe-16b/gshard", "qwen3-moe-30b-a3b",
        "qwen3-moe-30b-a3b/gshard"]
 COMPARED = (DENSE + ["recurrentgemma-2b", "recurrentgemma-2b/8 layers"]
-            + RWKV + MOE)
-NOT_PORTED = ["whisper-tiny"]
+            + RWKV + MOE + ["whisper-tiny"])
+#: "<arch>/a2a": the arch's smoke config with the distributed runtime's
+#: MoE dispatch, which the port does not have yet
+NOT_PORTED = ["deepseek-moe-16b/a2a", "qwen3-moe-30b-a3b/a2a"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, PROMPT = 2, 12, 8
 
@@ -72,8 +83,8 @@ class _Pair:
         self.jcfg = jconfigs.get_config(arch).smoke()
         self.cfg = configs.get_config(arch).smoke()
         if variant:
-            change = (dict(moe_impl=variant) if variant == "gshard" else
-                      dict(n_layers=int(variant.split()[0])))
+            change = (dict(moe_impl=variant) if variant in ("gshard", "a2a")
+                      else dict(n_layers=int(variant.split()[0])))
             self.jcfg = dataclasses.replace(self.jcfg, **change)
             self.cfg = dataclasses.replace(self.cfg, **change)
         self.jparams = jmodels.init_params(self.jcfg, jax.random.key(0))
@@ -82,6 +93,15 @@ class _Pair:
         rng = np.random.default_rng(1)
         self.tokens = rng.integers(0, self.cfg.vocab_size, (B, S)
                                    ).astype(np.int32)
+        self.frames = (rng.standard_normal(
+            (B, self.cfg.encoder_seq_len, self.cfg.d_model)
+        ).astype(np.float32) if self.cfg.is_encoder_decoder else None)
+
+    def jframes(self):
+        return None if self.frames is None else jnp.asarray(self.frames)
+
+    def frames_t(self):
+        return None if self.frames is None else torch.from_numpy(self.frames)
 
 
 _PAIRS = {}
@@ -111,9 +131,10 @@ def test_every_config_carries_the_reference_data():
 
 def test_forward_logits_match_reference(pair):
     jl, jaux = jmodels.forward(pair.jcfg, pair.jparams,
-                               jnp.asarray(pair.tokens))
+                               jnp.asarray(pair.tokens), pair.jframes())
     logits, aux = forward(pair.cfg, pair.params,
-                          torch.from_numpy(pair.tokens))
+                          torch.from_numpy(pair.tokens),
+                          frames=pair.frames_t())
     assert logits.dtype == torch.float32
     assert logits.shape == (B, S, pair.cfg.vocab_size)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
@@ -127,9 +148,9 @@ def test_forward_logits_match_reference(pair):
 def test_prefill_logits_and_caches_match_reference(pair):
     toks = pair.tokens[:, :PROMPT]
     jl, jc = jmodels.prefill(pair.jcfg, pair.jparams, jnp.asarray(toks),
-                             cache_len=S)
+                             pair.jframes(), cache_len=S)
     logits, caches = prefill(pair.cfg, pair.params, torch.from_numpy(toks),
-                             cache_len=S)
+                             frames=pair.frames_t(), cache_len=S)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
     mine = caches_to_numpy(pair.cfg, caches)
     assert (jax.tree.structure(jax.tree.map(np.asarray, jc))
@@ -144,9 +165,11 @@ def test_decode_steps_match_reference(pair):
     reference's own caches carried over."""
     toks = pair.tokens
     jl, jc = jmodels.prefill(pair.jcfg, pair.jparams,
-                             jnp.asarray(toks[:, :PROMPT]), cache_len=S)
+                             jnp.asarray(toks[:, :PROMPT]), pair.jframes(),
+                             cache_len=S)
     _, caches = prefill(pair.cfg, pair.params,
-                        torch.from_numpy(toks[:, :PROMPT]), cache_len=S)
+                        torch.from_numpy(toks[:, :PROMPT]),
+                        frames=pair.frames_t(), cache_len=S)
     carried = caches_from_jax(pair.cfg, jax.tree.map(np.asarray, jc),
                               device="cpu")
     for i in range(PROMPT, S):
@@ -166,9 +189,13 @@ def test_decode_steps_match_reference(pair):
 
 def test_greedy_tokens_match_reference(pair):
     prompt = pair.tokens[:1, :PROMPT]
+    frames = None if pair.frames is None else pair.frames[:1]
     _, jc = jmodels.prefill(pair.jcfg, pair.jparams, jnp.asarray(prompt),
+                            None if frames is None else jnp.asarray(frames),
                             cache_len=PROMPT + 6)
     _, caches = prefill(pair.cfg, pair.params, torch.from_numpy(prompt),
+                        frames=None if frames is None
+                        else torch.from_numpy(frames),
                         cache_len=PROMPT + 6)
     jtok = jnp.asarray(prompt[:, -1:])
     tok = torch.from_numpy(prompt[:, -1:])
@@ -187,8 +214,31 @@ def test_init_cache_matches_reference_layout(pair):
     jc = jmodels.init_cache(pair.jcfg, B, 10)
     mine = caches_to_numpy(pair.cfg, init_cache(pair.cfg, B, 10,
                                                 device="cpu"))
+    assert jax.tree.structure(jc) == jax.tree.structure(mine)
     for a, b in zip(jax.tree.leaves(jc), jax.tree.leaves(mine)):
         np.testing.assert_array_equal(b, np.asarray(a))
+
+
+def test_init_cache_fill_pos_and_cache_specs_match_reference(pair):
+    """``init_cache(fill_pos=)`` writes every attention cache's ``pos``;
+    ``cache_specs`` gives the same tree as meta tensors (nothing
+    allocated), each with the reference's per-layer shape and dtype."""
+    jc = jmodels.init_cache(pair.jcfg, B, 10, fill_pos=7)
+    mine = caches_to_numpy(pair.cfg, init_cache(pair.cfg, B, 10,
+                                                device="cpu", fill_pos=7))
+    for a, b in zip(jax.tree.leaves(jc), jax.tree.leaves(mine)):
+        np.testing.assert_array_equal(b, np.asarray(a))
+    specs = cache_specs(pair.cfg, B, 10)
+    leaves = jax.tree.leaves(specs)
+    assert all(t.device.type == "meta" for t in leaves)
+    assert len(leaves) == len(jax.tree.leaves(init_cache(
+        pair.cfg, B, 10, device="cpu")))
+    # the reference's specs stack each segment's layers on a leading axis
+    want = {(tuple(a.shape[1:]), str(a.dtype))
+            for a in jax.tree.leaves(jmodel.cache_specs(pair.jcfg, B, 10))}
+    got = {(tuple(t.shape), str(t.dtype).replace("torch.", ""))
+           for t in leaves}
+    assert got == want
 
 
 @pytest.mark.parametrize("name", RWKV)
@@ -233,11 +283,22 @@ def test_rwkv6_long_prefill_and_decode_match_reference(name):
 
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_other_mixers_and_channels_raise_not_implemented(name):
-    cfg = configs.get_config(name).smoke()
+    arch, _, impl = name.partition("/")
+    cfg = dataclasses.replace(configs.get_config(arch).smoke(),
+                              moe_impl=impl)
+    params = init_params(cfg, 0, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        init_cache(cfg, 1, 8, device="cpu")
+        forward(cfg, params, tokens)
+
+
+@pytest.mark.parametrize("name", sorted(configs.all_configs()))
+def test_check_supported_raises_for_no_config(name):
+    cfg = configs.get_config(name)
+    for c in (cfg, cfg.smoke()):
+        check_supported(c)
+    assert len(init_cache(cfg.smoke(), 1, 8, device="cpu")) \
+        == cfg.smoke().n_layers
 
 
 def test_chunked_attention_matches_reference_scan():

@@ -1,15 +1,17 @@
 """Twin of ``tests/test_models_smoke.py`` for the port, on the CPU.
 
-Every config the port runs (all but the encoder-decoder whisper-tiny), at
-its reduced smoke size: ``loss_fn`` (loss, cross-entropy and the MoE
+Every config, at its reduced smoke size (whisper-tiny with random frame
+embeddings for its encoder): ``loss_fn`` (loss, cross-entropy and the MoE
 auxiliary loss) equals the reference's on the same weights (carried over
 by ``models/convert.py``) and the same batch within rtol 1e-4, the MoE
 configs with their dense and their capacity-dispatched (gshard) layers;
 a prefill plus one decode step gives the forward pass's last logits;
-greedy decoding stays finite; the segment structure and the parameter
-counts of the full configs hold (counted on the meta device, so nothing
-is allocated).  The train-step case waits for the port's optimizer.
+greedy decoding stays finite; one train step (autograd through the
+model, then SGD) gives a finite loss that does not blow up; the segment
+structure and the parameter counts of the full configs hold (counted on
+the meta device, so nothing is allocated).
 """
+import copy
 import dataclasses
 
 import numpy as np
@@ -34,17 +36,24 @@ from repro_torch.models import (  # noqa: E402
 )
 from repro_torch.models.convert import params_from_jax  # noqa: E402
 
-ARCHS = sorted(n for n, c in all_configs().items()
-               if not c.is_encoder_decoder)
+ARCHS = sorted(all_configs())
 MOE = sorted(n for n, c in all_configs().items() if c.moe is not None)
 B, S = 2, 32
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 def make_batch(cfg, seed):
-    tokens = np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (B, S)).astype(np.int32)
-    return {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+    if cfg.is_encoder_decoder:
+        batch["frames"] = rng.standard_normal(
+            (B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
 
 
 @pytest.fixture(scope="module")
@@ -71,8 +80,7 @@ def test_loss_fn_matches_reference(arch, masked):
                               < 0.6).astype(np.float32)
     jloss, jm = jmodels.loss_fn(jcfg, jparams,
                                 {k: jnp.asarray(v) for k, v in batch.items()})
-    loss, m = loss_fn(cfg, params,
-                      {k: torch.from_numpy(v) for k, v in batch.items()})
+    loss, m = loss_fn(cfg, params, _torch(batch))
     assert sorted(m) == ["aux", "ce", "loss"] and m["loss"] is loss
     for key in ("loss", "ce", "aux"):
         assert m[key].dtype == torch.float32 and m[key].shape == ()
@@ -87,10 +95,36 @@ def test_loss_fn_matches_reference(arch, masked):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_shapes_and_finite(smoke_setups, arch):
     cfg, params = smoke_setups[arch]
-    logits, aux = forward(cfg, params,
-                          torch.from_numpy(make_batch(cfg, 1)["tokens"]))
+    batch = _torch(make_batch(cfg, 1))
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          frames=batch.get("frames"))
     assert logits.shape == (B, S, cfg.vocab_size)
     assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_decreases_loss_and_is_finite(smoke_setups, arch):
+    cfg, frozen = smoke_setups[arch]
+    params = copy.deepcopy(frozen).requires_grad_(True)
+    batch = _torch(make_batch(cfg, 2))
+
+    def step():
+        for p in params.parameters():
+            p.grad = None
+        loss, metrics = loss_fn(cfg, params, batch)
+        loss.backward()
+        with torch.no_grad():
+            for p in params.parameters():
+                assert p.grad is not None and bool(torch.isfinite(p.grad)
+                                                   .all()), arch
+                p -= 0.05 * p.grad.to(p.dtype)
+        return loss.detach(), metrics
+
+    loss0, metrics = step()
+    assert bool(torch.isfinite(loss0)), f"{arch}: non-finite loss"
+    loss1, _ = step()
+    assert bool(torch.isfinite(loss1))
+    assert float(loss1) < float(loss0) + 0.5  # no blow-up; usually decreases
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -98,9 +132,10 @@ def test_decode_matches_forward(smoke_setups, arch):
     """Prefill on S-1 tokens + 1 decode step == forward logits at the last
     position (the cache path is numerically consistent)."""
     cfg, params = smoke_setups[arch]
-    tokens = torch.from_numpy(make_batch(cfg, 3)["tokens"])
-    full, _ = forward(cfg, params, tokens)
-    _, caches = prefill(cfg, params, tokens[:, :-1])
+    batch = _torch(make_batch(cfg, 3))
+    tokens, frames = batch["tokens"], batch.get("frames")
+    full, _ = forward(cfg, params, tokens, frames=frames)
+    _, caches = prefill(cfg, params, tokens[:, :-1], frames=frames)
     step, _ = decode_step(cfg, params, caches, tokens[:, -1:])
     np.testing.assert_allclose(step.numpy(), full[:, -1].numpy(), **TOL)
 
@@ -108,8 +143,9 @@ def test_decode_matches_forward(smoke_setups, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_multi_step_decode_finite(smoke_setups, arch):
     cfg, params = smoke_setups[arch]
-    tokens = torch.from_numpy(make_batch(cfg, 4)["tokens"])
-    _, caches = prefill(cfg, params, tokens)
+    batch = _torch(make_batch(cfg, 4))
+    tokens = batch["tokens"]
+    _, caches = prefill(cfg, params, tokens, frames=batch.get("frames"))
     tok = tokens[:, -1:]
     for _ in range(4):
         logits, caches = decode_step(cfg, params, caches, tok)
@@ -141,7 +177,7 @@ def test_deepseek_segments_structure():
     ("nemotron-4-15b", 12e9, 18e9), ("phi3-medium-14b", 12e9, 16e9),
     ("qwen1.5-32b", 28e9, 36e9), ("qwen3-moe-30b-a3b", 25e9, 34e9),
     ("deepseek-moe-16b", 14e9, 20e9), ("recurrentgemma-2b", 2e9, 3.5e9),
-    ("rwkv6-7b", 6e9, 9e9)])
+    ("rwkv6-7b", 6e9, 9e9), ("whisper-tiny", 25e6, 80e6)])
 def test_param_counts_in_expected_range(name, lo, hi):
     """The full model's parameters, counted on the meta device, land near
     the advertised size; the MoE and dense decoders' without biases equal
