@@ -138,7 +138,31 @@ W.  whisper-tiny at full width and depth (bf16, random seeded weights):
     against the CPU; one ``make_train_step`` step with frames (the
     backward at S_q 16 x S_k 1500), and the backward of each kind on the
     q, k, v and cotangent direction of that step against autograd
-    through the plain forward.
+    through the plain forward;
+D.  the distributed runtime on a one-rank NCCL group in this process
+    (one card cannot hold two NCCL ranks; the CPU tests run many over
+    gloo) with a (data=1, model=1) ``DeviceMesh``: D1 ``ShardingPolicy``
+    on both production layouts for all 10 configs, each device's bytes
+    of bf16 parameters and float32 moments with and without ZeRO-1 beside
+    the card's memory; D2 granite-3-2b at full width cut to 4 layers
+    (reduced: depth), one sharded ZeRO-1 train step against the unsharded
+    step from the same weights and batch (loss and every parameter, each
+    step's peak memory), exactly 4 ``flash_attention_bwd`` and 8
+    ``flash_attention`` launches, and the gradient tree's hierarchical
+    mean through NCCL (exact; within int8's step compressed), its time
+    and bytes; D3 deepseek-moe-16b cut to its first MoE layer, prefilled
+    on 2048 tokens with ``moe_impl="a2a"`` under ``use_mesh``, and that
+    layer on the input the prefill handed it: exactly two
+    ``all_to_all_single`` a layer call, slots and kept mask == a loop on
+    the host, the output == the dense layer's on every token with no
+    dropped choice and == the kept choices' sum on every token
+    (``ATTN_TOL``), its time and drop fraction; D4
+    ``make_distributed_flash_decode`` at granite's decode shapes, batch 1
+    and 8 against 2048 rows, within ``ATTN_TOL`` of ``flash_decode``'s
+    kernel (the reference: its launches are not the path's, and the
+    ``kernels`` line has no row for them).  The checks are functions
+    (``_dist_*``) that ``scripts/distributed_nccl.py`` runs on four
+    cards.
 
 The line before the last is the card's name and power limit; the line
 before it, a JSON object describing every kernel; the last line,
@@ -1633,6 +1657,13 @@ GRAD_NOISE_RATIO_BF16 = 1.25
 FAULT_LAYERS = 4
 #: phase W: whisper-tiny at full width and depth
 WHISPER = dict(batch=2, prompt=16, new=32)
+#: phase D, the distributed runtime on a one-rank NCCL group: D2's
+#: granite-3-2b step (full width, depth cut to 4 layers), D3's
+#: deepseek-moe-16b layer (a 2048-token prefill), D4's decode batches
+#: against a 2048-row cache
+DIST = dict(arch="granite-3-2b", layers=4, batch=4, seq_len=1024,
+            moe_arch="deepseek-moe-16b", moe_tokens=2048,
+            decode=(1, 8), cache_rows=2048)
 
 
 def _bwd_edge_cases(FA, ref, dev) -> int:
@@ -2327,6 +2358,528 @@ def _whisper_phase(FA, FD, ref, dev, flush) -> dict:
                 flash_attention_bwd=bwd_rec)
 
 
+def _policy_table() -> None:
+    """Phase D1: ``ShardingPolicy`` on both production mesh shapes for all
+    10 configs: each device's bytes of bf16 parameters and float32 moments
+    (m and v), with and without ZeRO-1, beside the card's memory.  Host
+    arithmetic on meta tensors."""
+    import torch
+    from repro_torch.configs import all_configs, get_config
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.runtime.sharding import ShardingPolicy, _axes
+    from repro_torch.runtime.steps import params_specs
+
+    gib = 2.0 ** 30
+    card = torch.cuda.get_device_properties(0).total_memory / gib
+    for multi_pod in (False, True):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        rows = []
+        for arch in sorted(all_configs()):
+            cfg = get_config(arch)
+            model = params_specs(cfg)
+            numel = {n: p.numel() for n, p in model.named_parameters()}
+
+            def per_device(specs, width):
+                total = 0
+                for n, spec in specs.items():
+                    parts = 1
+                    for entry in spec:
+                        for a in _axes(entry):
+                            parts *= mesh.shape[a]
+                    total += numel[n] * width / parts
+                return total / gib
+
+            pol = ShardingPolicy(cfg, mesh)
+            z1 = ShardingPolicy(cfg, mesh, zero1=True)
+            params = per_device(pol.params_shardings(model), 2)
+            moments = per_device(pol.opt_state_shardings(model)["m"], 8)
+            moments_z1 = per_device(z1.opt_state_shardings(model)["m"], 8)
+            rows.append(f"{arch} {params:.3f} + {moments:.3f} "
+                        f"({moments_z1:.3f} ZeRO-1)")
+            del model
+        print(f"D1 ShardingPolicy on {mesh.shape}: per device, bf16 params "
+              f"+ float32 moments GiB (card {card:.1f} GiB): "
+              + "; ".join(rows), flush=True)
+
+
+def _host_slots(top_i: np.ndarray, capacity: int):
+    """Each (token, choice) pair's place in its expert's bucket by a loop
+    on the host, in (token, choice) order (the a2a dispatch's), and
+    whether it is kept."""
+    T, k = top_i.shape
+    slot = np.zeros((T, k), np.int64)
+    seen = collections.Counter()
+    for t in range(T):
+        for j in range(k):
+            slot[t, j] = seen[top_i[t, j]]
+            seen[top_i[t, j]] += 1
+    kept = slot < capacity
+    return np.where(kept, slot, -1), kept
+
+
+# -- the distributed checks: run by every rank of an initialised group, at
+# one rank in phase D and at four in scripts/distributed_nccl.py ----------
+
+
+def _say(text: str) -> None:
+    """Print on rank 0 of the group."""
+    import torch.distributed as dist
+    if dist.get_rank() == 0:
+        print(text, flush=True)
+
+
+def _mesh_str(mesh) -> str:
+    return str(dict(zip(mesh.mesh_dim_names, mesh.shape)))
+
+
+def _dist_sync(dev) -> None:
+    import torch
+    import torch.distributed as dist
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dist.barrier()
+
+
+def _dist_ms(fn, dev, reps: int) -> float:
+    """ms a call of ``fn``: CUDA events on the card (after two warm-up
+    calls), else the host clock's median, every rank in step."""
+    if dev.type == "cuda":
+        return _time_ms(fn, 2, reps)
+    times = []
+    for _ in range(3):
+        _dist_sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _dist_sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _dist_train(FA, dev, mesh, cfg, B: int, S: int, tag: str = ""
+                ) -> tuple:
+    """One ZeRO-1 sharded train step of ``cfg`` on ``mesh`` (data, model)
+    against the unsharded step on the whole batch on each rank, from the
+    same weights: the loss and grad norm within 1e-5 of themselves, every
+    parameter within Adam's step of two learning rates plus a bf16
+    rounding of itself, every rank holding the same parameters, and on
+    the card exactly ``2 n_layers`` ``flash_attention`` and ``n_layers``
+    ``flash_attention_bwd`` launches (counted over the sharded step
+    only).  Prints the times and, on the card, each step's peak device
+    memory above what it started from, beside what each keeps (parameters
+    and moments).  Returns (the numbers, the launches, the unsharded
+    step's gradients)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime.sharding import (ShardingPolicy,
+                                              distribute_model,
+                                              sharded_opt_state)
+    from repro_torch.runtime.steps import make_train_step
+
+    cuda = dev.type == "cuda"
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=0, total_steps=100)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=2)).global_batch(0).items()}
+    plain = init_params(cfg, 5, device=dev, trainable=True)
+    sharded = copy.deepcopy(plain).requires_grad_(False)
+    step = make_train_step(cfg, opt_cfg)
+    warm = copy.deepcopy(plain)  # the first step's one-off set-up, untimed
+    step(warm, init_opt_state(warm), batch)
+    del warm
+    opt_plain = init_opt_state(plain)
+    policy = ShardingPolicy(cfg, mesh, zero1=True)
+    distribute_model(sharded, policy)
+    opt = sharded_opt_state(policy, sharded)
+    sharded_step = make_train_step(cfg, opt_cfg, policy=policy)
+
+    def kept(params, state):  # bytes a rank keeps: parameters and moments
+        def own(t):
+            t = t.to_local() if hasattr(t, "to_local") else t
+            return t.numel() * t.element_size()
+        return (sum(own(p) for p in params.parameters())
+                + sum(own(t) for part in ("m", "v")
+                      for t in state[part].values()))
+
+    def run(fn, params, state):  # (metrics, host ms, peak bytes above)
+        _dist_sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        _, _, metrics = fn(params, state, batch)
+        _dist_sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev) - base if cuda else 0
+        return metrics, ms, peak
+
+    m_plain, plain_ms, plain_peak = run(step, plain, opt_plain)
+    grads = {n: p.grad for n, p in plain.named_parameters()}
+    FA.flash_attention.launches = FA.flash_attention_bwd.launches = 0
+    m_sharded, ms, peak = run(sharded_step, sharded, opt)
+    launches = dict(flash_attention=FA.flash_attention.launches,
+                    flash_attention_bwd=FA.flash_attention_bwd.launches)
+    if cuda and launches != dict(flash_attention=2 * cfg.n_layers,
+                                 flash_attention_bwd=cfg.n_layers):
+        raise AssertionError(f"sharded step: launched {launches}, not "
+                             f"{2 * cfg.n_layers} forward and "
+                             f"{cfg.n_layers} backward")
+    loss = {k: (float(m_plain[k]), float(m_sharded[k]))
+            for k in ("loss", "grad_norm")}
+    if any(abs(a - b) > 1e-5 * abs(a) for a, b in loss.values()):
+        raise AssertionError(f"sharded step against unsharded: {loss}")
+    named = dict(sharded.named_parameters())
+    n_equal, n_all, worst, digest = 0, 0, 0.0, []
+    for n, p in plain.named_parameters():
+        got, want = named[n].full_tensor().float(), p.detach().float()
+        d = (got - want).abs()
+        bound = 2 * opt_cfg.lr + want.abs() * 2.0 ** -7
+        worst = max(worst, float((d / bound).max()))
+        n_equal += int((d == 0).sum())
+        n_all += d.numel()
+        digest.append(float(got.double().sum()))
+    if worst > 1.0:
+        raise AssertionError(f"sharded step: a parameter {worst:.3f} of "
+                             f"its bound off the unsharded step's")
+    sums = [None] * dist.get_world_size()
+    dist.all_gather_object(sums, digest)
+    if any(s != sums[0] for s in sums):
+        raise AssertionError("sharded step: the ranks hold different "
+                             "parameters")
+    gib = 2.0 ** 30
+    emb = named["embed.tokens"].placements
+    n_z1 = sum(m.placements[0].is_shard() for m in opt["m"].values())
+    memory = (f"; a rank keeps {kept(sharded, opt) / gib:.3f} GiB of "
+              f"parameters and moments (unsharded "
+              f"{kept(plain, opt_plain) / gib:.3f}) and the step peaks "
+              f"{peak / gib:.3f} GiB above what it started from (unsharded "
+              f"{plain_peak / gib:.3f})" if cuda else "")
+    _say(f"{tag}sharded ZeRO-1 train step of {cfg.name} ({cfg.n_layers} "
+         f"layers, {cfg.dtype()}, remat {cfg.remat}) on {_mesh_str(mesh)}"
+         f", batch {B} x {S}: loss {loss['loss'][1]:.6f} (unsharded on the "
+         f"whole batch {loss['loss'][0]:.6f}), grad_norm "
+         f"{loss['grad_norm'][1]:.6f} ({loss['grad_norm'][0]:.6f}); "
+         f"{n_equal / n_all:.4f} of the parameters' elements bitwise equal "
+         f"to the unsharded step's, the rest within {worst:.3f} of 2 lr + "
+         f"a bf16 step; every rank the same parameters; embedding {emb}, "
+         f"{n_z1} of {len(opt['m'])} moments on 'data'; attention launches "
+         f"{launches}; {ms:.1f} ms (host clock; unsharded {plain_ms:.1f})"
+         + memory)
+    rec = dict(ms=ms, plain_ms=plain_ms, loss=loss["loss"][1],
+               loss_unsharded=loss["loss"][0], equal_share=n_equal / n_all,
+               worst=worst, peak_gib=peak / gib,
+               plain_peak_gib=plain_peak / gib,
+               kept_gib=kept(sharded, opt) / gib,
+               plain_kept_gib=kept(plain, opt_plain) / gib)
+    del plain, sharded, opt, opt_plain
+    return rec, launches, grads
+
+
+def _dist_grad_mean(mesh, tree: dict, dev, tag: str = "") -> dict:
+    """``make_hierarchical_grad_mean`` on ``mesh`` (pod, data) over this
+    rank's ``tree``: uncompressed within one rounding of the tree's dtype
+    (1e-6 for float32) of each leaf's largest entry off a plain
+    ``all_reduce`` mean; int8 across pods, on rank 0's tree on every rank,
+    within int8's half step plus that rounding and float32's.  On rank-dependent trees
+    across pods the int8 exchange's error is printed, not bounded (its
+    codes are summed under different per-pod scales, as the reference's:
+    ``ROADMAP.md`` queue 3).  Prints the times and the bytes handed to the
+    collectives; returns them."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.runtime import collectives as C
+
+    world = dist.get_world_size()
+    eps = torch.finfo(next(iter(tree.values())).dtype).eps
+    f32_eps = torch.finfo(torch.float32).eps
+
+    def plain(t_in):
+        out = {n: t.clone() for n, t in t_in.items()}
+        for t in out.values():
+            dist.all_reduce(t)
+            t.div_(world)
+        return out
+
+    same = {n: t.clone() for n, t in tree.items()}
+    for t in same.values():
+        dist.broadcast(t, 0)
+    want = plain(tree)
+    rec = {}
+    for name, compress, given in (("hierarchical", False, tree),
+                                  ("int8", True, same),
+                                  ("int8 rank-dependent", True, tree)):
+        if name == "int8 rank-dependent" and world == 1:
+            continue
+        fn = C.make_hierarchical_grad_mean(mesh, compress_cross_pod=compress)
+        fn(given)  # warm-up: the first collectives set the group up
+        C.reset_counts()
+        got = fn(given)
+        calls, moved = dict(C.CALLS), sum(C.BYTES.values())
+        target = want if given is tree else given
+        worst, exact, rel = 0.0, True, 0.0
+        for n, g in got.items():
+            w = target[n].float()
+            d = float((g.float() - w).abs().max())
+            big = float(w.abs().max())
+            scale = big / 127.0
+            # int8's half step, a rounding to the tree's dtype, and the
+            # float32 arithmetic of the exchange
+            bound = (scale / 2 + big * eps / 2 + (big + scale) * f32_eps
+                     if compress else big * max(1e-6, eps))
+            exact = exact and d == 0.0
+            worst = max(worst, d / (bound or 1.0))
+            rel = max(rel, d / (big or 1.0))
+        if worst > 1.0 and name != "int8 rank-dependent":
+            raise AssertionError(f"hierarchical mean ({name}) {worst:.3f} "
+                                 f"of its bound off")
+        rec[name] = dict(ms=_dist_ms(lambda: fn(given), dev, 3),
+                         of_bound=worst, rel_err=rel, exact=exact,
+                         bytes=moved,
+                         calls=calls)
+    rec["all_reduce"] = dict(ms=_dist_ms(lambda: plain(tree), dev, 3))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree.values())
+    _say(f"{tag}hierarchical grad mean on {_mesh_str(mesh)}: {len(tree)} "
+         f"{next(iter(tree.values())).dtype} leaves, "
+         f"{n_bytes / 2**30:.3f} GiB a rank; "
+         + "; ".join(f"{k} {v['ms']:.2f} ms" + (
+             f", calls {v['calls']}, {v['bytes'] / 2**30:.3f} GiB handed "
+             f"to the collectives, " + ("bitwise equal" if v["exact"] else
+                                       f"{v['rel_err']:.3e} of a leaf's "
+                                       f"largest entry off, "
+                                       f"{v['of_bound']:.3f} of its bound")
+             if "calls" in v else "") for k, v in rec.items())
+         + " (times: CUDA events on the card, else host clock)")
+    return rec
+
+
+def _dist_moe(mesh, dev, cfg, B: int, S: int, tag: str = "") -> dict:
+    """``cfg`` (a MoE model) cut to its first MoE layer, ``moe_impl="a2a"``,
+    prefilled under ``use_mesh`` on each data rank's rows of one (B, S)
+    token batch: on the input the path handed that layer, the a2a layer
+    (``make_moe_a2a`` and the model's channel alike) makes exactly two
+    ``all_to_all_single`` calls; each rank's slots and kept mask equal a
+    loop on the host; its output equals, within ``ATTN_TOL``, the dense
+    layer's on every token with no dropped choice, and on every token a
+    per-expert computation over the kept choices only (a dropped choice
+    weighs 0).  Prints its time and drops; returns them."""
+    import torch
+    from repro_torch.models import init_params, moe, prefill
+    from repro_torch.models.layers import apply_mlp
+    from repro_torch.runtime import collectives as C
+    from repro_torch.runtime.mesh_context import use_mesh
+    from repro_torch.runtime.moe_a2a import _local_dispatch, make_moe_a2a
+    from repro_torch.runtime.sharding import local_chunk
+
+    cfg = dataclasses.replace(cfg, n_layers=cfg.moe_layer_start + 1,
+                              moe_impl="a2a")
+    m, kind, D = cfg.moe, cfg.mlp_kind, cfg.d_model
+    params = init_params(cfg, 11, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S), dtype=np.int32)).to(dev)
+    caught = {}
+    real = moe.apply_moe
+
+    def catch(layer, x, *args, **kwargs):
+        caught.setdefault("moe", (layer, x))
+        return real(layer, x, *args, **kwargs)
+
+    moe.apply_moe = catch
+    try:
+        with torch.no_grad(), use_mesh(mesh):
+            prefill(cfg, params, local_chunk(tokens, ("data", None), mesh),
+                    cache_len=S)
+    finally:
+        moe.apply_moe = real
+    layer, x = caught["moe"]
+    fn = make_moe_a2a(mesh, m, kind, D)
+    with torch.no_grad(), use_mesh(mesh):
+        C.reset_counts()
+        got, _ = fn(layer, x)
+        direct, moved = dict(C.CALLS), C.BYTES["all_to_all_single"]
+        C.reset_counts()
+        via_model, _, _ = layer(x, None, True)
+        channel = dict(C.CALLS)
+        dense, _ = moe.apply_moe_dense(layer, x, m, kind, need_aux=False)
+        ms = _dist_ms(lambda: fn(layer, x, need_aux=False), dev, 10)
+    if direct.get("all_to_all_single") != 2 or \
+            channel.get("all_to_all_single") != 2:
+        raise AssertionError(f"a2a MoE: all_to_all_single calls {direct} / "
+                             f"{channel}, not 2 a layer call")
+    if not torch.equal(via_model, got):
+        raise AssertionError("a2a MoE: the model's channel differs from "
+                             "make_moe_a2a")
+    # this rank's tokens: its block of rows along the model axis
+    M = mesh.size(list(mesh.mesh_dim_names).index("model"))
+    rows = x.shape[0] // M
+    mine = slice(mesh.get_local_rank("model") * rows,
+                 (mesh.get_local_rank("model") + 1) * rows)
+    xt = x[mine].reshape(-1, D)
+    T = xt.shape[0]
+    capacity = moe._capacity(m, T)
+    with torch.no_grad():
+        _, top_w, top_i = moe.router_probs(layer, xt, m)
+        _, slot, kept = _local_dispatch(xt, top_w, top_i, m.n_experts,
+                                        capacity)
+        want_slot, want_kept = _host_slots(top_i.cpu().numpy(), capacity)
+        if not (np.array_equal(slot.cpu().numpy(), want_slot)
+                and np.array_equal(kept.cpu().numpy(), want_kept)):
+            raise AssertionError("a2a MoE: slots or kept mask differ from "
+                                 "the host's loop")
+        # the kept choices only, expert by expert, summed in float32
+        w = (top_w * kept).to(xt.dtype).float()
+        experts = dict(layer["experts"].named_parameters(recurse=False))
+        acc = torch.zeros((T, D), dtype=torch.float32, device=dev)
+        for e in range(m.n_experts):
+            t, j = torch.nonzero((top_i == e) & kept, as_tuple=True)
+            if t.numel():
+                y = apply_mlp({k: v[e] for k, v in experts.items()}, xt[t],
+                              kind)
+                acc.index_add_(0, t, y.float() * w[t, j, None])
+        want = acc.to(xt.dtype)
+        if "shared" in layer:
+            want = want + apply_mlp(layer["shared"], xt, kind)
+    out = got[mine].reshape(T, D)
+    whole = kept.all(-1)
+    n_whole = int(whole.sum())
+    used_dense = _tol_ratio(out[whole], dense[mine].reshape(T, D)[whole]) \
+        if n_whole else 0.0
+    used_kept = _tol_ratio(out, want)
+    drops = 1.0 - float(kept.float().mean())
+    if n_whole == 0 or used_dense > 1.0 or used_kept > 1.0 \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"a2a MoE: {n_whole} tokens with no drop "
+                             f"{used_dense:.3f} of ATTN_TOL off the dense "
+                             f"layer; every token {used_kept:.3f} off the "
+                             f"kept choices' sum")
+    _say(f"{tag}{cfg.name} a2a MoE layer (layer {cfg.moe_layer_start}'s "
+         f"input from a prefill of {B} x {S} tokens under use_mesh, cut to "
+         f"{cfg.n_layers} layers) on {_mesh_str(mesh)}: {T} tokens a rank, "
+         f"{m.n_experts} experts of {m.d_expert} "
+         f"({m.n_experts // M} a rank), top-{m.top_k}, {m.n_shared} shared, "
+         f"capacity {capacity}; exactly 2 all_to_all_single a layer call "
+         f"through make_moe_a2a and the model's channel alike (calls "
+         f"{direct}, {moved / 2**20:.1f} MiB a rank through the two); slots "
+         f"and kept mask == the host's loop; dropped {drops:.4f} of "
+         f"{T * m.top_k} choices; the {n_whole} tokens with no drop == the "
+         f"dense layer within {used_dense:.3f} of ATTN_TOL, all {T} == the "
+         f"kept choices' sum within {used_kept:.3f}; {ms:.3f} ms a layer "
+         f"call (eager)")
+    del params, layer, x, got, dense, via_model
+    return dict(ms=ms, drops=drops, tol_used_dense=used_dense,
+                tol_used_kept=used_kept, a2a_bytes=moved)
+
+
+def _dist_decode(FD, mesh, dev, cfg, batches, S: int, tag: str = ""
+                 ) -> dict:
+    """``make_distributed_flash_decode`` on ``mesh`` (data, model), each
+    rank holding its data rows and its model shard of a ``S``-row cache
+    (at ``cfg``'s heads, the model's dtype on the card), within
+    ``ATTN_TOL`` of ``flash_decode`` on the rank's rows of the whole cache
+    (the kernel on the card: the reference, whose launches are not the
+    path's).  Prints the times; returns them."""
+    import torch
+    from repro_torch.runtime.collectives import make_distributed_flash_decode
+    from repro_torch.runtime.sharding import local_chunk
+
+    H, H_kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dtype = cfg.dtype()
+    fn = make_distributed_flash_decode(mesh, seq_axis="model",
+                                       batch_axes=("data",))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rows, cache = ("data", None, None), ("data", "model", None, None)
+    report, rec, n_ref = [], {}, 0
+    FD.flash_decode.launches = 0
+    for B in batches:
+        q = torch.randn((B, H, d), generator=gen, device=dev).to(dtype)
+        kc, vc = (torch.randn((B, S, H_kv, d), generator=gen, device=dev
+                              ).to(dtype) for _ in range(2))
+        cl = torch.randint(1, S + 1, (B,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        cl[0] = S
+        args = (local_chunk(q, rows, mesh), local_chunk(kc, cache, mesh),
+                local_chunk(vc, cache, mesh), local_chunk(cl, ("data",), mesh))
+        got = fn(*args)
+        want = FD.flash_decode(args[0], local_chunk(kc, rows + (None,), mesh)
+                               .transpose(1, 2),
+                               local_chunk(vc, rows + (None,), mesh)
+                               .transpose(1, 2), args[3])
+        n_ref += 1
+        used = _tol_ratio(got.to(want.dtype), want)
+        if used > 1.0 or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"distributed decode at batch {B} is "
+                                 f"{used:.3f} of ATTN_TOL off flash_decode")
+        ms = _dist_ms(lambda: fn(*args), dev, 20)
+        rec[f"b{B}"] = dict(ms=ms, tol_used=used)
+        report.append(f"batch {B}: {used:.3f} of ATTN_TOL, {ms:.4f} ms")
+    if dev.type == "cuda" and FD.flash_decode.launches != n_ref:
+        raise AssertionError(f"{FD.flash_decode.launches} flash_decode "
+                             f"launches for {n_ref} reference calls")
+    M = mesh.size(list(mesh.mesh_dim_names).index("model"))
+    _say(f"{tag}make_distributed_flash_decode on {_mesh_str(mesh)} (q (B, "
+         f"{H}, {d}) {dtype}, an {S}-row cache of {H_kv} heads, {S // M} rows a model "
+         f"rank, cache_len random, row 0 full; plain float32 torch, as the "
+         f"reference's jnp) against flash_decode on the whole cache "
+         f"(reference launches {FD.flash_decode.launches}, not the path's): "
+         + "; ".join(report) + " (CUDA events on the card, else host clock)")
+    return rec
+
+
+def _distributed_phase(FA, FD, dev, train_records) -> dict:
+    """Phase D: the distributed runtime on a one-rank NCCL group (one card
+    cannot hold two NCCL ranks; ``scripts/distributed_nccl.py`` runs the
+    same checks on four cards) with a (data=1, model=1) mesh: D1 the
+    policy's table; D2 :func:`_dist_train` on granite-3-2b at full width
+    cut to 4 layers (bf16, remat on) and :func:`_dist_grad_mean` on its
+    gradients over (pod=1, data=1); D3 :func:`_dist_moe` on
+    deepseek-moe-16b's 2048-token prefill; D4 :func:`_dist_decode` on
+    granite's decode shapes.  Returns the attention kernels' rows with
+    D2's launches (the kernels on the phase's path)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    _policy_table()
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    store_dir = tempfile.mkdtemp(dir=build)
+    dist.init_process_group(
+        rank=0, world_size=1, backend="nccl",
+        device_id=torch.device("cuda", torch.cuda.current_device()),
+        store=dist.FileStore(str(Path(store_dir) / "store"), 1))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        pod_mesh = init_device_mesh("cuda", (1, 1),
+                                    mesh_dim_names=("pod", "data"))
+        granite = dataclasses.replace(get_config(DIST["arch"]),
+                                      n_layers=DIST["layers"])
+        _, launches, grads = _dist_train(
+            FA, dev, mesh, granite, DIST["batch"], DIST["seq_len"],
+            tag="D2 (reduced: depth 40 -> 4 layers) ")
+        _dist_grad_mean(pod_mesh, grads, dev, tag="D2 ")
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        _dist_moe(mesh, dev, get_config(DIST["moe_arch"]), 1,
+                  DIST["moe_tokens"], tag="D3 ")
+        torch.cuda.empty_cache()
+        _dist_decode(FD, mesh, dev, granite, DIST["decode"],
+                     DIST["cache_rows"], tag="D4 ")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    print(f"phase D: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {name: dict(train_records[name], launches=launches[name])
+            for name in ("flash_attention", "flash_attention_bwd")}
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -2551,6 +3104,10 @@ def main() -> int:
     _grad_check_phase(FA, ref, dev)
     _fault_phase(dev)
     whisper = _whisper_phase(FA, FD, ref, dev, flush)
+    # -- D. the distributed runtime ------------------------------------------
+    distributed = _distributed_phase(
+        FA, FD, dev, dict(flash_attention=train_fa_rec,
+                          flash_attention_bwd=bwd_rec))
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
           f" s", flush=True)
 
@@ -2579,6 +3136,7 @@ def main() -> int:
     served["training"] = dict(flash_attention=train_fa_rec,
                               flash_attention_bwd=bwd_rec)
     served["whisper-tiny"] = whisper
+    served["distributed"] = distributed
     for arch, records in served.items():
         for name, rec in records.items():
             src, tpu = where[name]

@@ -52,11 +52,18 @@ class Manifest:
                         created_at=d["created_at"])
 
 
+def _items(tree: dict) -> List[Tuple[Any, Any]]:
+    """A dict's items in sorted key order, the order in which
+    ``jax.tree_util`` walks a dict: a leaf's index, column and shard file
+    follow from it."""
+    return [(k, tree[k]) for k in sorted(tree)]
+
+
 def _flatten(tree, path: str = "") -> List[Tuple[str, Any]]:
-    """(key path, leaf) pairs in order: dicts by insertion, lists and
+    """(key path, leaf) pairs in order: dicts by sorted key, lists and
     tuples by index."""
     if isinstance(tree, dict):
-        return [kv for k, v in tree.items()
+        return [kv for k, v in _items(tree)
                 for kv in _flatten(v, f"{path}[{k!r}]")]
     if isinstance(tree, (list, tuple)):
         return [kv for i, v in enumerate(tree)
@@ -68,7 +75,7 @@ def _unflatten(tree, leaves):
     """``tree``'s structure with its leaves replaced, in order, from the
     iterator ``leaves``."""
     if isinstance(tree, dict):
-        return {k: _unflatten(v, leaves) for k, v in tree.items()}
+        return {k: _unflatten(v, leaves) for k, v in _items(tree)}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_unflatten(v, leaves) for v in tree)
     return next(leaves)
@@ -77,7 +84,7 @@ def _unflatten(tree, leaves):
 def _structure(tree) -> str:
     if isinstance(tree, dict):
         return "{" + ", ".join(f"{k!r}: {_structure(v)}"
-                               for k, v in tree.items()) + "}"
+                               for k, v in _items(tree)) + "}"
     if isinstance(tree, (list, tuple)):
         return "[" + ", ".join(_structure(v) for v in tree) + "]"
     return "*"

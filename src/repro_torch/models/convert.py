@@ -40,6 +40,15 @@ def _layer_slots(cfg: ModelConfig, encoder: bool = False
             for p in range(len(seg.pattern))]
 
 
+def decay_mask(model: Transformer) -> Dict[str, bool]:
+    """Which of ``model``'s parameters AdamW decays: those of 2 or more
+    dims in the reference's tree, where every layer's tensors (the ones
+    :func:`_layer_slots` unstacks) carry one more, leading, dim - so only
+    the top-level 1-D norms (``final_norm``, ``enc_final_norm``) escape."""
+    return {name: p.dim() + name.startswith(("layers.", "encoder.")) >= 2
+            for name, p in model.named_parameters()}
+
+
 def _to_tensor(a, dtype: Optional[torch.dtype], device) -> torch.Tensor:
     """A copy of ``a`` as a tensor in ``dtype`` (``None``: its own)."""
     arr = np.array(a)  # a writable copy: the port writes caches in place

@@ -15,6 +15,10 @@ The reference's two formulations, as functions of plain tensors:
 * ``dense``: every token through every expert, weighted by the sparse gate
   matrix; exact (no drops), the oracle the capacity path is held to.
 
+``impl="a2a"`` is the distributed runtime's expert-parallel layer
+(``runtime/moe_a2a.py``) on the mesh of ``runtime.mesh_context.use_mesh``,
+as the reference's model runs it.
+
 Fine-grained + shared experts (DeepSeekMoE [arXiv:2401.06066]) and
 128-expert top-8 routing (Qwen3-MoE [hf:Qwen/Qwen3-30B-A3B]).
 
@@ -216,8 +220,9 @@ def apply_moe(params: Mapping, x: torch.Tensor, cfg: MoEConfig,
         return apply_moe_dense(params, x, cfg, mlp_kind, need_aux)
     if impl == "gshard":
         return apply_moe_gshard(params, x, cfg, mlp_kind, need_aux)
-    if impl == "a2a":
-        raise NotImplementedError(
-            "moe_impl='a2a' is the distributed runtime's (runtime/moe_a2a.py"
-            "), not ported yet: ROADMAP.md queue 1, item 6")
+    if impl == "a2a":  # expert parallel over the current mesh's model axis
+        from ..runtime.mesh_context import current_mesh
+        from ..runtime.moe_a2a import make_moe_a2a
+        fn = make_moe_a2a(current_mesh(), cfg, mlp_kind, x.shape[-1])
+        return fn(params, x, need_aux=need_aux)
     raise ValueError(f"unknown moe impl {impl!r}")

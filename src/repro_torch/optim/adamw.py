@@ -3,10 +3,13 @@
 Mixed precision as in the reference: parameters stay in their stored
 dtype (bf16 in production configs); first and second moments are
 float32; global-norm gradient clipping; a linear warmup then a cosine
-schedule; no weight decay on tensors of fewer than 2 dims (norms,
-biases).  Parameters, gradients and moments are flat mappings from a name
-to a tensor (a model's ``named_parameters()``); the step's scalars are
-0-d tensors on the parameters' device, so nothing waits on the card.
+schedule; no weight decay on tensors of fewer than 2 dims in the
+reference's tree (the top-level norms: a layer's tensors are stacked
+there over its segment's repeats, so its norms and biases are 2-D and
+decayed; the caller passes that as ``decay``).  Parameters, gradients
+and moments are flat mappings from a name to a tensor (a model's
+``named_parameters()``); the step's scalars are 0-d tensors on the
+parameters' device, so nothing waits on the card.
 
 One difference of form: :func:`adamw_update` writes the new parameters
 and moments into the tensors it is given (the reference returns new
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -89,17 +92,24 @@ def clip_by_global_norm(grads: Named, max_norm: float
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: Named, opt_state: Dict[str, object],
-                 params: Union[Named, nn.Module]
+                 params: Union[Named, nn.Module],
+                 decay: Optional[Mapping[str, bool]] = None,
+                 grad_norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Dict[str, torch.Tensor], Dict[str, object],
                             Dict[str, torch.Tensor]]:
-    """One AdamW step.  ``grads`` holds a gradient for every parameter.
-    Writes the new parameters and moments in place; returns (params,
-    opt_state with the new step, {"grad_norm": the norm before clipping,
-    "lr"})."""
+    """One AdamW step.  ``grads`` holds a gradient for every parameter;
+    ``decay`` says which parameters take weight decay (default: those of 2
+    or more dims, the reference's rule on its own tree; a model's is
+    :func:`repro_torch.models.convert.decay_mask`).  Writes the new
+    parameters and moments in place; returns (params, opt_state with the
+    new step, {"grad_norm": the norm before clipping, "lr"}).  Where
+    ``params`` and ``grads`` are one rank's blocks of sharded tensors,
+    ``grad_norm`` is the whole gradient's global norm."""
     named = named_tensors(params)
     # clip_by_global_norm's values, one tensor at a time: no float32 copy
     # of every gradient at once
-    grad_norm = global_norm({n: grads[n] for n in named})
+    if grad_norm is None:
+        grad_norm = global_norm({n: grads[n] for n in named})
     scale = torch.clamp(cfg.clip_norm / torch.clamp(grad_norm, min=1e-12),
                         max=1.0)
     step = opt_state["step"] + 1
@@ -115,7 +125,8 @@ def adamw_update(cfg: AdamWConfig, grads: Named, opt_state: Dict[str, object],
         m_hat = m_new / bc1
         v_hat = v_new / bc2
         delta = m_hat / (torch.sqrt(v_hat) + cfg.eps)
-        if cfg.weight_decay > 0 and p.dim() >= 2:  # no decay on norms/bias
+        decays = p.dim() >= 2 if decay is None else decay[name]
+        if cfg.weight_decay > 0 and decays:
             delta = delta + cfg.weight_decay * p.float()
         p.copy_((p.float() - lr * delta).to(p.dtype))
         m.copy_(m_new)

@@ -37,6 +37,10 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import repro_torch.data.pipeline, repro_torch.checkpoint.store\n"
         "import repro_torch.runtime.coordinator, repro_torch.runtime.steps\n"
         "import repro_torch.runtime.train_loop\n"
+        "import repro_torch.launch.mesh, repro_torch.runtime.mesh_context\n"
+        "import repro_torch.runtime.sharding\n"
+        "import repro_torch.runtime.collectives\n"
+        "import repro_torch.runtime.moe_a2a\n"
         "repro_torch.configs.get_config('granite-3-2b')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "

@@ -26,7 +26,9 @@ precomputed frames, decoder layers of causal self-attention, ``ln_x`` and
 cross-attention, sinusoidal positions in both, and the {"self",
 "cross_k", "cross_v"} caches), with frames drawn from the same seed.
 ``check_supported`` raises for no config; the MoE's ``moe_impl="a2a"``
-(the distributed runtime's) still raises ``NotImplementedError``.
+(the distributed runtime's) raises without a mesh, as the reference's
+does, and under ``use_mesh`` on a one-rank mesh gives the reference's
+logits (the 2x2 mesh is ``tests/test_torch_distributed_moe.py``'s).
 """
 import dataclasses
 
@@ -69,8 +71,8 @@ MOE = ["deepseek-moe-16b", "deepseek-moe-16b/gshard", "qwen3-moe-30b-a3b",
 COMPARED = (DENSE + ["recurrentgemma-2b", "recurrentgemma-2b/8 layers"]
             + RWKV + MOE + ["whisper-tiny"])
 #: "<arch>/a2a": the arch's smoke config with the distributed runtime's
-#: MoE dispatch, which the port does not have yet
-NOT_PORTED = ["deepseek-moe-16b/a2a", "qwen3-moe-30b-a3b/a2a"]
+#: all-to-all MoE dispatch, which needs a mesh
+A2A = ["deepseek-moe-16b/a2a", "qwen3-moe-30b-a3b/a2a"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 B, S, PROMPT = 2, 12, 8
 
@@ -281,15 +283,36 @@ def test_rwkv6_long_prefill_and_decode_match_reference(name):
         same(logits, caches, jl, jc)
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_other_mixers_and_channels_raise_not_implemented(name):
-    arch, _, impl = name.partition("/")
-    cfg = dataclasses.replace(configs.get_config(arch).smoke(),
-                              moe_impl=impl)
-    params = init_params(cfg, 0, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        forward(cfg, params, tokens)
+@pytest.mark.parametrize("name", A2A)
+def test_other_mixers_and_channels_raise_not_implemented(name, tmp_path):
+    """The a2a MoE channel: without a mesh both packages raise; on a
+    one-rank (data, model) mesh the port's forward (one gloo rank in this
+    process) gives the reference's logits and aux loss."""
+    import torch.distributed as dist
+    from jax.sharding import Mesh
+    from repro.runtime.mesh_context import use_mesh as j_use_mesh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime.mesh_context import use_mesh
+
+    pair = _Pair(name)
+    tokens = torch.from_numpy(pair.tokens)
+    with pytest.raises(RuntimeError, match="needs a mesh"):
+        forward(pair.cfg, pair.params, tokens)
+    with pytest.raises(RuntimeError, match="needs a mesh"):
+        jmodels.forward(pair.jcfg, pair.jparams, jnp.asarray(pair.tokens))
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    with j_use_mesh(jmesh):
+        jl, jaux = jmodels.forward(pair.jcfg, pair.jparams,
+                                   jnp.asarray(pair.tokens))
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        with use_mesh(make_test_mesh(1, 1)):
+            logits, aux = forward(pair.cfg, pair.params, tokens)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), **TOL)
 
 
 @pytest.mark.parametrize("name", sorted(configs.all_configs()))

@@ -403,6 +403,32 @@ def test_checkpoint_files_equal_the_reference_store(tmp_path):
             assert meta[key] == ref[key], (name, key)
 
 
+def test_checkpoint_leaf_order_follows_sorted_keys_as_the_reference(tmp_path):
+    """A tree whose keys are not in sorted order (as the trainer's own
+    {"params", "opt", "step"}): both stores give each leaf the same index,
+    column and file, and write the same bytes to it."""
+    import jax.numpy as jnp
+    from repro.checkpoint.store import GridCheckpointStore as JStore
+    jtree = {"b": jnp.ones((5,), jnp.float32),
+             "a": jnp.arange(3, dtype=jnp.float32)}
+    tree = {"b": torch.ones((5,), dtype=torch.float32),
+            "a": torch.arange(3, dtype=torch.float32)}
+    jm = JStore(tmp_path / "ref", 2, 2).save(0, jtree)
+    m = GridCheckpointStore(tmp_path / "port", 2, 2).save(0, tree)
+    assert sorted(m.leaves) == sorted(jm.leaves)
+    assert m.leaves["['a']"]["index"] == 0
+    for name, meta in m.leaves.items():
+        ref = jm.leaves[name]
+        for key in ("index", "column", "file", "bytes", "crc32"):
+            assert meta[key] == ref[key], (name, key)
+        path = f"node_r0_c{meta['column']}/{meta['file']}"
+        assert ((tmp_path / "port" / path).read_bytes()
+                == (tmp_path / "ref" / path).read_bytes()), name
+    out = GridCheckpointStore(tmp_path / "port", 2, 2).restore(0, tree)
+    assert torch.equal(out["a"], tree["a"]) and torch.equal(out["b"],
+                                                            tree["b"])
+
+
 # ---------------------------------------------------------------------------
 # coordinator (RSM control plane)
 # ---------------------------------------------------------------------------

@@ -139,3 +139,45 @@ def test_trainer_matches_reference_from_the_same_weights(tmp_path):
                 err = float((p.grad - w).abs().max())
                 assert err <= 1e-4 * float(w.abs().max()), (n, err)
     assert mine.coord.view.committed_step == ref.coord.view.committed_step
+
+
+def test_adamw_decays_what_the_reference_decays():
+    """From the reference's smoke weights, zero gradients and a nonzero
+    weight decay: after one AdamW step through the train step's mask every
+    parameter equals the reference's within 1e-6.  The reference decays a
+    layer's norm scales (stacked there to 2-D over the segment's repeats),
+    so ``layers.*.ln*.scale`` moves by lr * wd * 1 = 9.997e-04."""
+    import jax
+    from repro.configs import get_config as jget
+    from repro.models import init_params as jinit
+    from repro.optim.adamw import AdamWConfig as JAdam
+    from repro.optim.adamw import adamw_update as jupdate
+    from repro.optim.adamw import init_opt_state as jopt
+    from repro_torch.models.convert import decay_mask, params_from_jax
+    from repro_torch.optim.adamw import adamw_update
+
+    name = "granite-3-2b"
+    jcfg, cfg = jget(name).smoke(), get_config(name).smoke()
+    okw = dict(lr=1e-2, warmup_steps=0, weight_decay=0.1)
+    jparams = jinit(jcfg, jax.random.key(0))
+    jgrads = jax.tree.map(jax.numpy.zeros_like, jparams)
+    jnew, _, _ = jupdate(JAdam(**okw), jgrads, jopt(jparams), jparams)
+    want = dict(params_from_jax(cfg, jax.tree.map(np.asarray, jnew),
+                                device="cpu").named_parameters())
+
+    model = params_from_jax(cfg, jax.tree.map(np.asarray, jparams),
+                            device="cpu")
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    named = dict(model.named_parameters())
+    grads = {n: torch.zeros_like(p) for n, p in named.items()}
+    adamw_update(AdamWConfig(**okw), grads, init_opt_state(model), named,
+                 decay_mask(model))
+    moved = 0
+    for n, p in model.named_parameters():
+        assert float((p - want[n]).abs().max()) <= 1e-6, n
+        if ".ln" in n and n.endswith(".scale"):
+            shift = float((before[n] - p).abs().max())
+            assert shift == pytest.approx(9.997e-04, rel=1e-3), (n, shift)
+            moved += 1
+    assert moved == 2 * cfg.n_layers
+    assert torch.equal(model.final_norm["scale"], before["final_norm.scale"])
