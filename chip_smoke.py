@@ -107,8 +107,11 @@ T1. (right after phase 3) the attention backward - the hand-written
     forward kernel's output and log-sum-exp) against autograd through the
     plain forward on edge cases (lengths 1-2048, S_q x S_k 1/17/448 x
     1500, groups 1/4/8, head dims 64/128/256, causal, windowed, full;
-    float32 and bf16) within ``BWD_TOL``; at granite-3-2b's training
-    shape against the same, 20 replays bitwise equal, its time beside its
+    float32 and bf16) within ``BWD_TOL``; the backward library's
+    registers and spills for each kernel (``-Xptxas -v``; a spill in the
+    bf16 ``wgmma`` path at d 64 / 128 fails) and its launch plan at
+    granite's and whisper's shapes; at granite-3-2b's training shape
+    against the same, 20 replays bitwise equal, its time beside its
     operations bound, autograd's backward through the plain forward and
     SDPA's backward (all three by graph replay after an L2 flush); the
     forward there with and without its log-sum-exp;
@@ -138,7 +141,8 @@ W.  whisper-tiny at full width and depth (bf16, random seeded weights):
     against the CPU; one ``make_train_step`` step with frames (the
     backward at S_q 16 x S_k 1500), and the backward of each kind on the
     q, k, v and cotangent direction of that step against autograd
-    through the plain forward;
+    through the plain forward (the cross kind, whose dq sums key splits,
+    also 20 replays bitwise equal);
 D.  the distributed runtime on a one-rank NCCL group in this process
     (one card cannot hold two NCCL ranks; the CPU tests run many over
     gloo) with a (data=1, model=1) ``DeviceMesh``: D1 ``ShardingPolicy``
@@ -1623,14 +1627,16 @@ def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
 #: kernel sums in float32 in another order; bfloat16: inputs, the
 #: cotangent and the gradients are bf16 (8 bits of mantissa)
 BWD_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2e-2, 1e-3)}
-#: (B, H, H_kv, S_q, S_k, d, causal, window): lengths 1, 17, 127, 1500
-#: and 2048; groups 1, 4 and 8; head dims 64, 128 and 256; causal,
-#: windowed, and full with S_q != S_k (whisper's cross-attention, queries
-#: against 1500 encoder keys)
+#: (B, H, H_kv, S_q, S_k, d, causal, window): lengths 1, 17, 127, 300,
+#: 700, 1500 and 2048; groups 1, 4 and 8; head dims 64, 128 and 256;
+#: causal, windowed (the wgmma path's window-edge tiles at d 64 and 128),
+#: and full with S_q != S_k (whisper's cross-attention, queries against
+#: 1500 encoder keys)
 BWD_CASES = [
     (1, 8, 8, 1, 1, 64, True, None), (2, 8, 2, 17, 17, 64, True, None),
     (1, 8, 1, 127, 127, 128, True, None), (1, 4, 1, 300, 300, 256, True, 100),
     (1, 10, 1, 1500, 1500, 256, True, 512),
+    (1, 4, 1, 300, 300, 64, True, 100), (1, 8, 2, 700, 700, 128, False, 130),
     (1, 6, 6, 1, 1500, 64, False, None), (2, 6, 6, 17, 1500, 64, False, None),
     (1, 6, 6, 448, 1500, 64, False, None),
     (1, 6, 6, 1500, 1500, 64, False, None),
@@ -1701,6 +1707,42 @@ def _bwd_edge_cases(FA, ref, dev) -> int:
                         f"err {err:.3e} > {limit:.3e}")
             n += 1
     return n
+
+
+def _bwd_replays_equal(FA, q, k, v, do, causal: bool, what: str) -> None:
+    """20 calls of the backward on the same inputs give the same bits."""
+    import torch
+    out, lse = FA._launch(q, k, v, causal, None, with_lse=True)
+    got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    for _ in range(20):
+        again = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd replays differ at "
+                                 f"{what}")
+
+
+def _bwd_build_report(FA, n_sms: int) -> None:
+    """Phase T1: registers and spills of every kernel of the backward
+    library (a spill in the bf16 ``wgmma`` path fails) and the launch
+    plan at granite's training shape and whisper's cross-attention."""
+    from repro_torch.kernels._build import ptxas_report
+    rows = ptxas_report(FA.build_bwd())
+    for name, regs, st, ld in rows:
+        print(f"  flash_attention_bwd.cu {name}: {regs} registers, spill "
+              f"stores {st} B, loads {ld} B")
+        if (name.startswith(("bwd_wgmma", "bwd_delta_lse", "bwd_dq_merge"))
+                and st + ld > 0):
+            raise AssertionError(f"{name} spills ({st} / {ld} bytes)")
+    if not any(r[0].startswith("bwd_wgmma") for r in rows):
+        raise AssertionError("no wgmma kernel in the backward's ptxas report")
+    B, H, H_kv, S, D = TRAIN_SHAPE
+    for what, args in (("granite training", (B, H, H_kv, S, S, D, True)),
+                       ("whisper cross", (2, 6, 6, 16, 1500, 64, False))):
+        plan = FA.bwd_plan(*args, None, n_sms)
+        print(f"  backward plan at {what} {args[:6]}: dk/dv query tile "
+              f"{plan.kv_q_tile}, dk/dv blocks {plan.kv_grid}, dq blocks "
+              f"{plan.dq_grid} ({plan.n_split} key splits), one launch of "
+              f"{plan.n_blocks} blocks on {n_sms} SMs", flush=True)
 
 
 def _bwd_check(FA, ref, q, k, v, do, causal: bool, what: str):
@@ -1778,12 +1820,7 @@ def _bwd_record(FA, ref, dev, flush) -> dict:
                         dtype=torch.bfloat16) for _ in range(2))
     rec = _bwd_case_record(FA, ref, q, k, v, do, True, flush,
                            f"granite's training shape {TRAIN_SHAPE}")
-    out, lse = FA._launch(q, k, v, True, None, with_lse=True)
-    got = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-    for _ in range(20):
-        again = FA.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError("flash_attention_bwd replays differ")
+    _bwd_replays_equal(FA, q, k, v, do, True, "granite's training shape")
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     autograd_ms = _time_grad_graph_ms(
         lambda *t: FA.flash_attention(*t, causal=True), leaves, do, flush,
@@ -2334,6 +2371,9 @@ def _whisper_phase(FA, FD, ref, dev, flush) -> dict:
             FA, ref, q, k, v, do, kind == "causal", flush,
             f"whisper's {kind} train-step attention {tuple(q.shape)} x "
             f"{tuple(k.shape)}")
+        if kind == "cross":  # dq summed over key splits
+            _bwd_replays_equal(FA, q, k, v, do, False,
+                               "whisper's cross attention")
         print(f"kernel flash_attention_bwd at whisper's {kind} attention q "
               f"{tuple(q.shape)}, k/v {tuple(k.shape)} {q.dtype} (the train "
               f"step's tensors and cotangent direction): max abs err "
@@ -2342,7 +2382,9 @@ def _whisper_phase(FA, FD, ref, dev, flush) -> dict:
               f"L2) " + ", ".join(
                   f"{key} {val:.4f}" for key, val in bwd_shapes[kind].items()
                   if key.endswith("ms")) +
-              f" ({bwd_shapes[kind]['bound_by']})", flush=True)
+              f" ({bwd_shapes[kind]['bound_by']})" +
+              ("; 20 replays bitwise equal" if kind == "cross" else ""),
+              flush=True)
     bwd_rec = dict(bwd_shapes["cross"], launches=n_bwd, shapes=bwd_shapes)
     print(f"whisper-tiny: cuda == cpu on the float32 smoke config (logits "
           f"within 1e-4, max abs diff {float((lg.cpu() - lc).abs().max()):.2e};"
@@ -2968,10 +3010,11 @@ def main() -> int:
     print(f"kernel check: flash_attention_bwd (dq, dk, dv through the "
           f"autograd Function on the kernel's forward and log-sum-exp) within "
           f"(rtol x largest entry, atol) {BWD_TOL} of autograd through the "
-          f"plain forward in {n_bwd} edge cases (S 1/17/127/300/1500/2048, "
-          f"S_q x S_k 1/17/448/1500 x 1500, groups 1/4/8, d 64/128/256, "
+          f"plain forward in {n_bwd} edge cases (S 1/17/127/300/700/1500/"
+          f"2048, S_q x S_k 1/17/448/1500 x 1500, groups 1/4/8, d 64/128/256, "
           f"causal, windowed and full; f32 and bf16) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _bwd_build_report(FA, n_sms)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     bwd_rec = _bwd_record(FA, ref, dev, flush)
     B_, H_, H_kv_, S_, D_ = TRAIN_SHAPE

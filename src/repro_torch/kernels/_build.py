@@ -12,11 +12,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Tuple
+from typing import List, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -62,3 +63,46 @@ def build_library(source: str) -> Tuple[ctypes.CDLL, str]:
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)  # atomic: a concurrent build sees a whole file
     return ctypes.CDLL(str(so)), (log.read_text() if log.exists() else "")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``bwd_wgmma_kernel<64, 128>`` from a mangled kernel name: the
+    length-prefixed identifier that ends in ``_kernel``, and its template
+    arguments."""
+    for m in re.finditer(r"\d+", mangled):
+        run = m.group(0)
+        for k in range(len(run)):  # the length is a suffix of the digits
+            n = int(run[k:])
+            name = mangled[m.end():m.end() + n]
+            if n and name.endswith("_kernel") and name.isidentifier():
+                rest = mangled[m.end() + n:]
+                if not rest.startswith("I") or "EE" not in rest:
+                    return name
+                args = rest[1:rest.index("EE")]
+                args = args.replace("13__nv_bfloat16", "bf16,")
+                args = re.sub(r"Li(\d+)E?", r"\1,", args)
+                args = re.sub(r"^f", "float,", args)
+                return f"{name}<{', '.join(a for a in args.split(',') if a)}>"
+    return mangled
+
+
+def ptxas_report(log: str) -> List[Tuple[str, int, int, int]]:
+    """(kernel, registers a thread, spill store bytes, spill load bytes)
+    for each entry function of an ``nvcc -Xptxas -v`` report, in its
+    order."""
+    rows, name, spills = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name, spills = _kernel_name(m.group(1)), (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), *spills))
+            name = None
+    return rows

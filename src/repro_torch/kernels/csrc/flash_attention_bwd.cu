@@ -19,42 +19,75 @@
 // Bound: operations.  Five products of (pairs x d) multiply-adds, 10 d
 // flops a computed (query, key) pair: at granite-3-2b's training shape,
 // q (4, 32, 1024, 64) causal, 43 GFLOP, 0.0435 ms at the tensor cores'
-// dense bf16 rate of 989 TFLOP/s.
+// dense bf16 rate of 989 TFLOP/s.  The exponentials (one a pair in each
+// of dq's and dk/dv's walk) are the next limit: 16 a cycle an SM.
 //
-// The design: two simple paths with the same walk.
-//   * Kernel 2 (dq): one block per (b, h, 64 query rows) walks the key
-//     tiles its rows see (as the forward does) and accumulates dq in
-//     registers: no other block writes its rows.
-//   * Kernel 3 (dk, dv): one block per (b, kv head, key tile) walks the
-//     query tiles that see its keys, for every query head of the kv
-//     head's group in turn, and accumulates dk and dv in registers.  The
-//     group's sum is taken inside the block, so no atomics are needed and
-//     every run gives the same bits.
-//   * Both recompute the score tile from q and k (and dP from do and v).
-//   * bfloat16 at head dims 64 and 128 (the models that train on the
-//     card): the four products of a tile pair on `mma.sync` m16n8k16 with
-//     float32 accumulation, as the forward's: 4 warps of 16 rows, 64-row
-//     tiles copied by 16-byte `cp.async` (single stage), fragments by
-//     `ldmatrix` (`.trans` for the products over the score tile's rows).
-//     Kernel 2's warps own query rows: S = Q K^T and dP = dO V^T, then
-//     dQ += dS K with dS rounded to bf16 straight from the accumulators.
-//     Kernel 3's warps own keys and compute the transposed tiles: S^T =
-//     K Q^T and dP^T = V dO^T, then dV += P^T dO and dK += dS^T Q.  P is
-//     exp2 of the scores scaled by d^-1/2 log2(e) less lse log2(e).
-//   * float32, and bfloat16 at head dim 256: float32 FMAs on the CUDA
-//     cores (bfloat16 widened as it lands in shared memory), to float32
-//     rounding.  P and dS go through shared memory for the products over
-//     the other axis.  256 threads as 16 x 16: thread (ty, tx) owns query
-//     rows 4ty..4ty+3 and keys tx + 16j of a score tile, and key rows
-//     ty + 16r (kernel 3) or query rows 4ty..4ty+3 (kernel 2) by columns
-//     tx + 16c of the accumulators.  Rows are padded to d + 4 floats
-//     (float4 reads free of bank conflicts).  Key tiles are 64 keys, 32 at
-//     d = 256, which keeps kernel 3's two accumulators at 64 registers a
-//     thread and its shared memory (q, do, k, v, P, dS) at 214 KB.
-// What is left: double-buffered tiles, and `wgmma` fed by TMA, the
-// redesign that ROADMAP.md queues beside the forward's.  Offsets are
-// 64-bit.
+// bfloat16 at head dims 64 and 128 (the models that train on the card),
+// three launches, the last two programmatic dependents of the one before
+// (they start while it ends and wait for its writes):
+//   1. delta: rowsum(do o) and lse2 = lse log2(e) for every (b, h) row
+//      padded to PAD_ROWS (+inf past S_q, so P = 0 there: no query needs
+//      a bound check), 16-byte loads.
+//   2. one launch of two roles (a block of 384 threads: a producer
+//      warpgroup, whose one thread issues the copy engine's loads and
+//      which hands its registers to the consumers by setmaxnreg, and two
+//      consumer warpgroups of 64 rows each):
+//      * dk/dv, one block per (b, kv head, 128 keys), walking every head
+//        of the group and each query tile (kv_q_tile rows: 128 at d = 64,
+//        64 at d = 128; 16 or 32 where S_q is smaller) that sees its
+//        keys; K and V stay in shared memory, the q / do tiles and their
+//        lse2 / delta come through a ring of 3 stages (2 at d = 128).
+//        S^T = K Q^T and dP^T = V dO^T on wgmma with both operands in
+//        shared memory, P^T and dS^T in registers (masked only on tiles
+//        that cross the diagonal or the window's edge; a tile that no
+//        pair of a consumer sees is skipped), rounded to bf16 and fed
+//        straight back as A: dV += P^T dO, dK += dS^T Q.  The group is
+//        summed in the block: no atomics.
+//      * dq, one block per (b, h, 128 query rows, key split) walking the
+//        64-key tiles its rows see through the same kind of ring: S =
+//        Q K^T, dP = dO V^T, dQ += dS K.  Where few queries leave SMs idle
+//        (whisper's cross-attention) bwd_plan splits the keys; each split
+//        writes a float32 partial.
+//      The dk/dv blocks come first, longest causal walks first, then the
+//      dq blocks: each role fills the other's last wave.
+//   3. (key splits only) dq = the partials summed in split order.
+//   Every tile lands by TMA with the 128-byte swizzle: one layout serves
+//   as K-major operand (S, dP) and MN-major one (dV, dK, dQ).  No atomics
+//   anywhere: every run gives the same bits.  The launch plan (tiles,
+//   splits, and every block's walk: its tiles and which of them each
+//   consumer skips or masks) is kernels/flash_attention.py:bwd_plan's;
+//   the kernel reads its walk from the plan's table.
+// Registers (ptxas -v, sm_90a): every wgmma instantiation 168 a thread at
+// launch, 24 / 240 after setmaxnreg, no spill; delta 26-28, merge 36.
+// Shared memory a block (the larger role's, + 1 KB for alignment): d = 64
+// 83,000 B (kv_q_tile 16, 32), 84,536 (64), 135,224 (128); d = 128
+// 132,136 (16, 32), 133,160 (64).
+// Times (scripts/attention_ab.py --only backward, in turns against the
+// three-launch mma.sync version before it; one NVIDIA H100 80GB HBM3 at
+// a 700.00 W power limit): granite-3-2b's training shape 0.2246-0.2263 ms
+// (was 0.4396-0.4447; SDPA's backward 0.2270-0.2273), whisper-tiny's
+// cross 16 x 1500 0.0229-0.0230 (0.0657-0.0665; SDPA 0.0223-0.0224),
+// encoder 1500 x 1500 0.0987-0.0994 (0.1943-0.1959; SDPA 0.0976-0.0983),
+// causal 16 x 16 0.0100-0.0103 (0.0152-0.0155; SDPA 0.0169-0.0171),
+// qwen3-moe's 32 / 4 heads at d = 128, causal 2048, 0.5122-0.5200
+// (1.1001-1.1109; SDPA 0.2883-0.2903).  More in PERF.md, row 2b.
+//
+// float32, and bfloat16 at head dim 256: three simple launches (delta,
+// dq, dk/dv) on the CUDA cores, float32 FMAs (bfloat16 widened as it lands
+// in shared memory), to float32 rounding.  Kernel 2 (dq): one block per
+// (b, h, 64 query rows) walks the key tiles its rows see; kernel 3 (dk,
+// dv): one block per (b, kv head, key tile) walks the query tiles that
+// see its keys, for every query head of the group in turn.  P and dS go
+// through shared memory for the products over the other axis.  256
+// threads as 16 x 16: thread (ty, tx) owns query rows 4ty..4ty+3 and keys
+// tx + 16j of a score tile, and key rows ty + 16r (kernel 3) or query
+// rows 4ty..4ty+3 (kernel 2) by columns tx + 16c of the accumulators.
+// Rows are padded to d + 4 floats (float4 reads free of bank conflicts).
+// Key tiles are 64 keys, 32 at d = 256, which keeps kernel 3's two
+// accumulators at 64 registers a thread and its shared memory (q, do, k,
+// v, P, dS) at 214 KB.  Offsets are 64-bit.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -439,320 +472,771 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 
 // ---------------------------------------------------------------------------
-// bfloat16 at head dims 64 and 128: the products on the tensor cores
+// bfloat16 at head dims 64 and 128: wgmma fed by the copy engine
 // ---------------------------------------------------------------------------
 
 #include "mma_bf16.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int MW = 4;        // warps a block, 16 rows (queries or keys) each
-constexpr int MT = 32 * MW;  // threads a block
-constexpr int MB = 16 * MW;  // rows of every tile: 64 queries or keys
+constexpr int WG_THREADS = 384;  // a producer warpgroup, two consumers
+constexpr int KV_KEYS = 128;     // keys of a dk/dv block, 64 a consumer
+constexpr int DQ_ROWS = 128;     // query rows of a dq block, 64 a consumer
+constexpr int DQ_KEYS = 64;      // keys of a dq tile
+constexpr int PAD_ROWS = 128;    // lse2 and delta rows are padded to this
+// registers a producer / consumer thread after setmaxnreg: the whole
+// file, 128 x 24 + 256 x 240 = 384 x 168
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int ROW_B = 128;       // bytes of a swizzled row: 64 bf16
 
-template <int D>
-struct MmaBwd {
-  static constexpr int LD = D + 8;  // halves a shared row (copy_tile's)
-  // four bf16 tiles (q, do, k, v) and the query tile's lse and delta
-  static constexpr size_t SMEM =
-      sizeof(__nv_bfloat16) * 4 * MB * LD + sizeof(float) * 2 * MB;
+// The tensor maps of q, do, k and v, each a (B, H, S, d) view described
+// as dims (d, S, H, B), read in swizzled boxes of (64, rows, 1, 1).
+struct BwdMaps {
+  CUtensorMap q, dout, k, v;
 };
 
-// acc[n][.] (n < 8) = the warp's 16 rows of `a` times the 64 rows of `b`
-// transposed, over the head dim (both row-major tiles in shared memory,
-// `a` already at the warp's first row): a score tile, as the forward's
-// Q.K^T.
+struct BwdArgs {
+  const float* lse2;   // (B, H, S_pad): the forward's lse x log2(e), +inf
+                       // past S_q (so P = 0 there)
+  const float* delta;  // (B, H, S_pad): rowsum(do o), 0 past S_q
+  const int4* walks;   // the plan's walk table: WALK_INTS ints a block
+  int H, group, Sq, Sk, S_pad, causal, window, n_split;
+  float scale;
+};
+
+// A block's walk (kernels/flash_attention.py:BwdPlan.walks), one record
+// a key block (dk/dv) and a (split, query tile) (dq): three int4s, the
+// block's tiles [y, z) (x and w unused), then for consumer 0 and 1
+// (vis_lo, full_lo, full_hi, vis_hi): it computes tiles [vis_lo, vis_hi)
+// of the walk and masks those outside [full_lo, full_hi).
+constexpr int WALK_INTS = 12;
+
+// What consumer span does with tile t: -1 skip it (no pair visible), 1
+// mask it, 0 compute it whole.
+__device__ __forceinline__ int tile_kind(const int4& span, int t) {
+  if (t < span.x || t >= span.w) return -1;
+  return t < span.y || t >= span.z ? 1 : 0;
+}
+
+// Programmatic dependent launch: the main kernel and the merge are
+// launched while their predecessor in the stream still runs (their
+// launch and prologue overlap its tail); grid_wait() holds a thread until
+// the predecessor has finished and its writes are visible, and
+// let_dependents_start() lets the next such launch begin.
+__device__ __forceinline__ void grid_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void let_dependents_start() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Key j is visible to query i (both inside the tensors).
+__device__ __forceinline__ bool sees(int i, int j, int causal, int window) {
+  return (!causal || j <= i) && (window <= 0 || i - j < window);
+}
+
+// Kernel 1: lse2 and delta for each of the (B, H, S_pad) rows, D / 8
+// threads a row (16-byte loads of o and do): rows past S_q get lse2 =
+// +inf and delta = 0.
 template <int D>
-__device__ __forceinline__ void mma_abt(float (&acc)[8][4],
-                                        const __nv_bfloat16* a,
-                                        const __nv_bfloat16* b, int lane) {
-  constexpr int LD = MmaBwd<D>::LD;
-  const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int b_row = (lane >> 4) * 8 + (lane & 7);
-  const int b_col = ((lane >> 3) & 1) * 8;
+__global__ void __launch_bounds__(256)
+bwd_delta_lse_kernel(const __nv_bfloat16* __restrict__ o,
+                     const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse, float* __restrict__ lse2,
+                     float* __restrict__ delta, int H, int Sq, int S_pad,
+                     long long n_rows, Strides os, Strides ds) {
+  constexpr int TPR = D / 8, RPB = 256 / TPR;  // threads a row, rows a block
+  let_dependents_start();
+  const long long row = (long long)blockIdx.x * RPB + threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
+  const long long bh = row / S_pad;
+  const int i = (int)(row % S_pad);
+  const bool real = row < n_rows && i < Sq;
+  float acc = 0.f;
+  if (real) {
+    const long long b = bh / H;
+    const int h = (int)(bh % H);
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        o + b * os.b + h * os.h + (long long)i * os.s + 8 * part);
+    const uint4 y = *reinterpret_cast<const uint4*>(
+        dout + b * ds.b + h * ds.h + (long long)i * ds.s + 8 * part);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    ldmatrix_x4(af, smem_addr(a + a_row * LD + kk * 16 + a_col));
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t bf[4];
-      ldmatrix_x4(bf, smem_addr(b + (n * 8 + b_row) * LD + kk * 16 + b_col));
-      mma_bf16(acc[n], af, bf[0], bf[1]);
-      mma_bf16(acc[n + 1], af, bf[2], bf[3]);
+    for (int e = 0; e < 4; ++e) {
+      const float2 u = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&xs[e]));
+      const float2 w = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(&ys[e]));
+      acc = fmaf(u.x, w.x, fmaf(u.y, w.y, acc));
     }
   }
+#pragma unroll
+  for (int off = TPR / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < n_rows && part == 0) {
+    delta[row] = acc;
+    lse2[row] = real ? lse[bh * Sq + i] * LOG2E : __int_as_float(0x7f800000);
+  }
 }
 
-// out[n][.] (n < D/8) += p (a 16 x 64 accumulator tile, rounded to bf16 as
-// an A operand) times the 64 rows of `b` (row-major in shared memory, read
-// transposed by ldmatrix): the forward's P.V.
-template <int D>
-__device__ __forceinline__ void mma_pb(float (&out)[D / 8][4],
-                                       const float (&p)[8][4],
-                                       const __nv_bfloat16* b, int lane) {
-  constexpr int LD = MmaBwd<D>::LD;
-  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int v_col = (lane >> 4) * 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < D / 8; n += 2) {
-      uint32_t vf[4];
-      ldmatrix_x4_trans(vf, smem_addr(b + (kk * 16 + v_row) * LD + n * 8 +
-                                      v_col));
-      mma_bf16(out[n], pa, vf[0], vf[1]);
-      mma_bf16(out[n + 1], pa, vf[2], vf[3]);
+// The dk/dv block's shared memory: the K and V tiles (128 keys), then a
+// ring of NS stages of q and do tiles (BQ rows), then the stages' lse2
+// and delta, then the barriers.  Every tile is 1024-byte aligned.
+template <int D, int BQ>
+struct KvSmem {
+  static constexpr int NCB = D / 64;  // 64-column boxes of a row
+  static constexpr int NS = D == 64 ? 3 : 2;
+  static constexpr int KT_B = NCB * KV_KEYS * ROW_B;  // K (or V) tile
+  static constexpr int Q_B = NCB * BQ * ROW_B;        // q (or do) tile
+  static constexpr int K = 0, V = KT_B, RING = 2 * KT_B;
+  static constexpr int LSE = RING + NS * 2 * Q_B;
+  static constexpr int DL = LSE + NS * BQ * 4;
+  static constexpr int BAR = DL + NS * BQ * 4;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;  // + align
+  static_assert(Q_B % 1024 == 0 && BQ % 16 == 0, "aligned tiles");
+};
+
+// Shared memory from a 1024-byte aligned address (the swizzle's atoms).
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float x,
+                                             float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+
+// The dk/dv role: dk and dv for 128 keys (block by) of one (b, kv head)
+// (block bx), summed over the kv head's group.  Warpgroup 0 is the producer: one thread keeps the
+// copy engine's loads of the q, do, lse2 and delta tiles of every
+// (group head, query tile) in turn in flight in an NS-stage ring.
+// Warpgroup 1 + c (c < 2) owns keys k0 + 64 c .. + 63 and, for each
+// tile: S^T = K Q^T and dP^T = V dO^T (both operands in shared memory),
+// P^T = exp2(S^T scale log2(e) - lse2) and dS^T = P^T (dP^T - delta) in
+// registers (masked only on tiles that cross the diagonal or the
+// window's edge), then dV += P^T dO and dK += dS^T Q (A from registers).
+template <int D, int BQ>
+__device__ __forceinline__ void dkdv_block(
+    unsigned char* smem, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, const BwdArgs& a, const Strides& dks,
+    const Strides& dvs, const BwdMaps& maps, int bx, int by) {
+  using L = KvSmem<D, BQ>;
+  constexpr int NCB = L::NCB, NS = L::NS, NT = BQ / 8;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + NS;
+
+  const int H_kv = a.H / a.group;
+  const int hk = bx % H_kv, b = bx / H_kv;
+  const int k0 = by * KV_KEYS;
+  const int n_cons = a.Sk - k0 > 64 ? 2 : 1;  // consumers with keys
+  // the query tiles that see a key of the block
+  const int4 walk = a.walks[by * (WALK_INTS / 4)];
+  const int qt_lo = walk.y, qt_hi = walk.z;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128 * n_cons);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-}
+  __syncthreads();
 
-// Kernel 2 on the tensor cores: dq for 64 query rows of one (b, h); warp w
-// owns rows 16w..16w+15.  Element e of accumulator tile n is row
-// (e < 2 ? a : b) = g (+ 8) of the warp, column n * 8 + 2 tig + (e & 1).
-template <int D>
-__global__ void __launch_bounds__(MT)
-bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                  const __nv_bfloat16* __restrict__ k,
-                  const __nv_bfloat16* __restrict__ v,
-                  const __nv_bfloat16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta,
-                  __nv_bfloat16* __restrict__ dq, int H, int group, int Sq,
-                  int Sk, float scale, int causal, int window, Strides qs,
-                  Strides ks, Strides vs, Strides dos, Strides dqs) {
-  constexpr int LD = MmaBwd<D>::LD, NO = D / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* sdo = sq + MB * LD;
-  __nv_bfloat16* sk = sdo + MB * LD;
-  __nv_bfloat16* sv = sk + MB * LD;
-
-  const int n_qt = gridDim.x;
-  const int qt = causal ? n_qt - 1 - blockIdx.x : blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const int q0 = qt * MB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int r0 = warp * 16;
-  const int row_a = q0 + r0 + g, row_b = row_a + 8;
-
-  copy_tile<MB, D, MT>(sq, q + b * qs.b + h * qs.h, qs.s, q0, Sq);
-  copy_tile<MB, D, MT>(sdo, dout + b * dos.b + h * dos.h, dos.s, q0, Sq);
-  cp_async_commit();
-  const long long row0 = ((long long)b * H + h) * Sq;
-  const float lse_a = row_a < Sq ? lse[row0 + row_a] * LOG2E : 0.f;
-  const float lse_b = row_b < Sq ? lse[row0 + row_b] * LOG2E : 0.f;
-  const float dl_a = row_a < Sq ? delta[row0 + row_a] : 0.f;
-  const float dl_b = row_b < Sq ? delta[row0 + row_b] : 0.f;
-  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
-  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
-  const float sl2 = scale * LOG2E;
-
-  float acc[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int n_kt_all = (Sk + MB - 1) / MB;
-  const int n_kt = causal ? min(n_kt_all, (q0 + MB - 1) / MB + 1) : n_kt_all;
-  const int kt_lo = window > 0 ? max(0, q0 - window + 1) / MB : 0;
-  for (int kt = kt_lo; kt < n_kt; ++kt) {
-    const int k0 = kt * MB;
-    __syncthreads();  // the previous tile's reads are done
-    copy_tile<MB, D, MT>(sk, kb, ks.s, k0, Sk);
-    copy_tile<MB, D, MT>(sv, vb, vs.s, k0, Sk);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    mma_abt<D>(s, sq + r0 * LD, sk, lane);
-    mma_abt<D>(dp, sdo + r0 * LD, sv, lane);
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * tig + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        const float p = visible(row, key, Sq, Sk, causal, window)
-                            ? ex2(fmaf(s[n][e], sl2, e < 2 ? -lse_a : -lse_b))
-                            : 0.f;
-        s[n][e] = p * (dp[n][e] - (e < 2 ? dl_a : dl_b));  // dS
+  // warp-uniform to the compiler (a shuffle), so that the roles' branches
+  // do not serialise the products
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ====== producer ======
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    mbar_expect(kv_full, 2 * L::KT_B);
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load(smem + L::K + cb * KV_KEYS * ROW_B, &maps.k, 64 * cb, k0, hk,
+               b, kv_full);
+      tma_load(smem + L::V + cb * KV_KEYS * ROW_B, &maps.v, 64 * cb, k0, hk,
+               b, kv_full);
+    }
+    grid_wait();  // lse2 and delta are the previous launch's
+    int it = 0;
+    for (int gi = 0; gi < a.group; ++gi) {
+      const int h = hk * a.group + gi;
+      const long long r0 = ((long long)b * a.H + h) * a.S_pad;
+      for (int qt = qt_lo; qt < qt_hi; ++qt, ++it) {
+        const int s = it % NS, r = it / NS;
+        if (r > 0) mbar_wait_or_trap(empty + s, (r - 1) & 1);
+        unsigned char* st = smem + L::RING + s * 2 * L::Q_B;
+        mbar_expect(full + s, 2 * L::Q_B + 2 * BQ * 4);
+        for (int cb = 0; cb < NCB; ++cb) {
+          tma_load(st + cb * BQ * ROW_B, &maps.q, 64 * cb, qt * BQ, h, b,
+                   full + s);
+          tma_load(st + L::Q_B + cb * BQ * ROW_B, &maps.dout, 64 * cb,
+                   qt * BQ, h, b, full + s);
+        }
+        bulk_load(smem + L::LSE + s * BQ * 4, a.lse2 + r0 + qt * BQ, BQ * 4,
+                  full + s);
+        bulk_load(smem + L::DL + s * BQ * 4, a.delta + r0 + qt * BQ, BQ * 4,
+                  full + s);
       }
-    mma_pb<D>(acc, s, sk, lane);
+    }
+    return;
   }
 
-  __nv_bfloat16* ob = dq + b * dqs.b + h * dqs.h;
+  // ====== consumers ======
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int c = wg - 1;
+  if (c >= n_cons) return;  // no keys here (the barrier does not count it)
+  const int t = threadIdx.x % 128, wq = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int kw = k0 + 64 * c;  // the consumer's first key
+  const int4 span = a.walks[by * (WALK_INTS / 4) + 1 + c];
+  const int key_a = kw + 16 * wq + g, key_b = key_a + 8;
+  const float sl2 = a.scale * LOG2E;
+  const unsigned char* sk = smem + L::K + c * 64 * ROW_B;
+  const unsigned char* sv = smem + L::V + c * 64 * ROW_B;
+
+  float dk_acc[NCB][32], dv_acc[NCB][32];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * tig;
-    if (row_a < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row_a * dqs.s + c) =
-          __floats2bfloat162_rn(acc[n][0] * scale, acc[n][1] * scale);
-    if (row_b < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (long long)row_b * dqs.s + c) =
-          __floats2bfloat162_rn(acc[n][2] * scale, acc[n][3] * scale);
-  }
-}
-
-// Kernel 3 on the tensor cores: dk and dv for 64 keys of one (b, kv
-// head), summed over the group; warp w owns keys 16w..16w+15, and its
-// score tiles are transposed (keys x queries): S^T = K Q^T, dP^T = V dO^T,
-// then dV += P^T dO and dK += dS^T Q.
-template <int D>
-__global__ void __launch_bounds__(MT)
-bwd_dkdv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dk,
-                    __nv_bfloat16* __restrict__ dv, int H, int group, int Sq,
-                    int Sk, float scale, int causal, int window, Strides qs,
-                    Strides ks, Strides vs, Strides dos, Strides dks,
-                    Strides dvs) {
-  constexpr int LD = MmaBwd<D>::LD, NO = D / 8;
-  extern __shared__ float4 smem4[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem4);
-  __nv_bfloat16* sv = sk + MB * LD;
-  __nv_bfloat16* sq = sv + MB * LD;
-  __nv_bfloat16* sdo = sq + MB * LD;
-  float* slse = reinterpret_cast<float*>(sdo + MB * LD);
-  float* sdl = slse + MB;
-
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * MB;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int r0 = warp * 16;
-  const int key_a = k0 + r0 + g, key_b = key_a + 8;
-  copy_tile<MB, D, MT>(sk, k + b * ks.b + hk * ks.h, ks.s, k0, Sk);
-  copy_tile<MB, D, MT>(sv, v + b * vs.b + hk * vs.h, vs.s, k0, Sk);
-  cp_async_commit();
-  const float sl2 = scale * LOG2E;
-
-  float dk_acc[NO][4], dv_acc[NO][4];
+  for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+    for (int i = 0; i < 32; ++i) dk_acc[cb][i] = dv_acc[cb][i] = 0.f;
 
-  const int qt_lo = causal ? k0 / MB : 0;
-  const int q_end = window > 0 ? min(Sq, k0 + MB - 1 + window) : Sq;
-  const int qt_hi = (q_end + MB - 1) / MB;
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const long long row0 = ((long long)b * H + h) * Sq;
-    const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
-    const __nv_bfloat16* db = dout + b * dos.b + h * dos.h;
-    for (int qt = qt_lo; qt < qt_hi; ++qt) {
-      const int q0 = qt * MB;
-      __syncthreads();  // the previous tile's reads are done
-      copy_tile<MB, D, MT>(sq, qb, qs.s, q0, Sq);
-      copy_tile<MB, D, MT>(sdo, db, dos.s, q0, Sq);
-      cp_async_commit();
-      for (int r = threadIdx.x; r < MB; r += MT) {
-        slse[r] = q0 + r < Sq ? lse[row0 + q0 + r] * LOG2E : 0.f;
-        sdl[r] = q0 + r < Sq ? delta[row0 + q0 + r] : 0.f;
+  mbar_wait_or_trap(kv_full, 0);
+  __syncwarp();
+  int it = 0;
+  for (int gi = 0; gi < a.group; ++gi) {
+    for (int qt = qt_lo; qt < qt_hi; ++qt, ++it) {
+      const int s = it % NS, r = it / NS;
+      mbar_wait_or_trap(full + s, r & 1);
+      __syncwarp();
+      const int q0 = qt * BQ;
+      const int kind = tile_kind(span, qt);
+      if (kind < 0) {  // no pair of its keys and the tile's queries is visible
+        mbar_arrive(empty + s);
+        continue;
       }
-      cp_async_wait<0>();
-      __syncthreads();
-      float st[8][4], dpt[8][4];
-      mma_abt<D>(st, sk + r0 * LD, sq, lane);
-      mma_abt<D>(dpt, sv + r0 * LD, sdo, lane);
+      const bool masked = kind > 0;  // the diagonal or the window's edge
+      const unsigned char* sq = smem + L::RING + s * 2 * L::Q_B;
+      const unsigned char* sdo = sq + L::Q_B;
+      const float* slse =
+          reinterpret_cast<const float*>(smem + L::LSE + s * BQ * 4);
+      const float* sdl =
+          reinterpret_cast<const float*>(smem + L::DL + s * BQ * 4);
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BQ>(st,
+                     sw128_desc(sk + (kk / 4) * KV_KEYS * ROW_B +
+                                (kk % 4) * 32),
+                     sw128_desc(sq + (kk / 4) * BQ * ROW_B + (kk % 4) * 32),
+                     kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BQ>(dpt,
+                     sw128_desc(sv + (kk / 4) * KV_KEYS * ROW_B +
+                                (kk % 4) * 32),
+                     sw128_desc(sdo + (kk / 4) * BQ * ROW_B + (kk % 4) * 32),
+                     kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // S^T is done, dP^T may still run
+      reg_fence(st);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int qi = n * 8 + 2 * tig + (e & 1);
-          const int key = e < 2 ? key_a : key_b;
-          const float p =
-              visible(q0 + qi, key, Sq, Sk, causal, window)
-                  ? ex2(fmaf(st[n][e], sl2, -slse[qi]))
-                  : 0.f;
-          dpt[n][e] = p * (dpt[n][e] - sdl[qi]);  // dS^T
-          st[n][e] = p;                            // P^T
+          const int qi = 8 * j + 2 * tq + (e & 1);
+          float p = ex2(fmaf(st[4 * j + e], sl2, -slse[qi]));
+          if (masked && !sees(q0 + qi, e < 2 ? key_a : key_b, a.causal,
+                              a.window))
+            p = 0.f;
+          st[4 * j + e] = p;  // P^T
         }
-      mma_pb<D>(dv_acc, st, sdo, lane);
-      mma_pb<D>(dk_acc, dpt, sq, lane);
+      wgmma_wait<0>();
+      reg_fence(dpt);
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // P^T, dS^T as A operands
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int i0 = 8 * kk + 2 * x, qi = 8 * (i0 / 4) + 2 * tq;
+          pa[kk][x] = pack_bf16(st[i0], st[i0 + 1]);
+          da[kk][x] = pack_bf16(st[i0] * (dpt[i0] - sdl[qi]),
+                                st[i0 + 1] * (dpt[i0 + 1] - sdl[qi + 1]));
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs_64(dv_acc[cb], pa[kk],
+                      sw128_desc(sdo + cb * BQ * ROW_B + kk * 16 * ROW_B));
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          wgmma_rs_64(dk_acc[cb], da[kk],
+                      sw128_desc(sq + cb * BQ * ROW_B + kk * 16 * ROW_B));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) {
+        reg_fence(dv_acc[cb]);
+        reg_fence(dk_acc[cb]);
+      }
+      mbar_arrive(empty + s);
     }
   }
 
   __nv_bfloat16* kout = dk + b * dks.b + hk * dks.h;
   __nv_bfloat16* vout = dv + b * dvs.b + hk * dvs.h;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    const int c = n * 8 + 2 * tig;
-    if (key_a < Sk) {
-      *reinterpret_cast<__nv_bfloat162*>(kout + (long long)key_a * dks.s + c) =
-          __floats2bfloat162_rn(dk_acc[n][0] * scale, dk_acc[n][1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(vout + (long long)key_a * dvs.s + c) =
-          __floats2bfloat162_rn(dv_acc[n][0], dv_acc[n][1]);
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * cb + 8 * j + 2 * tq, i = 4 * j;
+      if (key_a < a.Sk) {
+        store_bf16x2(kout + (long long)key_a * dks.s + col,
+                     dk_acc[cb][i] * a.scale, dk_acc[cb][i + 1] * a.scale);
+        store_bf16x2(vout + (long long)key_a * dvs.s + col, dv_acc[cb][i],
+                     dv_acc[cb][i + 1]);
+      }
+      if (key_b < a.Sk) {
+        store_bf16x2(kout + (long long)key_b * dks.s + col,
+                     dk_acc[cb][i + 2] * a.scale, dk_acc[cb][i + 3] * a.scale);
+        store_bf16x2(vout + (long long)key_b * dvs.s + col,
+                     dv_acc[cb][i + 2], dv_acc[cb][i + 3]);
+      }
     }
-    if (key_b < Sk) {
-      *reinterpret_cast<__nv_bfloat162*>(kout + (long long)key_b * dks.s + c) =
-          __floats2bfloat162_rn(dk_acc[n][2] * scale, dk_acc[n][3] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(vout + (long long)key_b * dvs.s + c) =
-          __floats2bfloat162_rn(dv_acc[n][2], dv_acc[n][3]);
+}
+
+// The dq block's shared memory: its q and do tiles (128 rows), a ring of
+// NS stages of K and V tiles (64 keys), the barriers.
+template <int D>
+struct DqSmem {
+  static constexpr int NCB = D / 64;
+  static constexpr int NS = D == 64 ? 3 : 2;
+  static constexpr int Q_B = NCB * DQ_ROWS * ROW_B;
+  static constexpr int KT_B = NCB * DQ_KEYS * ROW_B;
+  static constexpr int Q = 0, DO = Q_B, RING = 2 * Q_B;
+  static constexpr int BAR = RING + NS * 2 * KT_B;
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;
+};
+
+// The dq role: dq for 128 query rows (tile y of n_qt, from the last in a
+// causal grid) of one (b, h)
+// (block x of n_bh), over the key split z of the key tiles they see: the
+// producer keeps K and V tiles in flight in the ring; consumer c owns
+// rows q0 + 64 c .. + 63: S = Q K^T and dP = dO V^T, dS = P (dP -
+// delta), dQ += dS K.  With one split dq is written in bf16; with more,
+// each split writes its float32 partial (scaled) to part[split] and
+// kernel 3 sums them in split order.
+template <int D>
+__device__ __forceinline__ void dq_block(
+    unsigned char* smem, __nv_bfloat16* __restrict__ dq,
+    float* __restrict__ part, const BwdArgs& a, const Strides& dqs,
+    const BwdMaps& maps, int x, int y, int split, int n_qt, int n_bh,
+    int n_kb) {
+  using L = DqSmem<D>;
+  constexpr int NCB = L::NCB, NS = L::NS;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + NS;
+
+  const int h = x % a.H, b = x / a.H;
+  const int hk = h / a.group;
+  const int qt = a.causal ? n_qt - 1 - y : y;  // the longest walks first
+  const int q0 = qt * DQ_ROWS;
+  const int n_cons = a.Sq - q0 > 64 ? 2 : 1;  // consumers with rows
+  // this split's share of the key tiles the rows see
+  const int4* rec = a.walks + (n_kb + split * n_qt + qt) * (WALK_INTS / 4);
+  const int4 walk = rec[0];
+  const int s_lo = walk.y, s_hi = walk.z;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 128 * n_cons);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // warp-uniform to the compiler (a shuffle), so that the roles' branches
+  // do not serialise the products
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    mbar_expect(q_full, 2 * L::Q_B);
+    for (int cb = 0; cb < NCB; ++cb) {
+      tma_load(smem + L::Q + cb * DQ_ROWS * ROW_B, &maps.q, 64 * cb, q0, h,
+               b, q_full);
+      tma_load(smem + L::DO + cb * DQ_ROWS * ROW_B, &maps.dout, 64 * cb, q0,
+               h, b, q_full);
+    }
+    for (int kt = s_lo; kt < s_hi; ++kt) {
+      const int it = kt - s_lo, s = it % NS, r = it / NS;
+      if (r > 0) mbar_wait_or_trap(empty + s, (r - 1) & 1);
+      unsigned char* st = smem + L::RING + s * 2 * L::KT_B;
+      mbar_expect(full + s, 2 * L::KT_B);
+      for (int cb = 0; cb < NCB; ++cb) {
+        tma_load(st + cb * DQ_KEYS * ROW_B, &maps.k, 64 * cb, kt * DQ_KEYS,
+                 hk, b, full + s);
+        tma_load(st + L::KT_B + cb * DQ_KEYS * ROW_B, &maps.v, 64 * cb,
+                 kt * DQ_KEYS, hk, b, full + s);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int c = wg - 1;
+  if (c >= n_cons) return;
+  const int t = threadIdx.x % 128, wq = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int qw = q0 + 64 * c;  // the consumer's first row
+  const int4 span = rec[1 + c];
+  const int row_a = qw + 16 * wq + g, row_b = row_a + 8;
+  const long long r0 = ((long long)b * a.H + h) * a.S_pad;
+  grid_wait();  // lse2 and delta are the previous launch's
+  const float lse_a = a.lse2[r0 + row_a], lse_b = a.lse2[r0 + row_b];
+  const float dl_a = a.delta[r0 + row_a], dl_b = a.delta[r0 + row_b];
+  const float sl2 = a.scale * LOG2E;
+  const unsigned char* sq = smem + L::Q + c * 64 * ROW_B;
+  const unsigned char* sdo = smem + L::DO + c * 64 * ROW_B;
+
+  float acc[NCB][32];
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+
+  mbar_wait_or_trap(q_full, 0);
+  __syncwarp();
+  for (int kt = s_lo; kt < s_hi; ++kt) {
+    const int it = kt - s_lo, s = it % NS, r = it / NS;
+    mbar_wait_or_trap(full + s, r & 1);
+    __syncwarp();
+    const int k0 = kt * DQ_KEYS;
+    const int kind = tile_kind(span, kt);
+    if (kind < 0) {
+      mbar_arrive(empty + s);  // no pair visible
+      continue;
+    }
+    // the diagonal, the window's edge or the last key
+    const bool masked = kind > 0;
+    const unsigned char* sk = smem + L::RING + s * 2 * L::KT_B;
+    const unsigned char* sv = sk + L::KT_B;
+    float sc[DQ_KEYS / 2], dp[DQ_KEYS / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<DQ_KEYS>(sc,
+                        sw128_desc(sq + (kk / 4) * DQ_ROWS * ROW_B +
+                                   (kk % 4) * 32),
+                        sw128_desc(sk + (kk / 4) * DQ_KEYS * ROW_B +
+                                   (kk % 4) * 32),
+                        kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<DQ_KEYS>(dp,
+                        sw128_desc(sdo + (kk / 4) * DQ_ROWS * ROW_B +
+                                   (kk % 4) * 32),
+                        sw128_desc(sv + (kk / 4) * DQ_KEYS * ROW_B +
+                                   (kk % 4) * 32),
+                        kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    reg_fence(sc);
+#pragma unroll
+    for (int j = 0; j < DQ_KEYS / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = k0 + 8 * j + 2 * tq + (e & 1);
+        const int row = e < 2 ? row_a : row_b;
+        float p = ex2(fmaf(sc[4 * j + e], sl2, e < 2 ? -lse_a : -lse_b));
+        if (masked && !(key < a.Sk && sees(row, key, a.causal, a.window)))
+          p = 0.f;
+        sc[4 * j + e] = p;
+      }
+    wgmma_wait<0>();
+    reg_fence(dp);
+    uint32_t da[DQ_KEYS / 16][4];  // dS as A operands
+#pragma unroll
+    for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int i0 = 8 * kk + 2 * x;
+        const float dl = x % 2 == 0 ? dl_a : dl_b;
+        da[kk][x] = pack_bf16(sc[i0] * (dp[i0] - dl),
+                              sc[i0 + 1] * (dp[i0 + 1] - dl));
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
+        wgmma_rs_64(acc[cb], da[kk],
+                    sw128_desc(sk + cb * DQ_KEYS * ROW_B + kk * 16 * ROW_B));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb) reg_fence(acc[cb]);
+    mbar_arrive(empty + s);
+  }
+
+  if (a.n_split == 1) {
+    __nv_bfloat16* ob = dq + b * dqs.b + h * dqs.h;
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cb + 8 * j + 2 * tq, i = 4 * j;
+        if (row_a < a.Sq)
+          store_bf16x2(ob + (long long)row_a * dqs.s + col,
+                       acc[cb][i] * a.scale, acc[cb][i + 1] * a.scale);
+        if (row_b < a.Sq)
+          store_bf16x2(ob + (long long)row_b * dqs.s + col,
+                       acc[cb][i + 2] * a.scale, acc[cb][i + 3] * a.scale);
+      }
+  } else {
+    float* pb = part + (((long long)split * n_bh + x) * a.Sq) *
+                           D;  // (split, b, h) rows of D floats
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cb + 8 * j + 2 * tq, i = 4 * j;
+        if (row_a < a.Sq)
+          *reinterpret_cast<float2*>(pb + (long long)row_a * D + col) =
+              make_float2(acc[cb][i] * a.scale, acc[cb][i + 1] * a.scale);
+        if (row_b < a.Sq)
+          *reinterpret_cast<float2*>(pb + (long long)row_b * D + col) =
+              make_float2(acc[cb][i + 2] * a.scale, acc[cb][i + 3] * a.scale);
+      }
   }
 }
 
+// Kernel 3: dq = the sum of the n_split float32 partials, in split
+// order (the same bits every run), written in bf16; four columns a
+// thread.  part is (n_split, B, H, S_q, D) dense.
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, const void* o,
-               const void* dout, const float* lse, float* delta, void* dq,
-               void* dk, void* dv, int B, int H, int H_kv, int Sq, int Sk,
-               int causal, int window, float scale, const long long* st,
-               cudaStream_t stream) {
-  using T = __nv_bfloat16;
-  constexpr size_t smem = MmaBwd<D>::SMEM;
-  static bool attr_set = false;  // once per instantiation and process
-  if (!attr_set) {
-    int e = set_smem(bwd_dq_mma_kernel<D>, smem);
-    if (e == 0) e = set_smem(bwd_dkdv_mma_kernel<D>, smem);
-    if (e != 0) return e;
-    attr_set = true;
+__global__ void __launch_bounds__(256)
+bwd_dq_merge_kernel(const float* __restrict__ part,
+                    __nv_bfloat16* __restrict__ dq, int H, int Sq,
+                    int n_split, long long n_rows, Strides dqs) {
+  grid_wait();  // the partials are the previous launch's
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= n_rows * (D / 4)) return;
+  const long long row = idx / (D / 4);
+  const int col = (int)(idx % (D / 4)) * 4;
+  float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < n_split; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(
+        part + ((long long)s * n_rows + row) * D + col);
+    sum.x += x.x;
+    sum.y += x.y;
+    sum.z += x.z;
+    sum.w += x.w;
   }
-  auto S = [&](int t) { return Strides{st[3 * t], st[3 * t + 1], st[3 * t + 2]}; };
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
-  const long long n_rows = (long long)B * H * Sq;
-  bwd_delta_kernel<T><<<(unsigned)((n_rows + 7) / 8), THREADS, 0, stream>>>(
-      static_cast<const T*>(o), tdo, delta, H, Sq, D, n_rows, S(3), S(4));
+  const long long bh = row / Sq;
+  const int i = (int)(row % Sq);
+  __nv_bfloat16* p = dq + (bh / H) * dqs.b + (bh % H) * dqs.h +
+                     (long long)i * dqs.s + col;
+  store_bf16x2(p, sum.x, sum.y);
+  store_bf16x2(p + 2, sum.z, sum.w);
+}
+
+// Kernel 2: the dk/dv blocks (the first n_kv, by key block then (b, kv
+// head): the longest causal walks first) and the dq blocks (by (b, h),
+// then query tile, then key split) in one launch, so that either fills
+// the other's last wave; a block takes the larger of the two roles'
+// shared memory.
+template <int D, int BQ>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+bwd_wgmma_kernel(__nv_bfloat16* __restrict__ dq, float* __restrict__ part,
+                 __nv_bfloat16* __restrict__ dk,
+                 __nv_bfloat16* __restrict__ dv, BwdArgs a, Strides dqs,
+                 Strides dks, Strides dvs, int kv_x, int n_kv, int dq_x,
+                 int dq_y, const __grid_constant__ BwdMaps kv_maps,
+                 const __grid_constant__ BwdMaps dq_maps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  let_dependents_start();
+  const int i = blockIdx.x;
+  if (i < n_kv) {
+    dkdv_block<D, BQ>(smem, dk, dv, a, dks, dvs, kv_maps, i % kv_x,
+                      i / kv_x);
+    return;
+  }
+  const int j = i - n_kv;
+  dq_block<D>(smem, dq, part, a, dqs, dq_maps, j % dq_x, (j / dq_x) % dq_y,
+              j / (dq_x * dq_y), dq_y, dq_x, n_kv / kv_x);
+}
+
+template <int D, int BQ>
+constexpr int bwd_smem() {
+  return KvSmem<D, BQ>::BYTES > DqSmem<D>::BYTES ? KvSmem<D, BQ>::BYTES
+                                                 : DqSmem<D>::BYTES;
+}
+
+// The map of a (B, H, S, D) view with element strides st as dims
+// (D, S, H, B), swizzled boxes of (64, rows, 1, 1).
+bool bwd_map(CUtensorMap* m, const void* base, int B, int H, int S,
+             int D, const Strides& st, int rows) {
+  const unsigned long long dims[4] = {(unsigned long long)D,
+                                      (unsigned long long)S,
+                                      (unsigned long long)H,
+                                      (unsigned long long)B};
+  const long long strides[4] = {1, st.s, st.h, st.b};
+  const unsigned box[4] = {64, (unsigned)rows, 1, 1};
+  return encode_map(m, base, true, 4, dims, strides, box, true);
+}
+
+// The warp-specialised kernels hand the producer's registers to the
+// consumers (setmaxnreg), which needs the whole file the launch bounds
+// allow (168 a thread): refuse a build that was given fewer rather than
+// launch a kernel whose consumers would wait for registers forever.
+template <typename K>
+int prepare_wgmma(K kernel, int smem) {
+  int e = set_smem(kernel, (size_t)smem);
+  if (e != 0) return e;
+  cudaFuncAttributes fa;
+  e = (int)cudaFuncGetAttributes(&fa, kernel);
+  if (e != 0) return e;
+  if (fa.numRegs * WG_THREADS < 128 * PRODUCER_REGS + 256 * CONSUMER_REGS)
+    return -3;
+  return 0;
+}
+
+// A launch that may begin while the stream's previous kernel still runs
+// (programmatic stream serialisation; the kernel calls grid_wait()
+// before it reads that kernel's output).
+struct Launch {
+  cudaLaunchConfig_t c;
+  cudaLaunchAttribute attr[1];
+  Launch(unsigned grid, unsigned block, size_t smem, cudaStream_t stream) {
+    c = cudaLaunchConfig_t{};
+    c.gridDim = dim3(grid);
+    c.blockDim = dim3(block);
+    c.dynamicSmemBytes = smem;
+    c.stream = stream;
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    c.attrs = attr;
+    c.numAttrs = 1;
+  }
+};
+
+template <int D, int BQ>
+int launch_main(void* dq, float* part, void* dk, void* dv, const BwdArgs& a,
+                const Strides* st, const void* q, const void* dout,
+                const void* k, const void* v, int B, int H_kv, int n_kb,
+                int n_qt, cudaStream_t stream) {
+  constexpr int SMEM = bwd_smem<D, BQ>();
+  static int ready = 1;  // once per instantiation and process
+  if (ready != 0) {
+    ready = prepare_wgmma(bwd_wgmma_kernel<D, BQ>, SMEM);
+    if (ready != 0) return ready;
+  }
+  BwdMaps km, qm;
+  if (!bwd_map(&km.q, q, B, a.H, a.Sq, D, st[0], BQ) ||
+      !bwd_map(&km.dout, dout, B, a.H, a.Sq, D, st[4], BQ) ||
+      !bwd_map(&km.k, k, B, H_kv, a.Sk, D, st[1], KV_KEYS) ||
+      !bwd_map(&km.v, v, B, H_kv, a.Sk, D, st[2], KV_KEYS) ||
+      !bwd_map(&qm.q, q, B, a.H, a.Sq, D, st[0], DQ_ROWS) ||
+      !bwd_map(&qm.dout, dout, B, a.H, a.Sq, D, st[4], DQ_ROWS) ||
+      !bwd_map(&qm.k, k, B, H_kv, a.Sk, D, st[1], DQ_KEYS) ||
+      !bwd_map(&qm.v, v, B, H_kv, a.Sk, D, st[2], DQ_KEYS))
+    return -2;
+  const int n_kv = B * H_kv * n_kb;
+  const int n_dq = B * a.H * n_qt * a.n_split;
+  Launch cfg(n_kv + n_dq, WG_THREADS, SMEM, stream);
+  const int e = (int)cudaLaunchKernelEx(
+      &cfg.c, bwd_wgmma_kernel<D, BQ>, static_cast<__nv_bfloat16*>(dq), part,
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a,
+      st[5], st[6], st[7], B * H_kv, n_kv, B * a.H, n_qt, km, qm);
+  return e != 0 ? e : (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
+                 const void* dout, const float* lse, float* lse2,
+                 float* delta, float* part, const int* walks, void* dq,
+                 void* dk, void* dv, int B, int H, int H_kv, int Sq, int Sk,
+                 int causal, int window, float scale,
+                 const long long* strides, const int* plan,
+                 cudaStream_t stream) {
+  using T = __nv_bfloat16;
+  // plan: (q rows of a dk/dv step, key splits of dq, padded rows, records
+  // of the walk table: one a key block, one a (split, query tile))
+  const int bq = plan[0], n_split = plan[1], S_pad = plan[2];
+  const int n_kb = (Sk + KV_KEYS - 1) / KV_KEYS;
+  const int n_qt = (Sq + DQ_ROWS - 1) / DQ_ROWS;
+  if (n_split < 1 || S_pad % PAD_ROWS != 0 || S_pad < Sq ||
+      plan[3] != n_kb + n_qt * n_split || walks == nullptr ||
+      (n_split > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Strides st[8];
+  for (int t = 0; t < 8; ++t)
+    st[t] = Strides{strides[3 * t], strides[3 * t + 1], strides[3 * t + 2]};
+  // tensors: q 0, k 1, v 2, o 3, dout 4, dq 5, dk 6, dv 7
+  const long long n_pad = (long long)B * H * S_pad;
+  constexpr int RPB = 256 / (D / 8);
+  bwd_delta_lse_kernel<D><<<(unsigned)((n_pad + RPB - 1) / RPB), 256, 0,
+                            stream>>>(static_cast<const T*>(o),
+                                      static_cast<const T*>(dout), lse, lse2,
+                                      delta, H, Sq, S_pad, n_pad, st[3],
+                                      st[4]);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
-  const dim3 gq((Sq + MB - 1) / MB, H, B);
-  bwd_dq_mma_kernel<D><<<gq, MT, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), H, H / H_kv, Sq, Sk,
-      scale, causal, window, S(0), S(1), S(2), S(4), S(5));
-  e = (int)cudaGetLastError();
-  if (e != 0) return e;
-  const dim3 gk((Sk + MB - 1) / MB, H_kv, B);
-  bwd_dkdv_mma_kernel<D><<<gk, MT, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      H, H / H_kv, Sq, Sk, scale, causal, window, S(0), S(1), S(2), S(4),
-      S(6), S(7));
-  return (int)cudaGetLastError();
+  const BwdArgs a{lse2, delta, reinterpret_cast<const int4*>(walks), H,
+                  H / H_kv, Sq, Sk, S_pad, causal, window, n_split, scale};
+  switch (bq) {
+    case 16:
+      e = launch_main<D, 16>(dq, part, dk, dv, a, st, q, dout, k, v, B, H_kv,
+                             n_kb, n_qt, stream);
+      break;
+    case 32:
+      e = launch_main<D, 32>(dq, part, dk, dv, a, st, q, dout, k, v, B, H_kv,
+                             n_kb, n_qt, stream);
+      break;
+    case 64:
+      e = launch_main<D, 64>(dq, part, dk, dv, a, st, q, dout, k, v, B, H_kv,
+                             n_kb, n_qt, stream);
+      break;
+    case 128:  // d = 64 only (at d = 128 the accumulators would spill)
+      if constexpr (D == 64) {
+        e = launch_main<64, 128>(dq, part, dk, dv, a, st, q, dout, k, v, B,
+                                 H_kv, n_kb, n_qt, stream);
+        break;
+      }
+      return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (e != 0 || n_split == 1) return e;
+  const long long n_rows = (long long)B * H * Sq;
+  Launch cfg((unsigned)((n_rows * (D / 4) + 255) / 256), 256, 0, stream);
+  e = (int)cudaLaunchKernelEx(&cfg.c, bwd_dq_merge_kernel<D>,
+                              (const float*)part, static_cast<T*>(dq), H, Sq,
+                              n_split, n_rows, st[5]);
+  return e != 0 ? e : (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point: launches the three kernels on `stream` in turn and
-// returns the first cudaGetLastError() that is not 0.  is_bf16 selects
-// bfloat16 (1) or float32 (0) for q, k, v, o, dout, dq, dk and dv alike;
-// lse (the forward's) and delta (scratch) are float32 (B, H, S_q) dense.
-// S_q == S_k where causal or windowed.  window: 0 for none.  strides: 24
+// C entry point of the float32 path and of bfloat16 at head dim 256:
+// launches the three kernels on `stream` in turn and returns the first
+// cudaGetLastError() that is not 0.  is_bf16 selects bfloat16 (1) or
+// float32 (0) for q, k, v, o, dout, dq, dk and dv alike; lse (the
+// forward's) and delta (scratch) are float32 (B, H, S_q) dense.  S_q ==
+// S_k where causal or windowed.  window: 0 for none.  strides: 24
 // element strides, (batch, head, seq) of q, k, v, o, dout, dq, dk, dv in
 // turn.
 extern "C" int flash_attention_bwd_launch(
@@ -769,10 +1253,39 @@ extern "C" int flash_attention_bwd_launch(
     case 64 * 2: return launch<float, 64>(BW_ARGS);
     case 128 * 2: return launch<float, 128>(BW_ARGS);
     case 256 * 2: return launch<float, 256>(BW_ARGS);
-    case 64 * 2 + 1: return launch_mma<64>(BW_ARGS);
-    case 128 * 2 + 1: return launch_mma<128>(BW_ARGS);
     case 256 * 2 + 1: return launch<__nv_bfloat16, 256>(BW_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BW_ARGS
+}
+
+// C entry point of bfloat16 at head dims 64 and 128 (the wgmma path):
+// the delta / lse2 kernel, the dk/dv and dq blocks in one launch, and
+// dq's merge where plan[1] > 1, on `stream` in turn; returns the first
+// error (-2: a tensor map the encoder refused, -3: a build without the
+// registers setmaxnreg hands out).  lse: the forward's float32 (B, H,
+// S_q) dense; lse2_delta: scratch of 2 x (B, H, plan[2]) floats; part:
+// scratch of plan[1] x (B, H, S_q, d) floats where plan[1] > 1, else
+// null; walks: the plan's walk table on the card (plan[3] records of
+// WALK_INTS ints).  plan: the 4 ints of kernels/flash_attention.py:
+// BwdPlan.c_args.  Strides as above.
+extern "C" int flash_attention_bwd_wgmma_launch(
+    int d, const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* lse2_delta, float* part,
+    const int* walks, void* dq, void* dk, void* dv, int B, int H, int H_kv,
+    int Sq, int Sk, int causal, int window, float scale,
+    const long long* strides, const int* plan, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* delta = lse2_delta + (long long)B * H * plan[2];
+  switch (d) {
+    case 64:
+      return launch_wgmma<64>(q, k, v, o, dout, lse, lse2_delta, delta, part,
+                              walks, dq, dk, dv, B, H, H_kv, Sq, Sk, causal,
+                              window, scale, strides, plan, st);
+    case 128:
+      return launch_wgmma<128>(q, k, v, o, dout, lse, lse2_delta, delta,
+                               part, walks, dq, dk, dv, B, H, H_kv, Sq, Sk,
+                               causal, window, scale, strides, plan, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -28,7 +28,8 @@ writes each row's log-sum-exp, and its backward runs
 kernel ``csrc/flash_attention_bwd.cu`` (P recomputed from the saved
 log-sum-exp, dK and dV summed over each kv head's group inside one block:
 no atomics, the same bits every run; bfloat16 at head dims 64 and 128 on
-the tensor cores, the rest on the CUDA cores).  A CPU tensor is not sent
+``wgmma`` fed by the copy engine, laid out by :func:`bwd_plan`, the rest
+on the CUDA cores).  A CPU tensor is not sent
 through it: autograd differentiates the plain version.  Head dims 64, 128
 and 256 train.  ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count kernel launches (one per call),
@@ -38,7 +39,9 @@ forward kernel as before.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import torch
@@ -51,6 +54,13 @@ DTYPES = (torch.float32, torch.bfloat16)
 
 #: head dims the backward kernel takes
 BWD_HEAD_DIMS = (64, 128, 256)
+#: head dims of its bfloat16 ``wgmma`` path (the rest: the CUDA cores)
+WGMMA_BWD_HEAD_DIMS = (64, 128)
+#: the ``wgmma`` path's fixed tiles (the same names in the source): keys
+#: of a dk/dv block (64 a consumer warpgroup), query rows of a dq block
+#: (64 a consumer), keys of a dq tile, and the row padding of the lse2 /
+#: delta scratch
+KV_KEYS, DQ_ROWS, DQ_KEYS, PAD_ROWS = 128, 128, 64, 128
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
@@ -85,6 +95,11 @@ def build_bwd() -> str:
     fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.flash_attention_bwd_wgmma_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+                   + [ctypes.c_int] * 7
+                   + [ctypes.c_float] + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     _bwd_lib = lib
     return _bwd_build_log
@@ -174,15 +189,219 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+#: ints of one record of a plan's walk table (``BwdPlan.walks``)
+WALK_INTS = 12
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """The launch plan of the bfloat16 ``wgmma`` backward (head dims 64
+    and 128) for one call: the kernels' tiles and grids, and the walk of
+    every block, which the kernel reads from :attr:`walks`.
+
+    * dk/dv: one block per (kv head and batch, 128 keys), grid
+      ``kv_grid`` = (H_kv B, key blocks); it walks every head of the kv
+      head's group and, for each, the query tiles of ``kv_q_tile`` rows
+      that see its keys: 128 at d = 64 (64 at d = 128, where the
+      accumulators take the registers), or 16, 32 or 64 where S_q is
+      smaller (whisper's 16 queries do not pad 48 rows).
+    * dq: one block per (head and batch, 128 query rows, key split), grid
+      ``dq_grid`` = (H B, query tiles, ``n_split``), the longest causal
+      walks first (the kernel takes the tiles from the last); split s takes the s-th share of the key tiles (``DQ_KEYS``
+      keys) the rows see.  Where the dq blocks are fewer than the SMs
+      (few queries: whisper's cross-attention) the keys are split until
+      they fill the SMs that the dk/dv blocks leave idle in their last
+      wave (or a wave of their own); each split then writes a float32
+      partial and a third launch sums them in split order 0, 1, ... (the
+      same bits every run).
+    * Both roles run in one launch of :attr:`n_blocks` blocks, the dk/dv
+      blocks first (key block major, so the longest causal walks start
+      first), then the dq blocks.
+    * ``s_pad``: rows of the lse2 / delta scratch per (b, h), S_q rounded
+      up to ``PAD_ROWS``.
+    * ``walks``: ``WALK_INTS`` ints a record, one record per key block
+      (dk/dv), then one per (split, query tile) of dq, at ``kv_grid[1] +
+      split * dq_grid[1] + tile``.  A record is (0, the block's tiles
+      [lo, hi), 0), then for each of the two consumer warpgroups (64 keys of a dk/dv
+      block, 64 rows of a dq block) the tiles it computes, [vis_lo,
+      vis_hi), and of those the ones it computes without a mask,
+      [full_lo, full_hi): the others cross the diagonal, the window's
+      edge or (dq) the last key."""
+    B: int
+    H: int
+    H_kv: int
+    S_q: int
+    S_k: int
+    D: int
+    causal: bool
+    window: Optional[int]
+    kv_q_tile: int
+    kv_grid: Tuple[int, int]
+    dq_grid: Tuple[int, int, int]
+    s_pad: int
+    walks: Tuple[int, ...] = field(repr=False, compare=False)
+
+    @property
+    def n_split(self) -> int:
+        return self.dq_grid[2]
+
+    @property
+    def n_blocks(self) -> int:
+        """Blocks of the one launch: dk/dv's, then dq's."""
+        return math.prod(self.kv_grid) + math.prod(self.dq_grid)
+
+    def c_args(self) -> Tuple[int, ...]:
+        """The 4 ints the C entry point receives beside the walk table:
+        the dk/dv query tile, the key splits, the padded rows and the
+        table's records (which the C side checks against its tiles)."""
+        return (self.kv_q_tile, self.n_split, self.s_pad,
+                len(self.walks) // WALK_INTS)
+
+
+def _span(vis_lo: int, full_lo: int, full_hi: int, vis_hi: int, lo: int,
+          hi: int) -> Tuple[int, int, int, int]:
+    """A consumer's (vis_lo, full_lo, full_hi, vis_hi) inside the block's
+    walk [lo, hi), with full_lo <= full_hi (an empty unmasked run)."""
+    vis_lo = min(max(vis_lo, lo), hi)
+    vis_hi = min(max(vis_hi, vis_lo), hi)
+    full_lo = min(max(full_lo, vis_lo), vis_hi)
+    return vis_lo, full_lo, min(max(full_hi, full_lo), vis_hi), vis_hi
+
+
+def _dkdv_record(kb: int, bq: int, S_q: int, S_k: int, causal: bool,
+                 w: int) -> Tuple[int, ...]:
+    """Key block ``kb``: the query tiles (``bq`` rows) that see a key of
+    it; consumer c's keys [kw, kw + 63] are visible to query tile t from
+    the tile holding kw (causal) to the last one with a query within the
+    window of kw + 63, and unmasked from the first tile whose first query
+    sees kw + 63 to the last whose last query sees kw."""
+    k0 = kb * KV_KEYS
+    lo = k0 // bq if causal else 0
+    hi = _cdiv(min(S_q, k0 + KV_KEYS - 1 + w) if w else S_q, bq)
+    rec = [0, lo, hi, 0]
+    for c in (0, 1):
+        kw = k0 + 64 * c
+        if kw >= S_k:  # no keys: the consumer does not walk
+            rec += [lo, lo, lo, lo]
+            continue
+        rec += _span(kw // bq if causal else lo,
+                     _cdiv(kw + 63, bq) if causal else lo,
+                     (kw + w) // bq if w else hi,
+                     _cdiv(kw + 63 + w, bq) if w else hi, lo, hi)
+    return tuple(rec)
+
+
+def _dq_record(qt: int, split: int, n_split: int, S_k: int, causal: bool,
+               w: int) -> Tuple[int, ...]:
+    """dq block (query tile ``qt``, split): its share of the key tiles
+    (``DQ_KEYS`` keys) the tile's rows see; consumer c's rows [qw, qw +
+    63] see key tile t from the first with a key within the window of qw
+    to the one holding qw + 63 (causal), unmasked from the first whose
+    first key qw + 63 sees to the last whose last key qw sees and lies
+    below S_k."""
+    q0, n_kt = qt * DQ_ROWS, _cdiv(S_k, DQ_KEYS)
+    lo = max(0, q0 - w + 1) // DQ_KEYS if w else 0
+    hi = min(n_kt, (q0 + DQ_ROWS - 1) // DQ_KEYS + 1) if causal else n_kt
+    n = max(0, hi - lo)
+    lo, hi = lo + split * n // n_split, lo + (split + 1) * n // n_split
+    rec = [0, lo, hi, 0]
+    for c in (0, 1):
+        qw = q0 + 64 * c
+        rec += _span((qw - w + 1) // DQ_KEYS if w else lo,
+                     (qw + 63 - w) // DQ_KEYS + 1 if w else lo,
+                     min((qw + 1) // DQ_KEYS if causal else n_kt,
+                         S_k // DQ_KEYS),
+                     (qw + 63) // DQ_KEYS + 1 if causal else hi, lo, hi)
+    return tuple(rec)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(B: int, H: int, H_kv: int, S_q: int, S_k: int, D: int,
+             causal: bool, window: Optional[int], n_sms: int) -> BwdPlan:
+    """The launch plan of the ``wgmma`` backward (see :class:`BwdPlan`)
+    on a card of ``n_sms`` SMs."""
+    if D not in WGMMA_BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {D} not in the wgmma path's "
+                         f"{WGMMA_BWD_HEAD_DIMS}")
+    kv_q_tile = (16 if S_q <= 16 else 32 if S_q <= 32 else
+                 64 if S_q <= 64 or D == 128 else 128)
+    n_qt, n_kt = _cdiv(S_q, DQ_ROWS), _cdiv(S_k, DQ_KEYS)
+    kv_grid = (H_kv * B, _cdiv(S_k, KV_KEYS))
+    blocks = n_qt * H * B
+    n_split = 1
+    if blocks < n_sms:
+        # the SMs the dk/dv blocks leave idle in their last wave, or else
+        # a wave of their own
+        free = -math.prod(kv_grid) % n_sms
+        n_split = max(1, min(n_kt, free // blocks if free >= blocks
+                             else _cdiv(n_sms, blocks)))
+    w = window or 0
+    walks = [x for kb in range(kv_grid[1])
+             for x in _dkdv_record(kb, kv_q_tile, S_q, S_k, causal, w)]
+    walks += [x for split in range(n_split) for qt in range(n_qt)
+              for x in _dq_record(qt, split, n_split, S_k, causal, w)]
+    return BwdPlan(B, H, H_kv, S_q, S_k, D, causal, window, kv_q_tile,
+                   kv_grid, (H * B, n_qt, n_split),
+                   _cdiv(S_q, PAD_ROWS) * PAD_ROWS, tuple(walks))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_walks(plan: BwdPlan, index: int) -> torch.Tensor:
+    """``plan.walks`` on card ``index``, copied once per plan and card and
+    kept (a CUDA graph that captured a launch reads it at each replay)."""
+    return torch.tensor(plan.walks, dtype=torch.int32,
+                        device=torch.device("cuda", index))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_bwd_wgmma(q, k, v, out, lse, dout, dq, dk, dv, causal: bool,
+                      window: Optional[int]) -> None:
+    """The bfloat16 ``wgmma`` path (head dims 64 and 128)."""
+    B, H, S, D = q.shape
+    lse = lse.contiguous()
+    with torch.cuda.device(q.device):
+        index = torch.cuda.current_device()
+        plan = bwd_plan(B, H, k.shape[1], S, k.shape[2], D, causal, window,
+                        _sm_count(index))
+        walks = _device_walks(plan, index)
+        scratch = torch.empty(2 * B * H * plan.s_pad, dtype=torch.float32,
+                              device=q.device)
+        part = (torch.empty((plan.n_split, B, H, S, D), dtype=torch.float32,
+                            device=q.device) if plan.n_split > 1 else None)
+        strides = (ctypes.c_longlong * 24)(*(
+            s for t in (q, k, v, out, dout, dq, dk, dv)
+            for s in t.stride()[:3]))
+        c_plan = (ctypes.c_int * 4)(*plan.c_args())
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib.flash_attention_bwd_wgmma_launch(
+            D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            part.data_ptr() if part is not None else None,
+            walks.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], S, k.shape[2],
+            int(causal), window or 0, 1.0 / math.sqrt(D), strides, c_plan,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+
+
 def _launch_bwd(q, k, v, out, lse, dout, causal: bool,
                 window: Optional[int]):
     B, H, S, D = q.shape
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the backward kernel's "
                          f"{BWD_HEAD_DIMS}")
-    # the tensor-core path copies rows in 16-byte pieces
-    q, k, v, dout = (aligned_rows(t) for t in (q, k, v, dout))
-    out = out if out.stride(-1) == 1 else out.contiguous()
+    # the tensor-core paths copy rows in 16-byte pieces
+    q, k, v, dout, out = (aligned_rows(t) for t in (q, k, v, dout, out))
     dq = torch.empty((B, S, H, D), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
@@ -190,6 +409,11 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool,
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     build_bwd()
+    if q.dtype == torch.bfloat16 and D in WGMMA_BWD_HEAD_DIMS:
+        _launch_bwd_wgmma(q, k, v, out, lse, dout, dq, dk, dv, causal,
+                          window)
+        flash_attention_bwd.launches += 1
+        return dq, dk, dv
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]))

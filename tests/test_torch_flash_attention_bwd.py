@@ -22,7 +22,12 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
+    DQ_KEYS,
+    DQ_ROWS,
+    KV_KEYS,
+    WALK_INTS,
     FlashAttention,
+    bwd_plan,
     flash_attention,
     flash_attention_bwd,
 )
@@ -160,6 +165,188 @@ def test_recurrences_differentiate_on_the_cpu():
     assert r.grad is not None
 
 
+# (B, H, H_kv, S_q, S_k, d, causal, window) of the wgmma path's plan:
+# causal lengths on and off the tiles, a window, cross-attention (whisper's
+# split dq), one query row, d = 128 with qwen3-moe's group of 8
+PLAN_CASES = [
+    (4, 32, 8, 1024, 1024, 64, True, None),
+    (1, 8, 2, 1000, 1000, 64, True, None),
+    (1, 4, 1, 300, 300, 64, True, 100),
+    (1, 4, 1, 300, 300, 64, False, 100),
+    (2, 6, 6, 16, 1500, 64, False, None),
+    (2, 8, 2, 1, 1500, 128, False, None),
+    (1, 32, 4, 2048, 2048, 128, True, None),
+    (2, 6, 6, 16, 16, 64, True, None),
+    (1, 6, 6, 448, 1500, 64, False, None),
+]
+
+
+def _visible(S_q, S_k, causal, window):
+    i = np.arange(S_q)[:, None]
+    j = np.arange(S_k)[None, :]
+    vis = np.ones((S_q, S_k), dtype=bool)
+    if causal:
+        vis &= j <= i
+    if window is not None:
+        vis &= i - j < window
+    return vis
+
+
+def _records(plan):
+    """``plan.walks`` as the kernel reads it: one (block, consumer 0,
+    consumer 1) triple of 4-int records a block."""
+    w = np.asarray(plan.walks).reshape(-1, WALK_INTS // 4, 4)
+    assert len(w) == plan.c_args()[3]
+    return w
+
+
+def _kind(span, t):
+    """The kernel's ``tile_kind``: what a consumer does with tile t."""
+    vis_lo, full_lo, full_hi, vis_hi = span
+    if not vis_lo <= t < vis_hi:
+        return "skip"
+    return "masked" if not full_lo <= t < full_hi else "full"
+
+
+def _account(counts, vis, kind, q0, n_q, k0, n_k):
+    """Add a consumer's tile to ``counts`` as the kernel computes it: P is
+    nonzero on the tile's visible pairs ("masked"), or on every pair
+    ("full"), which must then all be visible; "skip" must see none."""
+    S_q, S_k = vis.shape
+    rows, cols = slice(q0, min(q0 + n_q, S_q)), slice(k0, min(k0 + n_k, S_k))
+    if kind == "skip":
+        assert not vis[rows, cols].any(), (q0, k0)
+        return
+    if kind == "full":
+        assert vis[rows, cols].all(), (q0, k0)
+    counts[rows, cols] += vis[rows, cols]
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=[str(c) for c in PLAN_CASES])
+def test_bwd_plan_walks_cover_every_visible_pair_once(case):
+    """The walk table the CUDA kernel reads (:attr:`BwdPlan.walks`): in
+    the dk/dv walk and in the dq walk with its key splits, each visible
+    (query, key) pair of a head gets a nonzero P exactly once, an
+    invisible pair never; a tile left unmasked holds visible pairs only
+    (and, in dq, keys below S_k only)."""
+    B, H, H_kv, S_q, S_k, D, causal, window = case
+    plan = bwd_plan(B, H, H_kv, S_q, S_k, D, causal, window, n_sms=132)
+    recs = _records(plan)
+    vis = _visible(S_q, S_k, causal, window)
+    counts = np.zeros(vis.shape, dtype=np.int64)
+    bq = plan.kv_q_tile
+    n_kb = plan.kv_grid[1]
+    for kb in range(n_kb):
+        walk, spans = recs[kb][0], recs[kb][1:]
+        for qt in range(walk[1], walk[2]):
+            for c in (0, 1):  # the consumer warpgroups with keys
+                kw = kb * KV_KEYS + 64 * c
+                if kw < S_k:
+                    _account(counts, vis, _kind(spans[c], qt), qt * bq, bq,
+                             kw, 64)
+    np.testing.assert_array_equal(counts, vis)
+    counts[:] = 0
+    n_qt, n_split = plan.dq_grid[1], plan.dq_grid[2]
+    for qt in range(n_qt):
+        tiles = []
+        for split in range(n_split):
+            walk, spans = recs[n_kb + split * n_qt + qt][0], \
+                recs[n_kb + split * n_qt + qt][1:]
+            tiles += list(range(walk[1], walk[2]))
+            for kt in range(walk[1], walk[2]):
+                for c in (0, 1):  # the consumer warpgroups with rows
+                    qw, k0 = qt * DQ_ROWS + 64 * c, kt * DQ_KEYS
+                    if qw < S_q:
+                        kind = _kind(spans[c], kt)
+                        assert kind != "full" or k0 + DQ_KEYS <= S_k
+                        _account(counts, vis, kind, qw, 64, k0, DQ_KEYS)
+        assert tiles == sorted(set(tiles))  # splits in order, disjoint
+    np.testing.assert_array_equal(counts, vis)
+    assert plan.s_pad % 128 == 0 and plan.s_pad >= S_q
+    assert plan.c_args()[:3] == (bq, n_split, plan.s_pad)
+
+
+def test_bwd_plan_key_split_sums_to_dq_in_split_order():
+    """Whisper's cross-attention: dq as the kernel forms it, one float32
+    partial per key split of the walk table, summed in split order 0, 1,
+    ..., equals autograd's dq through the plain version."""
+    B, H, S_q, S_k, D = 1, 2, 16, 1500, 64
+    plan = bwd_plan(B, H, H, S_q, S_k, D, False, None, n_sms=132)
+    assert plan.n_split > 1
+    recs = _records(plan)
+    rng = np.random.default_rng(11)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape))
+                   for shape in ((B, H, S_q, D), (B, H, S_k, D),
+                                 (B, H, S_k, D), (B, H, S_q, D)))
+    qg = q.clone().requires_grad_()
+    want = torch.autograd.grad(ref.ref_attention(qg, k, v, causal=False),
+                               qg, do)[0]
+    scale = D ** -0.5
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale, dim=-1)
+    ds = p * (do @ v.transpose(-1, -2)
+              - (do * (p @ v)).sum(-1, keepdim=True))
+    parts = []
+    for split in range(plan.n_split):
+        _, lo, hi, _ = recs[plan.kv_grid[1] + split][0]
+        assert hi > lo
+        keys = slice(lo * DQ_KEYS, min(hi * DQ_KEYS, S_k))
+        parts.append((ds[..., keys] @ k[:, :, keys] * scale).float())
+    got = parts[0]
+    for part in parts[1:]:
+        got = got + part
+    torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_bwd_plan_fills_the_card_for_few_queries():
+    """Whisper's cross-attention (16 queries, 1500 keys) splits dq's keys
+    so that its blocks fill the SMs the dk/dv blocks leave idle: the one
+    launch is whole waves; granite-3-2b's training shape needs no split;
+    the dk/dv query tile follows S_q."""
+    plan = bwd_plan(2, 6, 6, 16, 1500, 64, False, None, n_sms=132)
+    kv_blocks = plan.kv_grid[0] * plan.kv_grid[1]
+    dq_blocks = plan.dq_grid[0] * plan.dq_grid[1] * plan.dq_grid[2]
+    assert plan.n_split > 1 and plan.kv_q_tile == 16
+    assert dq_blocks <= -kv_blocks % 132 and plan.n_blocks % 132 == 0
+    granite = bwd_plan(4, 32, 8, 1024, 1024, 64, True, None, n_sms=132)
+    assert granite.n_split == 1 and granite.kv_q_tile == 128
+    assert bwd_plan(1, 1, 1, 1, 1, 64, True, None, 132).kv_q_tile == 16
+    assert bwd_plan(1, 1, 1, 17, 17, 64, True, None, 132).kv_q_tile == 32
+    assert bwd_plan(1, 1, 1, 2048, 2048, 128, True, None,
+                    132).kv_q_tile == 64
+    with pytest.raises(ValueError):
+        bwd_plan(1, 1, 1, 64, 64, 256, True, None, 132)
+
+
+def test_ptxas_report_reads_registers_and_spills_by_kernel():
+    """The build report phase T1 prints: each entry function's readable
+    name, registers and spill bytes, from ``nvcc -Xptxas -v``."""
+    from repro_torch.kernels._build import ptxas_report
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a28"
+        "3_22_flash_attention_bwd_cu_04843d3016bwd_wgmma_kernelILi64ELi128E"
+        "EEvP13__nv_bfloat16' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN55_GLOBAL",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a28"
+        "3_22_flash_attention_bwd_cu_04843d3013bwd_dq_kernelIfLi64EEEvPKT_' "
+        "for 'sm_90a'",
+        "    64 bytes stack frame, 60 bytes spill stores, 68 bytes spill "
+        "loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 64 bytes "
+        "cumulative stack size",
+        "ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__3b49a28"
+        "3_22_flash_attention_bwd_cu_04843d3015bwd_dkdv_kernelI13__nv_bfloa"
+        "t16Li256EEEvPKT_' for 'sm_90a'",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+    ])
+    assert ptxas_report(log) == [
+        ("bwd_wgmma_kernel<64, 128>", 168, 0, 0),
+        ("bwd_dq_kernel<float, 64>", 128, 60, 68),
+        ("bwd_dkdv_kernel<bf16, 256>", 128, 0, 0)]
+
+
 def _gpu_case(case, dtype, seed):
     B, Sq, Sk, H, H_kv, D, causal, window = case
     g = torch.Generator().manual_seed(seed)
@@ -170,13 +357,22 @@ def _gpu_case(case, dtype, seed):
     return q, k, v, do
 
 
-# (B, S_q, S_k, H, H_kv, d, causal, window) at the kernel's head dims
+# (B, S_q, S_k, H, H_kv, d, causal, window) at the kernel's head dims;
+# from the seventh: whisper's cross-attention shape (its dq split over
+# the keys), one query row against 1500 keys at d = 128 with a group, d =
+# 128 causal at 2048 with qwen3-moe's 32 / 4 heads, a causal length that
+# is no multiple of 128, a window at d = 64
 GPU_CASES = [
     (2, 17, 17, 8, 2, 64, True, None), (1, 1, 1500, 6, 6, 64, False, None),
     (1, 448, 1500, 6, 6, 64, False, None), (2, 127, 127, 8, 1, 128, True,
                                             None),
     (1, 300, 300, 4, 1, 256, True, 100), (1, 1500, 1500, 6, 6, 64, False,
                                           None),
+    (2, 16, 1500, 6, 6, 64, False, None), (2, 1, 1500, 8, 2, 128, False,
+                                           None),
+    (1, 2048, 2048, 32, 4, 128, True, None), (1, 1000, 1000, 8, 2, 64, True,
+                                              None),
+    (1, 300, 300, 4, 1, 64, True, 100),
 ]
 
 
@@ -212,6 +408,63 @@ def test_cuda_backward_matches_autograd_through_plain_version(i, dtype):
         flash_attention(qg, kg, vg, causal=causal, window=window),
         (qg, kg, vg), do)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_backward_takes_strided_model_views(causal):
+    """q, k, v and the cotangent as the model hands them in: (B, H, S, d)
+    views of (B, S, H, d) tensors (and k, v of one fused (B, S, 2 H_kv,
+    d) projection), bf16 at d = 64 and 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    g = torch.Generator().manual_seed(5)
+    for D in (64, 128):
+        B, S, H, H_kv = 2, 200, 8, 2
+        q = torch.randn(B, S, H, D, generator=g).to("cuda", torch.bfloat16)
+        kv = torch.randn(B, S, 2 * H_kv, D, generator=g).to(
+            "cuda", torch.bfloat16)
+        do = torch.randn(B, S, H, D, generator=g).to("cuda", torch.bfloat16)
+        q, do = q.transpose(1, 2), do.transpose(1, 2)
+        k, v = kv.transpose(1, 2).split(H_kv, dim=1)
+        qq, kk, vv = (t.detach().float().requires_grad_() for t in (q, k, v))
+        want = torch.autograd.grad(ref.ref_attention(qq, kk, vv,
+                                                     causal=causal),
+                                   (qq, kk, vv), do.float())
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        got = torch.autograd.grad(flash_attention(qg, kg, vg, causal=causal),
+                                  (qg, kg, vg), do)
+        torch.cuda.synchronize()
+        assert got[0].stride() == (S * H * D, D, H * D, 1)  # (B, S, H, d)
+        for name, g_, w in zip("qkv", got, want):
+            scale = float(w.abs().max())
+            err = float((g_.float() - w).abs().max())
+            assert err <= 2e-2 * scale, (D, name, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 1024, 1024, 32, 8, True),
+                                   (2, 16, 1500, 6, 6, False)],
+                         ids=["granite-train", "whisper-cross"])
+def test_cuda_backward_replays_are_bitwise_equal(shape):
+    """20 calls of the bf16 backward on the same inputs give the same
+    bits: granite-3-2b's training shape, and whisper's cross-attention,
+    whose dq is summed over key splits in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    from repro_torch.kernels.flash_attention import _launch
+
+    B, Sq, Sk, H, H_kv, causal = shape
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, do = (torch.randn(B, H, Sq, 64, generator=g, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, H_kv, Sk, 64, generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    out, lse = _launch(q, k, v, causal, None, with_lse=True)
+    first = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    for _ in range(20):
+        again = flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.gpu
