@@ -166,7 +166,20 @@ D.  the distributed runtime on a one-rank NCCL group in this process
     kernel (the reference: its launches are not the path's, and the
     ``kernels`` line has no row for them).  The checks are functions
     (``_dist_*``) that ``scripts/distributed_nccl.py`` runs on four
-    cards.
+    cards (with one more there, ``_dist_a2a_train``: the sharded step
+    with ``moe_impl="a2a"`` over a model axis of four ranks);
+R.  the roofline on the card's constants (``roofline/analysis.py``), on
+    the CPU in child processes (fake process groups; the card is idle):
+    R1 ``python -m repro_torch.launch.dryrun --all --mesh R1_MESH`` (every
+    architecture x shape x production mesh: ok, but the attention configs'
+    ``long_500k`` and the recurrences' ``train_4k`` skipped, the latter
+    naming A6 / A7; no error), its wall time and the three hillclimb
+    picks; R2 the dry run's cell function at three sizes this run
+    measured, on a (1, 1) mesh - granite-3-2b trained at T2's 4 x 1024
+    (against T2's steady step and its traced device time), its 2048-token
+    prefill (against phase 7's), deepseek-moe-16b's batch-1 decode step
+    (against phase 9a's one-graph device time) - predicted beside
+    measured; R3 ``python -m repro_torch.launch.moe_a2a_probe``.
 
 The line before the last is the card's name and power limit; the line
 before it, a JSON object describing every kernel; the last line,
@@ -187,13 +200,21 @@ from pathlib import Path
 
 import numpy as np
 
-#: H100 SXM device memory rate, float32 rate outside the tensor cores and
-#: dense TF32 and bf16 tensor-core rates (NVIDIA's data sheet, at the full
-#: 700 W power limit).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-PEAK_TF32_OPS_PER_S = 495e12
-PEAK_BF16_OPS_PER_S = 989e12
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the card's rates and the kernels' operation and byte counts: one copy,
+# the roofline's (NVIDIA's data sheet, H100 SXM at its full 700 W limit)
+from repro_torch.roofline import kernel_costs  # noqa: E402
+from repro_torch.roofline.analysis import (  # noqa: E402
+    HBM_BW as PEAK_BYTES_PER_S,
+    PEAK_BY_RATE,
+    PEAK_F32_FLOPS as PEAK_F32_OPS_PER_S,
+    PEAK_FLOPS as PEAK_BF16_OPS_PER_S,
+)
+
+#: what the phases measured that phase R holds the roofline against:
+#: (arch, "prefill_ms") -> {prompt length: ms}, (arch, "decode_graph_ms",
+#: batch) -> ms, "train_step_ms" and "train_device_ms"
+MEASURED: dict = {}
 
 GRID = dict(variants=("compartmentalized",),
             n_proxy_leaders=(2, 3, 4, 5, 6, 7, 8, 10), grids=((2, 2),),
@@ -387,20 +408,25 @@ def _main_path_tensors(PB, sweep, w, dev):
             res.timings["scan"])
 
 
+def _bound_ms(cost):
+    """Least time for a kernel's work on this card: the larger of its bytes
+    at the memory rate and its operations at the peak rate of their type,
+    from ``roofline/kernel_costs``' (operations, bytes, rate)."""
+    ops, nbytes, rate = cost
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_BY_RATE[rate] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
 def _hist_bound_ms(samples, mask, edges, n_valid: int):
     """Least time for the histogram on this card: every mask byte and every
     valid sample read once, edges read and counts written once; against a
     compare-and-add per mask byte plus a lower-bound search per valid
     sample."""
     lanes, n = samples.shape
-    bins = edges.shape[1] - 1
-    nbytes = (lanes * n * mask.element_size() + 4 * n_valid
-              + edges.numel() * 4 + lanes * bins * 4)
-    ops = lanes * n + n_valid * (int(np.ceil(np.log2(bins + 2))) + 1)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    return _bound_ms(kernel_costs.latency_hist_cost(
+        lanes, n, edges.shape[1] - 1, n_valid, mask.element_size()))
 
 
 def _time_graph_ms(fn, flush, reps: int, stream=None) -> float:
@@ -633,30 +659,25 @@ def _recurrent_edge_cases(FA, FD, RS, ref, dev):
     return n, {key: round(r, 3) for key, (r, _, _) in worst.items()}
 
 
-def _attention_bound_ms(n_pairs: int, d: int, n_bytes: int, dtype):
-    """Least time for attention on this card: 4 d flops per computed
-    (query, key) pair at the dtype's peak rate (bf16 tensor cores, or
-    float32 outside them), against every input read and output written
-    once at the memory rate."""
-    import torch
-    rate = PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else \
-        PEAK_F32_OPS_PER_S
-    t_ops = 4.0 * d * n_pairs / rate * 1e3
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+def _attention_bound_ms(q, k, causal: bool, window=None):
+    """Least time for the attention forward on this card at q (B, H, S_q,
+    d) and k / v (B, H_kv, S_k, d): 4 d flops per computed (query, key)
+    pair at the dtype's peak rate (bf16 tensor cores, or float32 outside
+    them), against every input read and output written once at the memory
+    rate (``kernel_costs.flash_attention_cost``)."""
+    B, H, S, D = q.shape
+    return _bound_ms(kernel_costs.flash_attention_cost(
+        B, H, k.shape[1], S, k.shape[2], D, q.element_size(), causal,
+        window))
 
 
 def _scan_bound_ms(x, h0=None):
     """Least time for the RG-LRU scan on this card: x and a read and h
     written once, in x's dtype, and h0 read once, against two float32
     flops per element."""
-    nbytes = 3 * x.numel() * x.element_size() + (
-        h0.numel() * h0.element_size() if h0 is not None else 0)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 2.0 * x.numel() / PEAK_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    return _bound_ms(kernel_costs.rglru_scan_cost(
+        x.numel(), x.element_size(),
+        h0.numel() * h0.element_size() if h0 is not None else 0))
 
 
 def _count_ops(fn) -> int:
@@ -712,6 +733,7 @@ def _serve_times(cfg, params, prompts, new: int, cb) -> str:
     n_ops = _count_ops(lambda: decode_step(
         cfg, params, [dict(e) for e in caches], tok))
     nb = cb.n_slots
+    MEASURED[(cfg.name, "prefill_ms")] = dict(pre_ms)
     return (f"serve times (host clock, synchronized): prefill ms by prompt "
             f"length {{{', '.join(f'{n}: {m:.2f}' for n, m in pre_ms.items())}"
             f"}}; decode step {step_ms[1]:.2f} ms at batch 1 (after the "
@@ -733,10 +755,9 @@ def _decode_record(FD, ref, q, kc, vc, cl, flush) -> dict:
     err = _close("flash_decode", got, want,
                  f"full width {tuple(q.shape)} x {tuple(kc.shape)}")
     n_valid = int(cl.sum())
-    H, H_kv, D = q.shape[1], kc.shape[1], q.shape[2]
-    nbytes = (2 * q.numel() + 2 * H_kv * D * n_valid) * q.element_size() \
-        + 4 * cl.numel()
-    bound, by = _attention_bound_ms(H * n_valid, D, nbytes, q.dtype)
+    B, H, D = q.shape
+    bound, by = _bound_ms(kernel_costs.flash_decode_cost(
+        B, H, kc.shape[1], D, n_valid, q.element_size()))
     mask = (torch.arange(kc.shape[2], device=q.device)[None, None, None, :]
             < cl[:, None, None, None])
     short = torch.clamp((cl - 1) // FD.TILE * FD.TILE, min=1)
@@ -775,13 +796,12 @@ def _prefill_record(FA, ref, q, k, v, causal, window, flush) -> dict:
     Returns the kernel's record."""
     import torch
     import torch.nn.functional as F
-    B, H, S, D = q.shape
+    S, D = q.shape[2:]
     want = ref.ref_attention(q, k, v, causal=causal, window=window)
     got = FA.flash_attention(q, k, v, causal=causal, window=window)
     err = _close("flash_attention", got, want,
                  f"full width {tuple(q.shape)} window {window}")
     if window is None:
-        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
         sdpa = dict(is_causal=causal)
         # the planted fault: the last key tile skipped, which under causal
         # masking changes only the rows of the last tile's queries
@@ -792,13 +812,11 @@ def _prefill_record(FA, ref, q, k, v, causal, window, flush) -> dict:
         fault = (f" (the last {tile}-key tile skipped reads "
                  f"{_tol_ratio(faulty, want[:, :, last]):.3f})")
     else:
-        pairs = B * H * sum(min(i + 1, window) for i in range(S))
         pos = torch.arange(S, device=q.device)
         gap = pos[:, None] - pos[None, :]
         sdpa = dict(attn_mask=(gap >= 0) & (gap < window))
         fault = ""
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    bound, by = _attention_bound_ms(pairs, D, nbytes, q.dtype)
+    bound, by = _attention_bound_ms(q, k, causal, window)
     rec = dict(
         max_abs_err=err,
         ms=_time_graph_ms(lambda: FA.flash_attention(
@@ -939,16 +957,8 @@ def _wkv_bound_ms(r, s0, chunk: int = 32):
     TF32 products, at the TF32 rate; a decode step's the serial step's
     5 d^2 + 5 d float32 flops at the float32 rate."""
     B, S, H, D = r.shape
-    nbytes = (B * S * H * D * (3 * r.element_size() + 4 + r.element_size())
-              + 4 * H * D + 4 * B * H * D * D * (2 if s0 is not None else 1))
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    if S > 1:
-        t_ops = (3 * (4.0 * chunk * D + 4.0 * D * D) * B * S * H
-                 / PEAK_TF32_OPS_PER_S * 1e3)
-    else:
-        t_ops = (5.0 * D * D + 5.0 * D) * B * S * H / PEAK_F32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    return _bound_ms(kernel_costs.wkv6_cost(B, S, H, D, r.element_size(),
+                                            s0 is not None, chunk))
 
 
 def _wkv_serial_ops_ms(r) -> float:
@@ -956,7 +966,8 @@ def _wkv_serial_ops_ms(r) -> float:
     the float32 rate: the bound the WKV row carried before the chunked
     form, kept beside the new one."""
     B, S, H, D = r.shape
-    return (5.0 * D * D + 5.0 * D) * B * S * H / PEAK_F32_OPS_PER_S * 1e3
+    ops, _, rate = kernel_costs.wkv6_cost(B, S, H, D, r.element_size(), False)
+    return ops / PEAK_BY_RATE[rate] * 1e3
 
 
 def _wkv_record(WK, ref, r, k, v, logw, u, s0, flush) -> dict:
@@ -1110,6 +1121,7 @@ def _decode_step_device(cfg, params, caches, tok, flush) -> str:
         rows = min(int(e["pos"]) + 1, S_max)
         kv_bytes += 2 * B * rows * H_kv * D * e["k"].element_size()
     bound = (w_bytes + kv_bytes) / PEAK_BYTES_PER_S * 1e3
+    MEASURED[(cfg.name, "decode_graph_ms", tok.shape[0])] = ms
     return (f"decode step at batch {tok.shape[0]}: {ms:.3f} ms on the card "
             f"(one step as a CUDA graph, cold L2) against {bound:.3f} ms for "
             f"its {(w_bytes + kv_bytes) / 1e9:.2f} GB ({w_bytes / 1e9:.2f} of "
@@ -1667,6 +1679,21 @@ WHISPER = dict(batch=2, prompt=16, new=32)
 #: granite-3-2b step (full width, depth cut to 4 layers), D3's
 #: deepseek-moe-16b layer (a 2048-token prefill), D4's decode batches
 #: against a 2048-row cache
+#: the meshes phase R1's dry run counts ("single", "multi" or "both")
+R1_MESH = "single"
+#: relative tolerance of the a2a sharded step's cross-entropy against the
+#: dense unsharded step's: float32, sums in another order; bf16, the
+#: experts' products over other row counts (a capacity buffer against all
+#: tokens) rounding otherwise before the combine
+A2A_CE_RTOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-3}
+#: bound on the distance of each parameter's gradient in the a2a sharded
+#: step to the dense unsharded step's, relative to its norm: float32, sums
+#: in another order; bf16, two gradients that each lie up to 2.119e-02 of
+#: their norm from the float32 gradient (the largest such distance of
+#: granite-3-2b's full-width gradient check on the card, phase T) may lie
+#: twice that from each other.  A gradient of a MoE parameter left
+#: unsummed over a model axis of 4 ranks lies about 0.75 of its norm off.
+A2A_GRAD_RTOL = {"torch.float32": 1e-4, "torch.bfloat16": 5e-2}
 DIST = dict(arch="granite-3-2b", layers=4, batch=4, seq_len=1024,
             moe_arch="deepseek-moe-16b", moe_tokens=2048,
             decode=(1, 8), cache_rows=2048)
@@ -1782,13 +1809,8 @@ def _bwd_case_record(FA, ref, q, k, v, do, causal: bool, flush,
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     out, lse, _, err = _bwd_check(FA, ref, q, k, v, do, causal, what)
-    pairs = B * H * (Sq * (Sq + 1) // 2 if causal else Sq * Sk)
-    nbytes = (4 * q.numel() + 2 * (k.numel() + v.numel())) \
-        * q.element_size() + 4 * lse.numel()
-    rate = PEAK_BF16_OPS_PER_S if q.dtype == torch.bfloat16 else \
-        PEAK_F32_OPS_PER_S
-    t_ops = 10.0 * D * pairs / rate * 1e3
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound, by = _bound_ms(kernel_costs.flash_attention_bwd_cost(
+        B, H, k.shape[1], Sq, Sk, D, q.element_size(), causal))
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     return dict(
         max_abs_err=err,
@@ -1801,8 +1823,7 @@ def _bwd_case_record(FA, ref, q, k, v, do, causal: bool, flush,
             lambda *t: F.scaled_dot_product_attention(
                 *t, is_causal=causal, enable_gqa=H != k.shape[1]),
             leaves, do, flush, 10),
-        bound_ms=max(t_ops, t_bytes),
-        bound_by="bytes" if t_bytes >= t_ops else "operations")
+        bound_ms=bound, bound_by=by)
 
 
 def _bwd_record(FA, ref, dev, flush) -> dict:
@@ -1868,6 +1889,7 @@ def _device_breakdown(prof, wall_s: float) -> str:
         if kind == "other":
             other[name[:60]] += us / 1e3
     busy = sum(kinds.values())
+    MEASURED["train_device_ms"] = busy
     if busy == 0:
         return ("  traced step: the profiler recorded no device time "
                 "(not measured)")
@@ -1930,9 +1952,9 @@ def _train_phase(FA, ref, dev, bwd_ms: float) -> dict:
     t0 = time.perf_counter()
     trainer = new_trainer()
     torch.cuda.synchronize()
+    MEASURED["train_init_gib"] = torch.cuda.memory_allocated() / gib
     print(f"  init {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / gib:.2f} GiB allocated",
-          flush=True)
+          f"{MEASURED['train_init_gib']:.2f} GiB allocated", flush=True)
     # the main path's counts: set to 0 just before it runs
     FA.flash_attention.launches = 0
     FA.flash_attention_bwd.launches = 0
@@ -1974,6 +1996,8 @@ def _train_phase(FA, ref, dev, bwd_ms: float) -> dict:
     print(_device_breakdown(prof, times[-1]), flush=True)
     # the traced step is left out: the profiler slows the host
     steady = float(np.median(times[1:-1]))
+    MEASURED["train_step_ms"] = steady * 1e3
+    MEASURED["train_peak_gib"] = torch.cuda.max_memory_allocated() / gib
     print(f"train {cfg.name}: losses {[round(x, 4) for x in losses]} all "
           f"finite; exactly {cfg.n_layers} backward and {want_fwd} forward "
           f"attention launches a step; steady step {steady * 1e3:.1f} ms "
@@ -2283,10 +2307,7 @@ def _whisper_phase(FA, FD, ref, dev, flush) -> dict:
                      FA.flash_attention(q, k, v, causal=causal),
                      ref.ref_attention(q, k, v, causal=causal),
                      f"whisper {kind} {tuple(q.shape)} x {tuple(k.shape)}")
-        Bq, H, Sq, D = q.shape
-        pairs = Bq * H * (Sq * (Sq + 1) // 2 if causal else Sq * k.shape[2])
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        bound, by = _attention_bound_ms(pairs, D, nbytes, q.dtype)
+        bound, by = _attention_bound_ms(q, k, causal)
         shapes[kind] = dict(
             max_abs_err=err,
             ms=_time_graph_ms(lambda: FA.flash_attention(
@@ -2619,6 +2640,139 @@ def _dist_train(FA, dev, mesh, cfg, B: int, S: int, tag: str = ""
     return rec, launches, grads
 
 
+def _dist_a2a_train(dev, mesh, cfg, B: int, S: int, tag: str = "") -> dict:
+    """The sharded train step of the MoE model ``cfg`` with
+    ``moe_impl="a2a"`` on ``mesh`` (data, model) - the layer's rows split
+    over "model", its parameters' gradients summed there - against the
+    unsharded step with the dense MoE layer on the whole batch on each
+    rank, from the same weights.  The capacity factor is E / top_k, so
+    every expert could take every token and no choice drops, and both
+    steps run ``loss_fn`` with ``aux_coef`` 0: the a2a layer averages the
+    load-balance loss over the ranks' rows (the reference's estimator)
+    where the dense layer takes it over all tokens (both printed; on few
+    tokens a rank they differ by tens of percent), so with it in the loss
+    the router's gradients would differ by design.  The two steps then
+    differ only in the order of their sums, and the check holds the
+    gradient itself: AdamW's first moment after its first step is
+    ``(1 - beta1)`` times the clipped gradient, so each parameter's moment
+    on the a2a side, gathered whole, is within ``A2A_GRAD_RTOL`` of the
+    dense side's (relative to its norm), and the global ``grad_norm``
+    (before clipping) within ``A2A_GRAD_RTOL`` of the dense side's.  A gradient left unsummed
+    over "model", summed twice, or zero moves the first, or the second
+    where every parameter scales alike.  Also held: the cross-entropy
+    within ``A2A_CE_RTOL``, every parameter within two learning rates
+    (each side's first Adam step) plus each side's rounding to bf16,
+    every rank the same parameters, and exactly two
+    ``all_to_all_single`` a MoE layer call (forward, its remat recompute,
+    backward).  Prints the times; returns the numbers."""
+    import functools
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.runtime import collectives as C
+    from repro_torch.runtime.sharding import (ShardingPolicy,
+                                              distribute_model,
+                                              sharded_opt_state)
+    from repro_torch.runtime.steps import make_train_step
+
+    m = cfg.moe
+    a2a = dataclasses.replace(cfg, moe_impl="a2a", moe=dataclasses.replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    dense = dataclasses.replace(a2a, moe_impl="dense")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=0, total_steps=100)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B,
+                   seed=3)).global_batch(0).items()}
+    # the same weights: the two configs differ only in the MoE layer's
+    # formulation, which the draws do not depend on
+    plain = init_params(dense, 6, device=dev, trainable=True)
+    sharded = init_params(a2a, 6, device=dev)
+    policy = ShardingPolicy(a2a, mesh)
+    distribute_model(sharded, policy)
+    opt = sharded_opt_state(policy, sharded)
+    opt_plain = init_opt_state(plain)
+    no_aux = functools.partial(model_lib.loss_fn, aux_coef=0.0)
+
+    def run(fn, params, state):
+        _dist_sync(dev)
+        t0 = time.perf_counter()
+        with mock.patch.object(model_lib, "loss_fn", no_aux):
+            _, _, metrics = fn(params, state, batch)
+        _dist_sync(dev)
+        return metrics, (time.perf_counter() - t0) * 1e3
+
+    m_plain, plain_ms = run(make_train_step(dense, opt_cfg), plain,
+                            opt_plain)
+    C.reset_counts()
+    m_a2a, ms = run(make_train_step(a2a, opt_cfg, policy=policy), sharded,
+                    opt)
+    n_moe = sum(cfg.channel_kind(i) == "moe" for i in range(cfg.n_layers))
+    want = n_moe * (6 if cfg.remat else 4)
+    if C.CALLS["all_to_all_single"] != want:
+        raise AssertionError(f"a2a step: {C.CALLS['all_to_all_single']} "
+                             f"all_to_all_single, not {want}")
+    rtol = A2A_CE_RTOL[str(cfg.dtype())]
+    ce = (float(m_plain["ce"]), float(m_a2a["ce"]))
+    aux = (float(m_plain["aux"]), float(m_a2a["aux"]))
+    norm = (float(m_plain["grad_norm"]), float(m_a2a["grad_norm"]))
+    if abs(ce[0] - ce[1]) > rtol * abs(ce[0]):
+        raise AssertionError(f"a2a step against the dense one: ce {ce}")
+    named = dict(sharded.named_parameters())
+    worst, digest, grad_err = 0.0, [], {}
+    for n, p in plain.named_parameters():
+        got, want_p = named[n].full_tensor().float(), p.detach().float()
+        # each side's first Adam step is at most lr, and each side rounds
+        # its new value to the parameter's dtype (half a bf16 step: 2^-8
+        # of the value)
+        bound = 2 * opt_cfg.lr + (got.abs() + want_p.abs()) * 2.0 ** -8
+        worst = max(worst, float(((got - want_p).abs() / bound).max()))
+        digest.append(float(got.double().sum()))
+        g_a2a, g_dense = opt["m"][n].full_tensor(), opt_plain["m"][n]
+        grad_err[n] = float(torch.linalg.vector_norm(g_a2a - g_dense)
+                            / torch.linalg.vector_norm(g_dense).clamp(
+                                min=1e-30))
+    sums = [None] * dist.get_world_size()
+    dist.all_gather_object(sums, digest)
+    grad_tol = A2A_GRAD_RTOL[str(cfg.dtype())]
+    g_name = max(grad_err, key=grad_err.get)
+    moe_err = max(e for n, e in grad_err.items() if ".moe." in f".{n}")
+    _say(f"{tag}sharded train step of {cfg.name} ({cfg.n_layers} layers, "
+         f"{cfg.dtype()}, remat {cfg.remat}) with moe_impl='a2a' on "
+         f"{_mesh_str(mesh)}, batch {B} x {S}, capacity factor "
+         f"{m.n_experts / m.top_k:.2f} (drop-free), aux_coef 0: ce "
+         f"{ce[1]:.6f} (the dense layer unsharded {ce[0]:.6f}), grad_norm "
+         f"{norm[1]:.6f} ({norm[0]:.6f}), aux {aux[1]:.6f} ({aux[0]:.6f}, "
+         f"not in the loss); each parameter's gradient (AdamW's first "
+         f"moment) within {grad_err[g_name]:.3e} of the dense step's, "
+         f"relative to its norm ({g_name}; the MoE layers' parameters "
+         f"within {moe_err:.3e}; bound {grad_tol:g}); every parameter "
+         f"within {worst:.3f} of 2 lr + both sides' bf16 rounding; every "
+         f"rank the same parameters: {all(x == sums[0] for x in sums)}; "
+         f"{C.CALLS['all_to_all_single']} "
+         f"all_to_all_single ({n_moe} MoE layer(s)); {ms:.1f} ms (host "
+         f"clock; unsharded dense {plain_ms:.1f})")
+    if abs(norm[0] - norm[1]) > grad_tol * abs(norm[0]):
+        raise AssertionError(f"a2a step against the dense one: grad_norm "
+                             f"{norm}")
+    if grad_err[g_name] > grad_tol:
+        raise AssertionError(f"a2a step: the gradient of {g_name} "
+                             f"{grad_err[g_name]:.3e} off the dense step's")
+    if worst > 1.0:
+        raise AssertionError(f"a2a step: a parameter {worst:.3f} of its "
+                             f"bound off the dense step's")
+    if any(x != sums[0] for x in sums):
+        raise AssertionError("a2a step: the ranks hold different parameters")
+    return dict(ms=ms, plain_ms=plain_ms, ce=ce[1], ce_dense=ce[0],
+                grad_norm=norm[1], grad_norm_dense=norm[0], aux=aux[1],
+                aux_dense=aux[0], grad_err=grad_err[g_name],
+                grad_err_moe=moe_err, worst=worst)
+
+
 def _dist_grad_mean(mesh, tree: dict, dev, tag: str = "") -> dict:
     """``make_hierarchical_grad_mean`` on ``mesh`` (pod, data) over this
     rank's ``tree``: uncompressed within one rounding of the tree's dtype
@@ -2922,6 +3076,169 @@ def _distributed_phase(FA, FD, dev, train_records) -> dict:
             for name in ("flash_attention", "flash_attention_bwd")}
 
 
+#: phase R2: the dry run's cell function at sizes this run measured, on a
+#: (data=1, model=1) mesh: (what, arch, its shape, what it is held against)
+R2_CELLS = (
+    ("a", "granite-3-2b", dict(name="train_4x1024", seq_len=TRAIN["seq_len"],
+                               global_batch=TRAIN["batch"], kind="train"),
+     "T2's steady step"),
+    ("b", "granite-3-2b", dict(name="prefill_2048", seq_len=2048,
+                               global_batch=1, kind="prefill"),
+     "phase 7's 2048-token prefill"),
+    ("c", "deepseek-moe-16b", dict(name="decode_b1_2064", seq_len=2064,
+                                   global_batch=1, kind="decode"),
+     "phase 9a's batch-1 decode step as one CUDA graph"),
+)
+
+R2_BODY = """
+import json, sys
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import MeshShape
+one = MeshShape(("data", "model"), (1, 1))
+recs = [dryrun.run_cell(arch, shape["name"], "card", verbose=False,
+                        shape=ShapeSpec(**shape), mesh_shape=one)
+        for arch, shape in json.loads(sys.argv[1])]
+print(json.dumps(recs))
+"""
+
+
+def _child(args, what: str, timeout: int):
+    """``python args...`` from the checkout with ``src`` on the path; its
+    standard output (it must exit 0)."""
+    root = Path(__file__).resolve().parent
+    env = dict(__import__("os").environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run([sys.executable] + list(args), cwd=root, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return proc.stdout
+
+
+def _roofline_phase() -> dict:
+    """Phase R: the roofline on the card's constants, on the CPU in child
+    processes (a fake process group each; the card is not used).  R1 the
+    dry run of every cell; R2 the roofline of the steps this run measured,
+    beside what it measured; R3 the a2a probe.  Returns R2's numbers."""
+    import os
+    from repro_torch.configs import SHAPES, all_configs, get_config
+    from repro_torch.configs.shapes import SUBQUADRATIC_FAMILIES
+    from repro_torch.launch.dryrun import RESULTS_DIR
+    from repro_torch.roofline.analysis import (analyze_record, load_cells,
+                                               pick_hillclimb_cells)
+
+    # -- R1 ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    out = _child(["-m", "repro_torch.launch.dryrun", "--all", "--mesh",
+                  R1_MESH], "R1 the dry run", 900)
+    wall = time.perf_counter() - t0
+    meshes = ["single", "multi"] if R1_MESH == "both" else [R1_MESH]
+    counts = collections.Counter()
+    for mesh in meshes:
+        for arch in sorted(all_configs()):
+            cfg = get_config(arch)
+            for shape in SHAPES:
+                rec = json.loads((RESULTS_DIR / f"{arch}__{shape}__{mesh}"
+                                  f".json").read_text())
+                counts[rec["status"]] += 1
+                owed = {"rwkv6-7b": "A6", "recurrentgemma-2b": "A7"}
+                if shape == "long_500k" and \
+                        cfg.family not in SUBQUADRATIC_FAMILIES:
+                    want = "skipped"
+                elif shape == "train_4k" and arch in owed:
+                    want = "skipped"
+                    if owed[arch] not in rec.get("skip_reason", ""):
+                        raise AssertionError(f"R1 {arch} {shape} {mesh}: "
+                                             f"{rec.get('skip_reason')}")
+                else:
+                    want = "ok"
+                if rec["status"] != want:
+                    raise AssertionError(
+                        f"R1 {arch} x {shape} x {mesh}: {rec['status']}, "
+                        f"not {want}: {rec.get('error', '')[:300]}")
+    cells = load_cells(str(RESULTS_DIR))
+    picks = pick_hillclimb_cells(cells)
+    print(f"R1 dry run (python -m repro_torch.launch.dryrun --all --mesh "
+          f"{R1_MESH}, fake process groups on the CPU's {os.cpu_count()} "
+          f"cores): "
+          f"{sum(counts.values())} records, {counts['ok']} ok, "
+          f"{counts['skipped']} skipped (long_500k of the attention "
+          f"configs; rwkv6-7b's and recurrentgemma-2b's train_4k, A6 / "
+          f"A7), {counts['error']} errors, in {wall:.1f} s; "
+          f"{out.strip().splitlines()[-1]}", flush=True)
+    for key, c in picks.items():
+        print(f"R1 pick {key}: {c.arch} x {c.shape} x {c.mesh} "
+              f"({c.dominant}-bound, T {c.step_s:.3e} s, MFU_est "
+              f"{c.mfu_est:.4f}, compute {c.compute_s:.3e} / memory "
+              f"{c.memory_s:.3e} / collective {c.collective_s:.3e} s)",
+              flush=True)
+
+    # -- R2 ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    recs = json.loads(_child(
+        ["-c", R2_BODY, json.dumps([(arch, shape) for _, arch, shape, _
+                                    in R2_CELLS])],
+        "R2 the dry run's cells", 600).strip().splitlines()[-1])
+    measured = {
+        "a": (MEASURED["train_step_ms"], MEASURED.get("train_device_ms")),
+        "b": (MEASURED[("granite-3-2b", "prefill_ms")][2048], None),
+        "c": (MEASURED[("deepseek-moe-16b", "decode_graph_ms", 1)], None)}
+    numbers, gib = {}, 2.0 ** 30
+    for (key, arch, shape, against), rec in zip(R2_CELLS, recs):
+        if rec["status"] != "ok":
+            raise AssertionError(f"R2 ({key}) {arch} {shape['name']}: "
+                                 f"{rec['status']} {rec.get('error', '')}")
+        c = analyze_record(rec)
+        ms, device_ms = measured[key]
+        pred = c.step_s * 1e3
+        line = (f"R2 ({key}) {arch} {shape['name']} (full depth, mesh 1 x 1)"
+                f": predicted T {pred:.3f} ms ({c.dominant}-bound: compute "
+                f"{c.compute_s * 1e3:.3f}, memory {c.memory_s * 1e3:.3f}, "
+                f"collective {c.collective_s * 1e3:.3f}, weight stream "
+                f"{c.weight_stream_s * 1e3:.3f} ms; "
+                f"{rec['cost_analysis']['flops'] / 1e12:.2f} TFLOP, "
+                f"usefulness {c.usefulness:.3f}); measured {against} "
+                f"{ms:.3f} ms = {ms / pred:.2f}x T")
+        if device_ms:
+            line += (f", its traced device time {device_ms:.3f} ms = "
+                     f"{device_ms / pred:.2f}x T")
+        if key == "a":
+            ma = rec["memory_analysis"]
+            peak, temp = (ma["peak_memory_in_bytes"] / gib,
+                          ma["temp_size_in_bytes"] / gib)
+            got, init = MEASURED["train_peak_gib"], MEASURED["train_init_gib"]
+            line += (f"; the dry run's peak {peak:.3f} GiB "
+                     f"({ma['argument_size_in_bytes'] / gib:.3f} of "
+                     f"arguments, {temp:.3f} above what the step began "
+                     f"with) against T2's measured peak {got:.3f} GiB "
+                     f"({init:.3f} allocated at init, {got - init:.3f} above "
+                     f"it)")
+            numbers[key + "_memory"] = dict(
+                dryrun_peak_gib=peak, dryrun_temp_gib=temp,
+                measured_peak_gib=got, measured_init_gib=init)
+        if key == "c":
+            line += (f"; the memory term is {c.memory_s * 1e3 / ms:.3f} of "
+                     f"the measured step (the memory rate's share reached)")
+        print(line, flush=True)
+        numbers[key] = dict(predicted_ms=pred, measured_ms=ms,
+                            device_ms=device_ms, dominant=c.dominant,
+                            compute_ms=c.compute_s * 1e3,
+                            memory_ms=c.memory_s * 1e3,
+                            weight_stream_ms=c.weight_stream_s * 1e3)
+    print(f"R2: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # -- R3 ----------------------------------------------------------------
+    t0 = time.perf_counter()
+    out = _child(["-m", "repro_torch.launch.moe_a2a_probe"],
+                 "R3 the a2a probe", 600)
+    for line in out.strip().splitlines():
+        if line.strip():
+            print(f"R3 {line.strip()}", flush=True)
+    print(f"R3: {time.perf_counter() - t0:.1f} s", flush=True)
+    return numbers
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -3151,6 +3468,8 @@ def main() -> int:
     distributed = _distributed_phase(
         FA, FD, dev, dict(flash_attention=train_fa_rec,
                           flash_attention_bwd=bwd_rec))
+    # -- R. the roofline on the card's constants -----------------------------
+    _roofline_phase()
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
           f" s", flush=True)
 

@@ -25,7 +25,12 @@ runs them on (2, 2) meshes, so the exchanges cross cards.  Rank r runs on
   tokens a rank), against the dense layer and the kept choices' sum;
 * D. ``_dist_train``: one ZeRO-1 sharded train step of granite-3-2b (4
   layers, batch 4 x 1024) over (data=2, model=2) against the unsharded
-  step on the whole batch on each rank, with each step's peak memory.
+  step on the whole batch on each rank, with each step's peak memory;
+* E. ``_dist_a2a_train``: the sharded train step of deepseek-moe-16b cut
+  to 2 layers (reduced: depth; a dense layer, then a MoE layer of 64
+  experts) with ``moe_impl="a2a"`` over (data=1, model=4), batch 4 x
+  2048, against the unsharded step with the dense MoE layer (drop-free
+  capacity).
 
 Rank 0 prints one line a check and a JSON object of every number last;
 any failed check exits non-zero.
@@ -96,6 +101,13 @@ def _worker(rank: int, store: str, device_type: str) -> None:
                                      2048 if cuda else 8, tag="C ")
         out["train"], _, _ = smoke._dist_train(
             FA, dev, mesh, granite, 4, 1024 if cuda else 16, tag="D ")
+        a2a_mesh = init_device_mesh(dev.type, (1, 4),
+                                    mesh_dim_names=("data", "model"))
+        moe_cfg = (dataclasses.replace(deepseek, n_layers=2) if cuda
+                   else deepseek)
+        out["a2a_train"] = smoke._dist_a2a_train(
+            dev, a2a_mesh, moe_cfg, 4, 2048 if cuda else 8,
+            tag="E (reduced: depth 28 -> 2 layers) " if cuda else "E ")
         smoke._say(f"every check passed on {WORLD} ranks in "
                    f"{time.perf_counter() - t0:.1f} s")
         smoke._say(json.dumps(out, default=str))

@@ -70,8 +70,9 @@ class ModelConfig:
     # outputs (skips refwd matmuls AND their all-reduces at ~activation
     # memory cost - Megatron-style selective recompute)
     remat_policy: str = "full"
-    # dry-run only: fully unroll lax.scans so XLA cost analysis counts every
-    # iteration (while bodies are otherwise counted once)
+    # kept only for parity with the reference's configs, where it unrolls
+    # the layer scans for XLA's cost analysis: the port runs its layers as
+    # a Python loop, and its dry run counts every layer eagerly
     unroll: bool = False
     # KV-cache storage dtype ("" -> param_dtype).  "int8" is the
     # bandwidth-study variant (production int8-KV adds per-head scale

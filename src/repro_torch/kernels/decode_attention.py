@@ -30,7 +30,9 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from ..roofline import kernel_costs
 from ._build import build_library
 from .flash_attention import aligned_rows
 from .ref import ref_decode
@@ -177,8 +179,17 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128,
     256; a group of at most 16 query heads in bfloat16, group x head dim
     at most 2560 in float32); CPU tensors run the plain version.  Any
-    other device raises."""
+    other device raises.  Fake tensors (the dry run) return a fake output
+    and add the kernel's operations and bytes to
+    ``roofline.kernel_costs.COUNTS``, counting every cached row (the
+    lengths are not known there)."""
     _check(q, k_cache, v_cache, cache_len)
+    if is_fake(q):
+        B, H, D = q.shape
+        kernel_costs.record("flash_decode", kernel_costs.flash_decode_cost(
+            B, H, k_cache.shape[1], D, B * k_cache.shape[2],
+            q.element_size()))
+        return torch.empty((B, H, D), dtype=q.dtype, device=q.device)
     if q.device.type == "cpu":
         return ref_decode(q, k_cache, v_cache, cache_len)
     if q.device.type != "cuda":

@@ -45,7 +45,9 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from ..roofline import kernel_costs
 from ._build import build_library
 from .ref import ref_attention
 
@@ -164,11 +166,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, H, S, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the kernel's {HEAD_DIMS}")
-    q, k, v = (aligned_rows(t) for t in (q, k, v))
+    fake = is_fake(q)
+    if not fake:
+        q, k, v = (aligned_rows(t) for t in (q, k, v))
     out = torch.empty((B, S, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
            if with_lse else None)
+    if fake:  # counted, not launched (the dry run)
+        kernel_costs.record("flash_attention", kernel_costs.
+                            flash_attention_cost(
+                                B, H, k.shape[1], S, k.shape[2], D,
+                                q.element_size(), causal, window))
+        return out, lse
     if out.numel() == 0:
         return out, lse
     build()
@@ -400,12 +410,20 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool,
     if D not in BWD_HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the backward kernel's "
                          f"{BWD_HEAD_DIMS}")
-    # the tensor-core paths copy rows in 16-byte pieces
-    q, k, v, dout, out = (aligned_rows(t) for t in (q, k, v, dout, out))
+    fake = is_fake(q)
+    if not fake:
+        # the tensor-core paths copy rows in 16-byte pieces
+        q, k, v, dout, out = (aligned_rows(t) for t in (q, k, v, dout, out))
     dq = torch.empty((B, S, H, D), dtype=q.dtype,
                      device=q.device).transpose(1, 2)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if fake:  # counted, not launched (the dry run)
+        kernel_costs.record("flash_attention_bwd", kernel_costs.
+                            flash_attention_bwd_cost(
+                                B, H, k.shape[1], S, k.shape[2], D,
+                                q.element_size(), causal, window))
+        return dq, dk, dv
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     build_bwd()
@@ -442,14 +460,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and the output's cotangent ``dout`` (q's shape and dtype).  CUDA
     tensors run the hand-written kernel (head dims 64, 128, 256); CPU
     tensors autograd through the plain version (``out`` and ``lse`` are
-    not read there)."""
+    not read there); fake tensors are counted (:func:`flash_attention`)."""
     _check(q, k, v, causal, window)
-    if q.device.type == "cpu":
+    fake = is_fake(q)
+    if q.device.type == "cpu" and not fake:
         with torch.enable_grad():
             qkv = [t.detach().requires_grad_() for t in (q, k, v)]
             o = ref_attention(*qkv, causal=causal, window=window)
             return torch.autograd.grad(o, qkv, dout)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu, not "
                          f"{q.device}")
     return _launch_bwd(q, k, v, out, lse, dout, causal, window)
@@ -490,11 +509,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CUDA tensors run the hand-written kernel (head dims 16, 32, 64, 128,
     256), differentiable through :class:`FlashAttention` where an input
     requires grad; CPU tensors run the plain version, which autograd
-    differentiates.  Any other device raises."""
+    differentiates.  Any other device raises.
+
+    Fake tensors (``torch._subclasses.fake_tensor``, on any device) stand
+    for the card's tensors in the dry run: the call returns fake outputs
+    of the kernel's shapes, adds the kernel's operations and bytes to
+    ``roofline.kernel_costs.COUNTS`` (the backward's too, through
+    :class:`FlashAttention`), and never runs the plain version, which
+    would hold the whole S x S score matrix the kernel never holds."""
     _check(q, k, v, causal, window)
-    if q.device.type == "cpu":
+    fake = is_fake(q)
+    if q.device.type == "cpu" and not fake:
         return ref_attention(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not fake:
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

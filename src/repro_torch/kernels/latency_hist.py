@@ -28,7 +28,9 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from ..roofline import kernel_costs
 from ._build import build_library
 from .ref import ref_latency_hist
 
@@ -128,8 +130,18 @@ def latency_hist(samples: torch.Tensor, valid: torch.Tensor,
     samples clamped to the end bins.
 
     CUDA tensors run the hand-written kernel; CPU tensors run the plain
-    version.  Any other device raises."""
+    version.  Any other device raises.  Fake tensors (the dry run) return
+    fake counts and add the kernel's operations and bytes to
+    ``roofline.kernel_costs.COUNTS``, every sample counted as valid (the
+    mask is not known there)."""
     _check(samples, valid, edges)
+    if is_fake(samples):
+        lanes, n = samples.shape
+        bins = edges.shape[1] - 1
+        kernel_costs.record("latency_hist", kernel_costs.latency_hist_cost(
+            lanes, n, bins, lanes * n, valid.element_size()))
+        return torch.empty((lanes, bins), dtype=torch.int32,
+                           device=samples.device)
     if samples.device.type == "cpu":
         return ref_latency_hist(samples, valid, edges)
     if samples.device.type != "cuda":

@@ -27,8 +27,10 @@ import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-from ._build import build_library
+from ..roofline import kernel_costs
+from ._build import NoBackwardKernel, build_library
 from .ref import ref_rglru
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -174,19 +176,28 @@ def rglru_scan(x: torch.Tensor, a: torch.Tensor,
 
     CUDA tensors run the hand-written kernel; CPU tensors run the plain
     version, which autograd differentiates.  The kernel has no backward
-    yet: a CUDA input that requires grad raises ``NotImplementedError``.
-    Any other device raises."""
+    yet: a CUDA input that requires grad raises ``NoBackwardKernel`` (a
+    ``NotImplementedError``).
+    Any other device raises.  Fake tensors (the dry run) stand for CUDA
+    ones: they raise as those do, else return a fake output and add the
+    kernel's operations and bytes to ``roofline.kernel_costs.COUNTS``."""
     _check(x, a, h0)
-    if x.device.type == "cpu":
+    fake = is_fake(x)
+    if x.device.type == "cpu" and not fake:
         return ref_rglru(x, a, h0)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not fake:
         raise ValueError(f"rglru_scan runs on cuda or cpu, not {x.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, a, h0)):
-        raise NotImplementedError(
+        raise NoBackwardKernel(
             "rglru_scan has no backward kernel yet: training "
             "recurrentgemma on the card waits for ROADMAP.md queue 2, item "
             "A7 (train on the CPU meanwhile)")
+    if fake:  # counted, not launched (the dry run)
+        kernel_costs.record("rglru_scan", kernel_costs.rglru_scan_cost(
+            x.numel(), x.element_size(),
+            0 if h0 is None else h0.numel() * h0.element_size()))
+        return torch.empty(x.shape, dtype=x.dtype, device=x.device)
     return _launch(x, a, h0)
 
 

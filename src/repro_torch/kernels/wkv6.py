@@ -28,8 +28,10 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
-from ._build import build_library
+from ..roofline import kernel_costs
+from ._build import NoBackwardKernel, build_library
 from .flash_attention import aligned_rows
 from .ref import ref_wkv6
 
@@ -150,20 +152,32 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     CUDA tensors run the hand-written kernel; CPU tensors run the plain
     version, which autograd differentiates.  The kernel has no backward
-    yet: a CUDA input that requires grad raises ``NotImplementedError``.
-    Any other device raises."""
+    yet: a CUDA input that requires grad raises ``NoBackwardKernel`` (a
+    ``NotImplementedError``).
+    Any other device raises.  Fake tensors (the dry run) stand for CUDA
+    ones: they raise as those do, else return fake outputs and add the
+    kernel's operations (the serial recurrence's) and bytes to
+    ``roofline.kernel_costs.COUNTS``."""
     _check(r, k, v, logw, u, s0)
-    if r.device.type == "cpu":
+    fake = is_fake(r)
+    if r.device.type == "cpu" and not fake:
         return ref_wkv6(r, k, v, logw, u, s0)
-    if r.device.type != "cuda":
+    if r.device.type != "cuda" and not fake:
         raise ValueError(f"wkv6 runs on cuda or cpu, not {r.device}")
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (r, k, v, logw, u, s0)):
-        raise NotImplementedError(
+        raise NoBackwardKernel(
             "wkv6 has no backward kernel yet: training rwkv6 on the card "
             "waits for ROADMAP.md queue 2, item A6 (train on the CPU "
             "meanwhile)")
+    if fake:  # counted, not launched (the dry run)
+        B, S, H, D = r.shape
+        kernel_costs.record("wkv6", kernel_costs.wkv6_cost(
+            B, S, H, D, r.element_size(), s0 is not None))
+        return (torch.empty((B, S, H, D), dtype=r.dtype, device=r.device),
+                torch.empty((B, H, D, D), dtype=torch.float32,
+                            device=r.device))
     return _launch(r, k, v, logw, u, s0)
 
 

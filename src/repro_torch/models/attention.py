@@ -14,6 +14,14 @@ step writes its key and value into row ``pos`` of the cache it is given,
 or, for a windowed (local-attention) cache, into row ``pos % S_max`` of
 its ring buffer.  ``pos`` is a 0-d int32 tensor on the cache's device, so
 a step never waits on the device for it.
+
+A cache the sharded serve step split along its sequence over a mesh axis
+comes as a ``DTensor`` (``Shard(1)`` over a one-dim mesh) whose local
+tensor is this rank's block of rows (:func:`_sequence_block`): a step
+writes its key and value only on the rank that owns the row (a masked
+write, no host read), and the attention over it is the distributed
+split-KV decode (``runtime.collectives.make_distributed_flash_decode``):
+each rank's partial over its rows, merged across the axis.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import torch
 
 from ..kernels import ops
 from .layers import apply_mrope, apply_rope
+
 
 def qkv_project(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                 n_heads: int, n_kv_heads: int, d_head: int
@@ -62,12 +71,34 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2)
 
 
+def _sequence_block(cache: torch.Tensor):
+    """(this rank's block of rows, its index along the split, the one-dim
+    mesh the sequence is split over) of a cache (B, S, H_kv, d) handed
+    over as a ``DTensor`` with ``Shard(1)``; (the cache, 0, None) for a
+    whole one."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(cache, DTensor):
+        return cache, 0, None
+    mesh = cache.device_mesh
+    return cache.to_local(), mesh.get_local_rank(), mesh
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: torch.Tensor
                      ) -> torch.Tensor:
     """q: (B, 1, H, d); caches: (B, S_max, H_kv, d); cache_len: (B,) int32
-    on the caches' device.  Returns (B, 1, H, d)."""
+    on the caches' device.  Returns (B, 1, H, d).  A sequence-split cache
+    runs the distributed split-KV decode (``cache_len`` counts rows of the
+    whole cache)."""
     B, _, H, D = q.shape
+    k_block, _, mesh = _sequence_block(k_cache)
+    if mesh is not None:
+        from ..runtime.collectives import make_distributed_flash_decode
+        fn = make_distributed_flash_decode(
+            mesh, seq_axis=mesh.mesh_dim_names[0], batch_axes=())
+        out = fn(q.reshape(B, H, D), k_block,
+                 _sequence_block(v_cache)[0], cache_len)
+        return out.to(q.dtype).reshape(B, 1, H, D)
     out = ops.flash_decode(q.reshape(B, H, D), k_cache.transpose(1, 2),
                            v_cache.transpose(1, 2), cache_len)
     return out.reshape(B, 1, H, D)
@@ -101,8 +132,20 @@ def decode_attention_block(params: Mapping[str, torch.Tensor],
         # past the end the reference's dynamic_update_slice clamps to the
         # last row; clamping here keeps that and never indexes out of bounds
         slot = torch.clamp(pos, max=S_max - 1).reshape(1).long()
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    k, v = k.to(k_cache.dtype), v.to(v_cache.dtype)
+    k_block, rank, mesh = _sequence_block(k_cache)
+    v_block = _sequence_block(v_cache)[0]
+    if mesh is not None:
+        # the row is this rank's only inside its block; elsewhere the
+        # write puts back what the clamped row held
+        rows = k_block.shape[1]
+        slot = slot - rank * rows
+        own = (slot >= 0) & (slot < rows)
+        slot = torch.clamp(slot, 0, rows - 1)
+        k = torch.where(own, k, k_block.index_select(1, slot))
+        v = torch.where(own, v, v_block.index_select(1, slot))
+    k_block.index_copy_(1, slot, k)
+    v_block.index_copy_(1, slot, v)
     cache_len = torch.clamp(pos + 1, max=S_max).to(torch.int32).expand(B)
     out = decode_attention(q, k_cache, v_cache, cache_len.contiguous())
     new_cache = {"k": k_cache, "v": v_cache, "pos": pos + 1}

@@ -27,8 +27,11 @@ count's share, vs the gather formulation's E-fold token replication.
 Every exchange is differentiable.  Under the gather-at-use train step
 (``runtime/steps.py``) the router's, the shared experts' and the experts'
 gradients come out partial over the model axis (each rank's from its own
-tokens, or for its own experts); that step does not sum them, and raises
-for ``moe_impl="a2a"`` on a model axis of more than one rank.
+tokens, or for its own experts; the other ranks hold zeros for those
+experts): that step gives the layer's parameters ``Partial`` gradient
+placements over "model", so its backward sums them there (a
+reduce-scatter into the experts' shards, an all-reduce for the router and
+the shared experts).
 
 Numerics match ``models.moe.apply_moe_dense`` when capacity is sufficient
 (drop-free), and ``kept`` / ``slot`` equal the reference's
@@ -122,11 +125,24 @@ class _SliceRows(torch.autograd.Function):
 
 def _local_experts(experts: Mapping, rank: int, e_loc: int) -> dict:
     """This rank's experts: rows [rank * e_loc, (rank + 1) * e_loc) of each
-    whole (E, ...) leaf."""
+    whole (E, ...) leaf.  A ``DTensor`` leaf split over the experts (dim
+    0) is this rank's block already: its local tensor, with no gather,
+    whose gradient is the block's, summed over the mesh's other dims."""
     if isinstance(experts, torch.nn.Module):
         experts = dict(experts.named_parameters(recurse=False))
-    return {name: w.narrow(0, rank * e_loc, e_loc)
-            for name, w in experts.items()}
+    out = {}
+    for name, w in experts.items():
+        if hasattr(w, "to_local"):
+            from torch.distributed.tensor import Partial
+            local = w.to_local(grad_placements=[
+                p if p.is_shard() else Partial() for p in w.placements])
+            if local.shape[0] != e_loc:
+                raise ValueError(f"experts {name}: a block of "
+                                 f"{local.shape[0]} rows, not {e_loc}")
+            out[name] = local
+        else:
+            out[name] = w.narrow(0, rank * e_loc, e_loc)
+    return out
 
 
 def make_moe_a2a(mesh, cfg: MoEConfig, mlp_kind: str, d_model: int,
@@ -138,7 +154,9 @@ def make_moe_a2a(mesh, cfg: MoEConfig, mlp_kind: str, d_model: int,
     shard of the batch, whole along ``axis``, with B divisible by |axis|.
     out: (B, S, d), whole along ``axis``; aux: the load-balance loss of
     the rank's tokens averaged over ``dp_axis`` and ``axis`` (None without
-    ``need_aux``)."""
+    ``need_aux``).  An expert weight may also be a ``DTensor`` split over
+    the experts on ``axis``: each rank then runs its block as it holds it
+    (:func:`_local_experts`)."""
     names = list(mesh.mesh_dim_names)
     M = mesh.size(names.index(axis))
     if cfg.n_experts % M:

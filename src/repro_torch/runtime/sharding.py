@@ -77,6 +77,10 @@ def _named(params) -> Dict[str, torch.Tensor]:
     return dict(params)
 
 
+#: the K/V cache leaves of a cache tree, by their path
+_KV_LEAF = re.compile(r"(?:^|/)(k|v|cross_k|cross_v)$")
+
+
 class ShardingPolicy:
     """Computes specs for params/batches/caches on a given mesh (a
     ``launch.mesh.MeshShape`` or a named ``DeviceMesh``)."""
@@ -271,8 +275,7 @@ class ShardingPolicy:
 
         def assign(path: str, leaf) -> Spec:
             shape = tuple(leaf.shape)
-            if (re.search(r"(?:^|/)(k|v|cross_k|cross_v)$", path)
-                    and len(shape) == 4):
+            if _KV_LEAF.search(path) and len(shape) == 4:
                 seq_ok = self.seq_shard_cache and _divisible(shape[1], M)
                 return (dp_for(shape[0]), "model" if seq_ok else None,
                         None, None)
@@ -304,6 +307,15 @@ class ShardingPolicy:
             return assign(path, tree)
 
         return walk(caches, "")
+
+    def splits_sequence(self, path: str, leaf) -> bool:
+        """Whether :meth:`cache_shardings` splits the cache leaf at
+        ``path`` (a K/V cache (B, S, H_kv, d)) along its sequence over a
+        "model" axis of more than one rank (on one rank it stays whole:
+        the decode kernel reads it)."""
+        return (self.model_size > 1 and self.seq_shard_cache
+                and bool(_KV_LEAF.search(path)) and len(leaf.shape) == 4
+                and _divisible(leaf.shape[1], self.model_size))
 
     def logits_spec(self) -> Spec:
         v_ok = _divisible(self.cfg.vocab_size, self.model_size)
@@ -392,3 +404,23 @@ def sharded_opt_state(policy: ShardingPolicy, params) -> Dict[str, Any]:
     return {"m": moments(), "v": moments(),
             "step": torch.zeros((), dtype=torch.int32,
                                 device=mesh.device_type)}
+
+
+def sharded_caches(policy: ShardingPolicy, caches) -> Any:
+    """Zero caches of the shapes and dtypes of ``caches`` (a cache tree as
+    ``models.init_cache`` gives it; meta tensors will do,
+    ``models.cache_specs``) as ``DTensor``s laid out by
+    ``policy.cache_shardings``: each rank allocates only its block.  What
+    the sharded serve step (``runtime/steps.py``) takes."""
+    from torch.distributed.tensor import zeros
+    mesh = policy.mesh
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, s) for v, s in zip(tree, spec)]
+        return zeros(tuple(tree.shape), dtype=tree.dtype, device_mesh=mesh,
+                     placements=placements(spec, mesh))
+
+    return walk(caches, policy.cache_shardings(caches))

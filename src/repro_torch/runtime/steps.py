@@ -5,8 +5,12 @@ The reference's steps close over the static ModelConfig and are jitted;
 here they run eagerly.  The train step differentiates ``loss_fn`` with
 autograd - on the card through the hand-written attention backward - and
 applies AdamW in place.  The prefill and serve steps run under
-``torch.inference_mode()``.  The spec functions give tensors on
-``torch.device("meta")``: shapes and dtypes, nothing allocated.
+``torch.inference_mode()``.  Given a ``ShardingPolicy`` on a
+``DeviceMesh``, each step runs on every rank over parameters laid out by
+it, gathered at use (the reference gets these programs from XLA's
+partitioner, ``jax.jit`` with ``in_shardings``; the port writes them
+out).  The spec functions give tensors on ``torch.device("meta")``:
+shapes and dtypes, nothing allocated.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from ..configs.base import ModelConfig
 from ..configs.shapes import ShapeSpec
 from ..models import model as model_lib
 from ..models.convert import decay_mask
+from ..models.moe import MoE
 from ..optim.adamw import AdamWConfig, adamw_update, init_opt_state
 
 _META = torch.device("meta")
@@ -72,46 +77,74 @@ def _gather_units(model: torch.nn.Module):
 
 
 @contextlib.contextmanager
-def _gathered_at_use(model: torch.nn.Module, grad_placements):
+def _gathered_at_use(model: torch.nn.Module, grad_placements=None):
     """Inside the block, each unit of :func:`_gather_units` replaces its
-    ``DTensor`` parameters by their ``full_tensor()`` when it is called
-    and puts them back when it returns, so a layer's whole weights live
+    ``DTensor`` parameters by their ``full_tensor()`` for the length of
+    each call of its ``forward`` or ``decode`` (the entries the steps go
+    through) and puts them back after it, so a layer's whole weights live
     only while it runs (and while a remat layer is recomputed in the
-    backward, which gathers them again).  ``grad_placements``: the
-    placements of the gradient of a whole copy, which the backward turns
-    into the parameter's own layout (``Partial`` over a mesh dim: summed
-    there)."""
-    stacks, handles = {}, []
-
-    def gather(names):
-        def hook(module, args):
+    backward, which calls it again).  ``grad_placements``: {id of a
+    parameter: the placements of the gradient of its whole copy}, which
+    the backward turns into the parameter's own layout (``Partial`` over
+    a mesh dim: summed there); None where no gradient is taken."""
+    def gathering(module, names, entry):
+        def call(*args, **kwargs):
             slots = []
-            for name in names:
-                owner, _, leaf = name.rpartition(".")
-                sub = module.get_submodule(owner)
-                p = sub._parameters[leaf]
-                slots.append((sub, leaf, p))
-                sub._parameters[leaf] = p.full_tensor(
-                    grad_placements=grad_placements)
-            stacks.setdefault(id(module), []).append(slots)
-        return hook
+            try:
+                for name in names:
+                    owner, _, leaf = name.rpartition(".")
+                    sub = module.get_submodule(owner)
+                    p = sub._parameters[leaf]
+                    slots.append((sub, leaf, p))
+                    sub._parameters[leaf] = p.full_tensor(
+                        grad_placements=None if grad_placements is None
+                        else grad_placements[id(p)])
+                return entry(*args, **kwargs)
+            finally:
+                for sub, leaf, p in slots:
+                    sub._parameters[leaf] = p
+        return call
 
-    def restore(module, args, out):
-        for sub, leaf, p in stacks[id(module)].pop():
-            sub._parameters[leaf] = p
-
+    wrapped = []
     for module, names in _gather_units(model):
-        handles.append(module.register_forward_pre_hook(gather(names)))
-        handles.append(module.register_forward_hook(restore))
+        for entry in ("forward", "decode"):
+            if hasattr(module, entry):
+                setattr(module, entry,
+                        gathering(module, names, getattr(module, entry)))
+                wrapped.append((module, entry))
     try:
         yield model
     finally:
-        for h in handles:
-            h.remove()
-        for left in stacks.values():  # a forward that raised
-            for slots in left:
-                for sub, leaf, p in slots:
-                    sub._parameters[leaf] = p
+        for module, entry in wrapped:
+            delattr(module, entry)  # the class's method again
+
+
+def _a2a_over_model(cfg: ModelConfig, policy) -> bool:
+    """Whether the model's MoE layers run the all-to-all layer over a
+    model axis of more than one rank.  That layer splits the rows it is
+    given over the model axis itself, so it takes a batch split over the
+    data axes only: with a lever that splits the batch over "model" too
+    (``dp_only``, ``fsdp``) it raises."""
+    if cfg.moe is None or cfg.moe_impl != "a2a" or policy.model_size == 1:
+        return False
+    if "model" in policy.dp_axes:
+        raise NotImplementedError(
+            "moe_impl='a2a' splits its rows over the model axis itself and "
+            "does not take a batch split there (dp_only, fsdp)")
+    return True
+
+
+def _local_rows(policy, batch: Dict[str, torch.Tensor]):
+    """(this rank's rows of each batch entry, the mesh axes the batch is
+    split over): whole sequences (``seq_dp``'s split of the sequence is
+    the reference's layout for XLA to gather across, and is not taken
+    here: the ranks it would split hold the same rows)."""
+    from .sharding import _axes, local_chunk
+    b_specs = {k: spec[:1] for k, spec in
+               policy.batch_shardings(batch).items()}
+    local = {k: local_chunk(v, b_specs[k], policy.mesh)
+             for k, v in batch.items()}
+    return local, _axes(b_specs["tokens"][0])
 
 
 def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, policy):
@@ -133,26 +166,32 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, policy):
     compute the same gradient), so the backward reduces it into the
     parameter's layout as each layer's completes: a reduce-scatter where
     the parameter is sharded over a batch dim, an all-reduce where it is
-    replicated there, a local slice elsewhere.  The sum is divided by the
-    batch's ranks.  AdamW then updates each rank's blocks in the moments'
-    layout (ZeRO-1: a block of the data axis too), from the whole
-    gradient's global norm, and the new blocks go back to the parameters'
-    layout (an all-gather over "data" under ZeRO-1).  The gradients land
-    on the parameters, which require grad through the step only, and are
-    dropped after it."""
+    replicated there, a local slice elsewhere.  With ``moe_impl="a2a"``
+    over a model axis of more than one rank the MoE layers' parameters
+    are ``Partial`` over "model" too: the layer splits its rows over that
+    axis (``runtime/moe_a2a.py``), so each rank's router and shared
+    experts see only its rows, and its experts only the tokens routed to
+    them (the other ranks hold zeros for them), and the backward sums
+    them there - a reduce-scatter into the experts' shards, an all-reduce
+    for the replicated router and shared experts.  The sum is divided by
+    the batch's ranks (the a2a layer's split of the rows is a split of
+    the work, not of the batch).  AdamW then updates each rank's blocks
+    in the moments' layout (ZeRO-1: a block of the data axis too), from
+    the whole gradient's global norm, and the new blocks go back to the
+    parameters' layout (an all-gather over "data" under ZeRO-1).  The
+    gradients land on the parameters, which require grad through the
+    step only, and are dropped after it.  The metrics are averaged over
+    the batch's ranks (the a2a layer's load-balance loss is already its
+    mean over the data and model ranks, as the reference's)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
-    from torch.utils.checkpoint import set_checkpoint_early_stop
 
     from .collectives import mean_over
-    from .sharding import _axes, local_chunk, placements
+    from .mesh_context import use_mesh
+    from .sharding import placements
 
     mesh = policy.mesh
     names = list(mesh.mesh_dim_names)
-    if cfg.moe is not None and cfg.moe_impl == "a2a" \
-            and policy.model_size > 1:
-        raise NotImplementedError(
-            "the sharded train step does not sum the a2a MoE layer's "
-            "gradients over the model axis")
+    a2a = _a2a_over_model(cfg, policy)
 
     def train_step(params, opt_state, batch):
         named = dict(params.named_parameters())
@@ -160,23 +199,18 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, policy):
         for p in named.values():
             p.requires_grad_(True)
             p.grad = None
-        # each rank's rows; whole sequences (``seq_dp``'s split of the
-        # sequence is the reference's layout for XLA to gather across, and
-        # is not taken here: the ranks it would split hold the same rows)
-        b_specs = {k: spec[:1] for k, spec in
-                   policy.batch_shardings(batch).items()}
-        local = {k: local_chunk(v, b_specs[k], mesh)
-                 for k, v in batch.items()}
-        batch_axes = _axes(b_specs["tokens"][0])
+        local, batch_axes = _local_rows(policy, batch)
         n_batch = 1
         for a in batch_axes:
             n_batch *= mesh.size(names.index(a))
-        grad_pl = [Partial() if a in batch_axes else Replicate()
-                   for a in names]
-        # a remat layer's recompute runs to its end (no early stop), so
-        # that its forward hook puts its parameters back
-        with _gathered_at_use(params, grad_pl), set_checkpoint_early_stop(
-                False):
+        # a whole copy's gradient is partial over the batch's axes, and
+        # over "model" too for the a2a layers' parameters
+        moe = {id(p) for sub in params.modules() if a2a
+               and isinstance(sub, MoE) for p in sub.parameters()}
+        grad_pl = {id(p): [Partial() if a in batch_axes or (
+            a == "model" and id(p) in moe) else Replicate() for a in names]
+            for p in named.values()}
+        with _gathered_at_use(params, grad_pl), use_mesh(mesh):
             loss, metrics = model_lib.loss_fn(cfg, params, local)
             loss.backward()
         with torch.no_grad():
@@ -216,7 +250,23 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, policy):
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, policy=None):
+    """``prefill_step(params, batch) -> (last logits, caches)``: the model
+    over ``batch["tokens"]`` (and "frames"), its caches sized to the
+    prompt.
+
+    With a :class:`~repro_torch.runtime.sharding.ShardingPolicy` on a
+    ``DeviceMesh`` it runs on every rank: ``params`` laid out by it
+    (``sharding.distribute_model``) and gathered at use, layer by layer,
+    as the sharded train step gathers them; ``batch`` whole on every rank,
+    of which each rank runs its rows (the policy's batch spec).  It
+    returns the rank's rows of the logits and the caches as ``DTensor``s
+    in ``policy.cache_shardings``' layout (a K/V cache's sequence split
+    over "model", a recurrent state's channels or heads where they
+    divide): what :func:`make_serve_step` takes."""
+    if policy is not None:
+        return _sharded_prefill_step(cfg, policy)
+
     @torch.inference_mode()
     def prefill_step(params, batch):
         return model_lib.prefill(cfg, params, batch["tokens"],
@@ -225,14 +275,144 @@ def make_prefill_step(cfg: ModelConfig):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
-    """One decode step: greedy next token against a filled KV cache."""
+def make_serve_step(cfg: ModelConfig, policy=None):
+    """One decode step: greedy next token against a filled KV cache.
+    ``serve_step(params, caches, token) -> (next token, logits, caches)``.
+
+    With a policy on a ``DeviceMesh``: ``params`` laid out by it and
+    gathered at use, ``caches`` ``DTensor``s in ``policy.
+    cache_shardings``' layout (as :func:`make_prefill_step` returns them,
+    or ``sharding.sharded_caches``), ``token`` (B, 1) whole on every rank;
+    each rank runs its rows.  A K/V cache split along its sequence over
+    "model" stays split: each rank writes the new row where it owns it and
+    attends over its own rows, and the split-KV combine
+    (``collectives.make_distributed_flash_decode``) merges the ranks'
+    partials - one max and two sums of O(B H d) instead of gathering the
+    cache.  A recurrent state split over "model" is gathered for the step
+    and split again after it.  Returns the rank's rows of the next token
+    and the logits, and the caches in their layout (K/V written in
+    place)."""
+    if policy is not None:
+        return _sharded_serve_step(cfg, policy)
 
     @torch.inference_mode()
     def serve_step(params, caches, token):
         logits, new_caches = model_lib.decode_step(cfg, params, caches, token)
         next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         return next_token, logits, new_caches
+
+    return serve_step
+
+
+def _tree_map(fn, tree, *rest, path: str = ""):
+    """``fn(path, leaf, *leaves of rest)`` over a cache tree (dicts and
+    lists; a tuple is a leaf: a spec), keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest),
+                             path=f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v, *(r[i] for r in rest),
+                          path=f"{path}/{i}" if path else str(i))
+                for i, v in enumerate(tree)]
+    return fn(path, tree, *rest)
+
+
+def _batch_only(pl) -> list:
+    """The placements with every split but the batch's (dim 0) dropped."""
+    from torch.distributed.tensor import Replicate
+    return [p if p.is_shard() and p.dim == 0 else Replicate() for p in pl]
+
+
+def _strides(shape) -> tuple:
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= n
+    return tuple(reversed(out))
+
+
+def _sharded_prefill_step(cfg: ModelConfig, policy):
+    from torch.distributed.tensor import DTensor
+
+    from .mesh_context import use_mesh
+    from .sharding import placements
+
+    mesh = policy.mesh
+
+    @torch.inference_mode()
+    def prefill_step(params, batch):
+        local, _ = _local_rows(policy, batch)
+        B = batch["tokens"].shape[0]
+        with _gathered_at_use(params), use_mesh(mesh):
+            logits, caches = model_lib.prefill(
+                cfg, params, local["tokens"], frames=local.get("frames"),
+                cache_len=local["tokens"].shape[1])
+
+        def whole(path, t):  # the whole cache's shape: all the batch
+            return (B,) + tuple(t.shape[1:]) if t.dim() else ()
+
+        specs = policy.cache_shardings(_tree_map(
+            lambda path, t: torch.empty(whole(path, t), dtype=t.dtype,
+                                        device="meta"), caches))
+
+        def lay_out(path, t, spec):
+            # the rank's rows, whole along every other dim, to the
+            # layout's blocks: a local slice, no exchange
+            pl = placements(spec, mesh)
+            shape = whole(path, t)
+            rows = DTensor.from_local(t, mesh, _batch_only(pl),
+                                      run_check=False, shape=shape,
+                                      stride=_strides(shape))
+            return rows.redistribute(mesh, pl)
+
+        return logits, _tree_map(lay_out, caches, specs)
+
+    return prefill_step
+
+
+def _sharded_serve_step(cfg: ModelConfig, policy):
+    from torch.distributed.tensor import DTensor, Shard
+
+    from .mesh_context import use_mesh
+    from .sharding import local_chunk
+
+    mesh = policy.mesh
+
+    @torch.inference_mode()
+    def serve_step(params, caches, token):
+        t_spec = policy.batch_shardings({"token": token})["token"][:1]
+        tok = local_chunk(token, t_spec, mesh)
+
+        def to_local(path, t):
+            if policy.splits_sequence(path, t):
+                # the rank's rows of the batch and its block of the
+                # sequence (a view: the step writes it in place), as a
+                # DTensor split over "model" alone
+                block = t.to_local()
+                shape = (block.shape[0], t.shape[1]) + tuple(block.shape[2:])
+                return DTensor.from_local(block, mesh["model"], [Shard(1)],
+                                          run_check=False, shape=shape,
+                                          stride=_strides(shape))
+            rows = _batch_only(t.placements)
+            if list(rows) != list(t.placements):  # gathered for the step
+                t = t.redistribute(mesh, rows)
+            return t.to_local()
+
+        local = _tree_map(to_local, caches)
+        with _gathered_at_use(params), use_mesh(mesh):
+            logits, new = model_lib.decode_step(cfg, params, local, tok)
+
+        def lay_out(path, t, old):
+            if isinstance(t, DTensor):
+                return old            # written in place
+            rows = DTensor.from_local(t, mesh, _batch_only(old.placements),
+                                      run_check=False, shape=old.shape,
+                                      stride=old.stride())
+            return rows.redistribute(mesh, old.placements)
+
+        next_token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        return next_token, logits, _tree_map(lay_out, new, caches)
 
     return serve_step
 

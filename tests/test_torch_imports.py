@@ -41,6 +41,10 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import repro_torch.runtime.sharding\n"
         "import repro_torch.runtime.collectives\n"
         "import repro_torch.runtime.moe_a2a\n"
+        "import repro_torch.roofline.hlo, repro_torch.roofline.analysis\n"
+        "import repro_torch.roofline.report, repro_torch.roofline.compare\n"
+        "import repro_torch.roofline.kernel_costs\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.moe_a2a_probe\n"
         "repro_torch.configs.get_config('granite-3-2b')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'repro' or "
