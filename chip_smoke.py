@@ -128,6 +128,30 @@ T2b. granite-3-2b at full width and depth: one batch's gradients
     float32 every parameter within ``GRAD_TOL_F32`` of its largest entry,
     in bf16 every parameter no further from the float32 gradient than
     ``GRAD_NOISE_RATIO_BF16`` x the plain bf16 attention's;
+A6 / A7. (right after phase 3) the recurrences' backward kernels -
+    ``wkv6_bwd`` and ``rglru_scan_bwd`` through their autograd Functions
+    against autograd through the plain forwards on edge cases
+    (``WKV_BWD_CASES``, ``RG_BWD_CASES``; float32 and bf16, strided and
+    dense) within ``WKV_TOL`` / ``SCAN_TOL`` relative to each gradient's
+    largest entry;
+T4. recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU, 8
+    local attention of 10/1 heads x 256, window 2048; bf16, remat on)
+    trained as T2 at ``RECURRENT_TRAIN_SHAPE``, the memory reckoned first:
+    per step exactly 18 ``rglru_scan_bwd`` + 36 ``rglru_scan`` and 8
+    ``flash_attention_bwd`` + 16 ``flash_attention`` launches; the steady
+    step, tokens/s, peak and a traced step's device time by kind;
+T5. the same for rwkv6-7b at full width (64 heads of 64, d_ff 14336,
+    vocab 65,536), its depth cut to the deepest whose reckoned peak stays
+    under ``TRAIN_PEAK_GIB`` (reduced: depth; 32 layers reckon about 92
+    GiB): exactly one ``wkv6_bwd`` and two ``wkv6`` a layer a step;
+T4b / T5b. one batch of ``RECURRENT_GRAD_SHAPE`` (reduced: batch and
+    length) through the kernels against the plain forwards, as T2b:
+    recurrentgemma-2b at T4's depth, rwkv6-7b at ``T5B_LAYERS`` (reduced:
+    depth); then both backward kernels at T4's and T5's shapes against
+    autograd through the plain forwards, 20 CUDA-graph replays bitwise
+    equal, their times beside their bounds and the plain backward's, and
+    the forwards (T4's local attention and its backward too, with SDPA's)
+    at the same shapes;
 T3. the trainer's fault path - granite-3-2b cut to 4 layers (reduced:
     depth): a checkpoint, ``crash_and_recover`` with the params and
     moments bitwise equal to the saved ones, a straggler step and
@@ -171,11 +195,10 @@ D.  the distributed runtime on a one-rank NCCL group in this process
 R.  the roofline on the card's constants (``roofline/analysis.py``), on
     the CPU in child processes (fake process groups; the card is idle):
     R1 ``python -m repro_torch.launch.dryrun --all --mesh R1_MESH`` (every
-    architecture x shape x production mesh: ok, but the attention configs'
-    ``long_500k`` and the recurrences' ``train_4k`` skipped, the latter
-    naming A6 / A7; no error), its wall time and the three hillclimb
-    picks; R2 the dry run's cell function at three sizes this run
-    measured, on a (1, 1) mesh - granite-3-2b trained at T2's 4 x 1024
+    architecture x shape x production mesh: ok, every ``train_4k`` cell
+    included, but the attention configs' ``long_500k`` skipped; no
+    error), its wall time and the three hillclimb picks; R2 the dry run's
+    cell function at three sizes this run measured, on a (1, 1) mesh - granite-3-2b trained at T2's 4 x 1024
     (against T2's steady step and its traced device time), its 2048-token
     prefill (against phase 7's), deepseek-moe-16b's batch-1 decode step
     (against phase 9a's one-graph device time) - predicted beside
@@ -1671,6 +1694,13 @@ GRAD_TOL_F32 = 1e-4
 #: at the same weights: through the kernels its distance (2-norm) to it
 #: may be at most this x the plain bf16 attention's
 GRAD_NOISE_RATIO_BF16 = 1.25
+#: phases T4b / T5b, float32: where the plain run itself lies further than
+#: GRAD_TOL_F32 from a run with the recurrences' carries in float64 (T5b,
+#: rwkv6-7b at 8 layers on an H100: 2.786e-4 of a leaf's largest entry, the
+#: kernels 2.244e-4), each gradient through the kernels may lie from that
+#: float64 run up to this x the plain run's largest such distance (the
+#: float32 floor)
+GRAD_NOISE_RATIO_F32 = 1.25
 #: phase T3: the trainer's fault path, granite-3-2b cut to 4 layers
 FAULT_LAYERS = 4
 #: phase W: whisper-tiny at full width and depth
@@ -1697,6 +1727,39 @@ A2A_GRAD_RTOL = {"torch.float32": 1e-4, "torch.bfloat16": 5e-2}
 DIST = dict(arch="granite-3-2b", layers=4, batch=4, seq_len=1024,
             moe_arch="deepseek-moe-16b", moe_tokens=2048,
             decode=(1, 8), cache_rows=2048)
+#: A6 / A7, the recurrences' backward kernels against autograd through
+#: their plain forwards.  wkv6_bwd at rwkv6-7b's 64 heads of 64: (B, S,
+#: logw, s0 given, ds_last given) - one step, S short of, at and past the
+#: kernel's 16-step chunk and the forward's 32, T5's 1024 and the longest
+#: prompt; logw from the model's range, at its -5 clamp, at 0 (the state
+#: grows with S) and at -20 (the forward's chunks go step by step)
+WKV_BWD_CASES = [
+    (1, 1, None, True, True), (4, 1, None, False, False),
+    (1, 17, -5.0, True, False), (4, 17, None, False, True),
+    (1, 32, 0.0, True, True), (4, 32, -20.0, False, False),
+    (1, 33, -20.0, True, True), (4, 33, -5.0, True, False),
+    (4, 1024, None, False, False), (1, 1024, 0.0, True, True),
+    (1, 4096, None, True, True)]
+#: rglru_scan_bwd: (B, S, D, h0 given) at recurrentgemma-2b's width 2560
+#: and a ragged 77 channels
+RG_BWD_CASES = [(1, 1, 2560, True), (4, 1, 2560, False),
+                (1, 17, 2560, False), (4, 32, 2560, True),
+                (1, 33, 77, True), (4, 1024, 2560, False),
+                (1, 1024, 2560, True), (1, 4096, 2560, True),
+                (4, 300, 77, False)]
+#: phases T4 / T5: recurrentgemma-2b and rwkv6-7b trained at full width,
+#: batch x tokens; a depth whose reckoned peak passes TRAIN_PEAK_GIB is cut
+#: to the deepest that does not (at least TRAIN_MIN_LAYERS), reckoning
+#: TRAIN_ALLOWANCE_GIB for one layer's recompute and its backward's scratch
+RECURRENT_TRAIN_SHAPE = (4, 1024)
+TRAIN_PEAK_GIB = 70.0
+TRAIN_MIN_LAYERS = 8
+TRAIN_ALLOWANCE_GIB = 4.0
+#: phases T4b / T5b: one batch's gradients at full width, batch x tokens;
+#: rwkv6-7b at this depth (float32 weights and gradients of 32 layers
+#: would not fit beside the bf16 run's)
+RECURRENT_GRAD_SHAPE = (1, 256)
+T5B_LAYERS = 8
 
 
 def _bwd_edge_cases(FA, ref, dev) -> int:
@@ -1868,10 +1931,11 @@ def _bwd_record(FA, ref, dev, flush) -> dict:
     return rec
 
 
-def _device_breakdown(prof, wall_s: float) -> str:
+def _device_breakdown(prof, wall_s: float, store: bool = True) -> str:
     """A traced training step's device time by kind of kernel, from
     ``torch.profiler``'s per-kernel sums, beside the step's host-clock
-    time: the card's busy share, and where its time goes."""
+    time: the card's busy share, and where its time goes.  ``store``:
+    keep the busy time as T2's (``MEASURED["train_device_ms"]``)."""
     from torch.autograd import DeviceType
     kinds, other = collections.Counter(), collections.Counter()
     for e in prof.key_averages():
@@ -1880,7 +1944,11 @@ def _device_breakdown(prof, wall_s: float) -> str:
         us = (getattr(e, "self_device_time_total", None)
               or getattr(e, "self_cuda_time_total", 0))
         name = e.key
-        kind = ("attention backward" if "bwd_" in name else
+        kind = ("recurrence backward" if ("wkv6_bwd" in name
+                                          or "rglru_bwd" in name) else
+                "recurrence forward" if ("wkv6" in name
+                                         or "rglru" in name) else
+                "attention backward" if "bwd_" in name else
                 "attention forward" if "flash_attention" in name else
                 "matrix products" if any(t in name.lower() for t in (
                     "gemm", "cutlass", "xmma", "nvjet", "cublas")) else
@@ -1889,7 +1957,8 @@ def _device_breakdown(prof, wall_s: float) -> str:
         if kind == "other":
             other[name[:60]] += us / 1e3
     busy = sum(kinds.values())
-    MEASURED["train_device_ms"] = busy
+    if store:
+        MEASURED["train_device_ms"] = busy
     if busy == 0:
         return ("  traced step: the profiler recorded no device time "
                 "(not measured)")
@@ -2036,47 +2105,108 @@ def _plain_attention(ref):
     return attend
 
 
-def _grad_check_phase(FA, ref, dev) -> None:
-    """Phase T2b: granite-3-2b at full width and depth, one batch's
-    gradients with the attention kernels and, from the same weights and
-    batch, with ``ops.flash_attention`` swapped for the plain forward
-    under autograd: in bf16 (the weights of phase T2), then in float32 at
-    those weights.  float32: every parameter's gradient through the
-    kernels within ``GRAD_TOL_F32`` of its largest entry of the plain
-    attention's.  bf16: every gradient through the kernels no further
-    (2-norm) from the float32 gradient than ``GRAD_NOISE_RATIO_BF16`` x
-    the plain bf16 attention's.  Each kernel run launches one backward a
-    layer, each plain run none."""
+def _layer_counts(cfg) -> dict:
+    """Layers of ``cfg`` that call each sequence kernel: a kernel's
+    launches per forward (and its backward's per backward)."""
+    kinds = cfg.layer_types()
+    counts = {"flash_attention": sum(k in ("attn", "local_attn")
+                                     for k in kinds),
+              "rglru_scan": kinds.count("rglru"),
+              "wkv6": kinds.count("rwkv6")}
+    return {op: n for op, n in counts.items() if n}
+
+
+def _plain_ops(ref) -> dict:
+    """The ops' stand-ins for a plain run: each plain forward, which
+    autograd differentiates."""
+    return {"flash_attention": _plain_attention(ref),
+            "rglru_scan": lambda x, a, h0=None: ref.ref_rglru(x, a, h0),
+            "wkv6": lambda r, k, v, logw, u, s0=None: ref.ref_wkv6(
+                r, k, v, logw, u, s0)}
+
+
+def _rglru_f64(x, a, h0=None):
+    """The RG-LRU recurrence with its carry in float64 (the plain
+    version's float32 carry is what T4b's float32 floor measures)."""
     import torch
-    from repro_torch.configs import get_config
+    xd, ad = x.double(), a.double()
+    h = h0.double() if h0 is not None else torch.zeros_like(xd[:, 0])
+    out = []
+    for t in range(x.shape[1]):
+        h = ad[:, t] * h + xd[:, t]
+        out.append(h)
+    return torch.stack(out, 1).to(x.dtype)
+
+
+def _wkv6_f64(r, k, v, logw, u, s0=None):
+    """The WKV recurrence with its state in float64, in and out as the
+    model's (y in r's dtype, s_last float32)."""
+    import torch
+    rd, kd, vd, lw = (t.double() for t in (r, k, v, logw))
+    B, S, H, K = kd.shape
+    st = (torch.zeros((B, H, K, vd.shape[-1]), dtype=torch.float64,
+                      device=r.device) if s0 is None else s0.double())
+    ud = u.double()[None, :, :, None]
+    ys = []
+    for t in range(S):
+        kv = kd[:, t, :, :, None] * vd[:, t, :, None, :]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rd[:, t], st + ud * kv))
+        st = torch.exp(lw[:, t])[..., None] * st + kv
+    return torch.stack(ys, 1).to(r.dtype), st.float()
+
+
+def _grad_check(base, B: int, S: int, kernels: dict, ref, dev,
+                label: str, floor64: bool = False) -> None:
+    """One batch's gradients of ``base`` at full width with the kernels
+    and, from the same weights and batch, with every sequence op the
+    model calls swapped for its plain forward under autograd: in bf16,
+    then in float32 at those weights.  float32: every parameter's
+    gradient through the kernels within ``GRAD_TOL_F32`` of its largest
+    entry of the plain run's; with ``floor64``, a float32 run with the
+    recurrences' carries in float64 (:func:`_wkv6_f64`,
+    :func:`_rglru_f64`) measures the plain run's own float32 error, and a
+    gradient past ``GRAD_TOL_F32`` passes if it lies from that run no
+    further than ``GRAD_NOISE_RATIO_F32`` x the plain run's largest such
+    distance.  bf16: every gradient through the kernels no further
+    (2-norm) from the float32 gradient than ``GRAD_NOISE_RATIO_BF16`` x
+    the plain bf16 run's.  Each kernel run launches one backward a layer
+    of each op (``kernels`` maps an op to its backward's counted
+    wrapper), each other run none."""
+    import torch
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.models.model import loss_fn
 
-    base = get_config(TRAIN["arch"])
-    B, S = TRAIN["batch"], TRAIN["seq_len"]
+    counts = _layer_counts(base)
     batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
         DataConfig(vocab_size=base.vocab_size, seq_len=S, global_batch=B,
                    seed=0)).global_batch(0).items()}
-    real_fa = ops.flash_attention
+    real = {op: getattr(ops, op) for op in counts}
+    stand_ins = {"plain": _plain_ops(ref),
+                 "float64": dict(_plain_ops(ref), rglru_scan=_rglru_f64,
+                                 wkv6=_wkv6_f64)}
 
-    def grads(cfg, params):
-        """{"kernels": (loss, {name: grad}), "plain": (...)}"""
+    def grads(cfg, params, runs=("kernels", "plain")):
+        """{"kernels": (loss, {name: grad}), "plain": (...), ...}"""
         out = {}
-        for name, attend in (("kernels", real_fa),
-                             ("plain", _plain_attention(ref))):
-            b0 = FA.flash_attention_bwd.launches
-            ops.flash_attention = attend
+        for name in runs:
+            before = {op: kernels[op].launches for op in counts}
+            if name != "kernels":
+                for op in counts:
+                    setattr(ops, op, stand_ins[name][op])
             try:
                 loss, _ = loss_fn(cfg, params, batch)
                 loss.backward()
             finally:
-                ops.flash_attention = real_fa
-            n_bwd = FA.flash_attention_bwd.launches - b0
-            if n_bwd != (cfg.n_layers if name == "kernels" else 0):
-                raise AssertionError(f"the {name} run of the gradient check"
-                                     f" launched {n_bwd} backward kernels")
+                for op, fn in real.items():
+                    setattr(ops, op, fn)
+            for op, n in counts.items():
+                got = kernels[op].launches - before[op]
+                if got != (n if name == "kernels" else 0):
+                    raise AssertionError(
+                        f"the {name} run of {label}'s gradient check "
+                        f"launched {got} {op} backward kernels")
             out[name] = (float(loss.detach()),
                          {n: p.grad for n, p in params.named_parameters()})
             for p in params.parameters():
@@ -2094,49 +2224,473 @@ def _grad_check_phase(FA, ref, dev) -> None:
         for a, b in zip(p32.parameters(), params.parameters()):
             a.copy_(b)
     del params
-    g32 = grads(cfg32, p32)
+    g32 = grads(cfg32, p32, ("kernels", "plain", "float64") if floor64
+                else ("kernels", "plain"))
     del p32
-    f32_rel, ratio = {}, {}
+    f32_rel, ratio, faults = {}, {}, []
+    to64 = {}  # leaf -> (kernels', plain's) distance to the float64 run
+    if floor64:
+        for n, exact in g32["float64"][1].items():
+            scale = float(exact.abs().max()) or 1.0
+            to64[n] = tuple(float((g32[k][1][n] - exact).abs().max()) / scale
+                            for k in ("kernels", "plain"))
+        floor = max(p for _, p in to64.values())
     for n, want in g32["plain"][1].items():
         got = g32["kernels"][1][n]
         scale = float(want.abs().max()) or 1.0
         f32_rel[n] = float((got - want).abs().max()) / scale
-        if not bool(torch.isfinite(got).all()) or f32_rel[n] > GRAD_TOL_F32:
-            raise AssertionError(
-                f"{base.name} float32: the gradient of {n} through the "
-                f"kernels differs from the plain attention's by "
-                f"{f32_rel[n]:.3e} of its largest entry (> {GRAD_TOL_F32})")
-        kern, plain = (float((g16[k][1][n].float() - want).norm())
-                       for k in ("kernels", "plain"))
-        ratio[n] = (kern, plain)
+        within = f32_rel[n] <= GRAD_TOL_F32 or (
+            floor64 and to64[n][0] <= GRAD_NOISE_RATIO_F32 * floor)
+        if not bool(torch.isfinite(got).all()) or not within:
+            faults.append(
+                f"float32: the gradient of {n} through the kernels differs "
+                f"from the plain run's by {f32_rel[n]:.3e} of its largest "
+                f"entry (> {GRAD_TOL_F32})" + (
+                    f" and lies {to64[n][0]:.3e} from the float64 run, past "
+                    f"{GRAD_NOISE_RATIO_F32} x the plain run's floor "
+                    f"{floor:.3e}" if floor64 else ""))
+        kern, plain_d = (float((g16[k][1][n].float() - want).norm())
+                         for k in ("kernels", "plain"))
+        ratio[n] = (kern, plain_d)
         if (not bool(torch.isfinite(g16["kernels"][1][n]).all())
-                or kern > GRAD_NOISE_RATIO_BF16 * plain):
-            raise AssertionError(
-                f"{base.name} bf16: the gradient of {n} through the kernels "
-                f"is {kern:.3e} from the float32 gradient, the plain "
-                f"attention's {plain:.3e} (more than "
-                f"{GRAD_NOISE_RATIO_BF16}x)")
+                or kern > GRAD_NOISE_RATIO_BF16 * plain_d):
+            faults.append(
+                f"bf16: the gradient of {n} through the kernels is "
+                f"{kern:.3e} from the float32 gradient, the plain run's "
+                f"{plain_d:.3e} (more than {GRAD_NOISE_RATIO_BF16}x)")
+    if faults:  # every leaf checked first, the worst float32 ones named
+        worst = sorted(f32_rel, key=f32_rel.get)[-5:]
+        raise AssertionError(
+            f"{label} {base.name}: {len(faults)} faults, first "
+            f"{faults[:4]}; the largest float32 differences " +
+            ", ".join(f"{n} {f32_rel[n]:.3e}" for n in worst))
     norms = {n: float(g.norm()) or 1.0 for n, g in g32["plain"][1].items()}
     share = {n: k / max(p, 1e-30) for n, (k, p) in ratio.items()}
     worst = max(share, key=share.get)
-    print(f"gradient check {base.name} at full width and depth (batch {B} "
-          f"x {S}), {len(f32_rel)} parameters: float32 through the kernels "
-          f"within {max(f32_rel.values()):.3e} of each gradient's largest "
-          f"entry of the plain attention's (median "
+    print(f"{label} gradient check {base.name} at full width, "
+          f"{base.n_layers} layers (batch {B} x {S}), {len(f32_rel)} "
+          f"parameters, kernels {sorted(counts)} against their plain "
+          f"forwards: float32 through the kernels within "
+          f"{max(f32_rel.values()):.3e} of each gradient's largest entry of "
+          f"the plain run's (median "
           f"{float(np.median(list(f32_rel.values()))):.3e}; bound "
           f"{GRAD_TOL_F32}); bf16 distance to the float32 gradient, "
           f"relative to its norm, through the kernels up to "
-          f"{max(k / norms[n] for n, (k, _) in ratio.items()):.3e}, with "
-          f"the plain attention up to "
-          f"{max(p / norms[n] for n, (_, p) in ratio.items()):.3e}; the "
-          f"largest ratio {share[worst]:.3f} ({worst}; "
-          f"bound {GRAD_NOISE_RATIO_BF16}); losses bf16 "
+          f"{max(k / norms[n] for n, (k, _) in ratio.items()):.3e}, plain "
+          f"up to {max(p / norms[n] for n, (_, p) in ratio.items()):.3e}; "
+          f"the largest ratio {share[worst]:.3f} ({worst}; "
+          f"bound {GRAD_NOISE_RATIO_BF16}); " + (
+              f"float32 against the run with the recurrences in float64: "
+              f"the plain run up to {floor:.3e} of a leaf's largest entry "
+              f"(the floor), the kernels up to "
+              f"{max(k for k, _ in to64.values()):.3e} (bound "
+              f"{GRAD_NOISE_RATIO_F32} x the floor where past "
+              f"{GRAD_TOL_F32}); " if floor64 else "") +
+          f"losses bf16 "
           f"{g16['kernels'][0]:.6f} / {g16['plain'][0]:.6f}, float32 "
           f"{g32['kernels'][0]:.6f} / {g32['plain'][0]:.6f} (kernels / "
           f"plain); {time.perf_counter() - t0:.1f} s", flush=True)
     del g16, g32
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _grad_check_phase(FA, RS, WK, ref, dev) -> None:
+    """Phase T2b: granite-3-2b at full width and depth, one batch of
+    ``TRAIN``'s size, the attention kernels against the plain attention
+    (:func:`_grad_check`)."""
+    from repro_torch.configs import get_config
+    _grad_check(get_config(TRAIN["arch"]), TRAIN["batch"], TRAIN["seq_len"],
+                _bwd_kernels(FA, RS, WK), ref, dev, "T2b")
+
+
+def _bwd_kernels(FA, RS, WK) -> dict:
+    """Each sequence op's backward, as counted wrappers."""
+    return {"flash_attention": FA.flash_attention_bwd,
+            "rglru_scan": RS.rglru_scan_bwd, "wkv6": WK.wkv6_bwd}
+
+
+def _grad_ratio(got, want, tol) -> float:
+    """Largest |got - want| / (atol max|want| + rtol |want|), (atol, rtol)
+    = ``tol`` at want's dtype: a backward's tolerance is relative to each
+    gradient's largest entry.  Above 1 fails the check."""
+    atol, rtol = tol[str(want.dtype)]
+    g, w = got.double(), want.double()
+    scale = float(w.abs().max()) or 1.0
+    return float(((g - w).abs() / (atol * scale + rtol * w.abs())).max())
+
+
+def _recurrence_bwd_edge_cases(RS, WK, ref, dev):
+    """A6 / A7: ``wkv6_bwd`` and ``rglru_scan_bwd``, each through its
+    autograd Function on the forward kernel, against autograd through the
+    plain forward on the card: ``WKV_BWD_CASES`` and ``RG_BWD_CASES`` x
+    (float32, bfloat16) x (strided views, dense tensors), within
+    ``WKV_TOL`` / ``SCAN_TOL`` relative to each gradient's largest entry.
+    Every case runs; then the worst case of a dtype past its tolerance
+    raises.  Returns the number of cases and, by kernel and dtype, the
+    largest share of the tolerance a case used."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(9)
+    n, worst = 0, {}
+
+    def close(kernel, tol, names, got, want, what):
+        for name, g, w in zip(names, got, want):
+            if w is None:
+                continue
+            ratio = (_grad_ratio(g, w, tol) if bool(torch.isfinite(g).all())
+                     else float("inf"))
+            key = (kernel, str(w.dtype))
+            if ratio >= worst.get(key, (0.0,))[0]:
+                err = float((g.float() - w.float()).abs().max())
+                worst[key] = (ratio, f"{what} {name}, max abs err {err:.3e}")
+
+    for B, S, logw, with_s0, with_dsl in WKV_BWD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            r, k, v, lw, u, s0 = _wkv_inputs(gen, B, S, dt, dev, logw)
+            s0 = s0 if with_s0 else None
+            dy = torch.randn(r.shape, generator=gen, device=dev).to(dt)
+            dsl = (torch.randn((B, 64, 64, 64), generator=gen, device=dev)
+                   * 0.1 if with_dsl else None)
+
+            def run(fn, args):
+                leaves = [t.detach().requires_grad_() for t in args[:5]]
+                leaves.append(None if s0 is None else
+                              s0.detach().requires_grad_())
+                y, s_last = fn(*leaves)
+                outs, cots = [y], [dy]
+                if dsl is not None:
+                    outs.append(s_last)
+                    cots.append(dsl)
+                leaves = [t for t in leaves if t is not None]
+                # (one step with no s0 and no ds_last leaves logw unused)
+                got = [g if g is not None else torch.zeros_like(t)
+                       for g, t in zip(torch.autograd.grad(
+                           outs, leaves, cots, allow_unused=True), leaves)]
+                return got + [None] * (6 - len(got))
+
+            want = run(ref.ref_wkv6, (r, k, v, lw, u))
+            for args in ((r, k, v, lw, u), tuple(
+                    t.contiguous() for t in (r, k, v, lw)) + (u,)):
+                before = WK.wkv6_bwd.launches
+                got = run(WK.wkv6, args)
+                if WK.wkv6_bwd.launches != before + 1:
+                    raise AssertionError("wkv6's autograd Function did not "
+                                         "launch its backward once")
+                close("wkv6_bwd", WKV_TOL, ("dr", "dk", "dv", "dlogw",
+                                            "du", "ds0"), got, want,
+                      f"wkv6_bwd at {(B, S)} {dt} logw="
+                      f"{'model' if logw is None else logw} s0="
+                      f"{'given' if with_s0 else 'none'} ds_last="
+                      f"{'given' if with_dsl else 'none'} "
+                      f"{'strided' if args[0] is r else 'dense'}")
+                n += 1
+    for B, S, D, with_h0 in RG_BWD_CASES:
+        for dt in (torch.float32, torch.bfloat16):
+            # x and a as the model's views: (B, S, D) of (B, S, 2 D) rows
+            x, a = (torch.randn((B, S, 2 * D), generator=gen, device=dev)
+                    [..., :D] for _ in range(2))
+            a = torch.sigmoid(a * 4.0)
+            x, a = x.to(dt), a.to(dt)
+            h0 = (torch.randn((B, D), generator=gen, device=dev)
+                  if with_h0 else None)
+            dh = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
+
+            def run(fn, args):
+                leaves = [t.detach().requires_grad_() for t in args]
+                if h0 is not None:
+                    leaves.append(h0.detach().requires_grad_())
+                got = torch.autograd.grad(
+                    fn(*leaves[:2], leaves[2] if h0 is not None else None),
+                    leaves, dh)
+                return list(got) + [None] * (3 - len(got))
+
+            want = run(ref.ref_rglru, (x, a))
+            for args in ((x, a), (x.contiguous(), a.contiguous())):
+                before = RS.rglru_scan_bwd.launches
+                got = run(RS.rglru_scan, args)
+                if RS.rglru_scan_bwd.launches != before + 1:
+                    raise AssertionError("rglru_scan's autograd Function did "
+                                         "not launch its backward once")
+                close("rglru_scan_bwd", SCAN_TOL, ("dx", "da", "dh0"), got,
+                      want, f"rglru_scan_bwd at {(B, S, D)} {dt} h0="
+                      f"{'given' if with_h0 else 'none'} "
+                      f"{'strided' if args[0] is x else 'dense'}")
+                n += 1
+    torch.cuda.synchronize()
+    for key, (ratio, what) in sorted(worst.items()):
+        tol = WKV_TOL if key[0] == "wkv6_bwd" else SCAN_TOL
+        print(f"  worst {key[0]} {key[1]} case: {ratio:.3f} of the "
+              f"tolerance {tol[key[1]]}, {what}")
+    for key, (ratio, what) in worst.items():
+        if ratio > 1.0:
+            raise AssertionError(f"{what}: past the tolerance of autograd "
+                                 f"through its plain version")
+    return n, {f"{k} {d}": round(r, 3) for (k, d), (r, _) in worst.items()}
+
+
+def _graph_replays_equal(fn, what: str) -> None:
+    """``fn`` captured once in a CUDA graph and replayed 20 times: every
+    replay's outputs equal the eager call's, bit for bit."""
+    import torch
+    first = [t.clone() for t in fn() if t is not None]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capture, as CUDA graphs ask
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [t for t in fn() if t is not None]
+    for i in range(20):
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(outs, first)):
+            raise AssertionError(f"{what}: graph replay {i} differs from the "
+                                 f"eager call")
+    del graph
+
+
+def _recurrence_bwd_records(FA, RS, WK, ref, dev, flush) -> dict:
+    """The backward kernels at the training paths' own shapes (T4's RG-LRU
+    (4, 1024, 2560) float32, T5's WKV (4, 1024, 64, 64) bf16; no starting
+    state, s_last unused): against autograd through the plain forward, 20
+    CUDA-graph replays bitwise equal, their times (graph replay, cold L2)
+    beside their bounds and the plain backward's; and the forwards on the
+    same shapes (T4's local attention at q (4, 10, 1024, 256) over 1 kv
+    head, whose 2048-key window covers all 1024 keys, forward and
+    backward, with SDPA's).  Returns {path: {kernel: record}}."""
+    import torch
+    B, S = RECURRENT_TRAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = {}
+    # -- recurrentgemma-2b: the RG-LRU and the local attention -------------
+    D = 2560
+    x, dh = (torch.randn((B, S, D), generator=gen, device=dev)
+             for _ in range(2))
+    a = torch.sigmoid(torch.randn((B, S, D), generator=gen, device=dev) * 4)
+    h = RS.rglru_scan(x, a)
+    leaves = [t.detach().requires_grad_() for t in (x, a)]
+    want = torch.autograd.grad(ref.ref_rglru(*leaves), leaves, dh)
+    got = RS.rglru_scan_bwd(x, a, None, dh, h)
+    used = max(_grad_ratio(g, w, SCAN_TOL) for g, w in zip(got, want))
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    if used > 1.0:
+        raise AssertionError(f"rglru_scan_bwd at {(B, S, D)}: {used:.3f} of "
+                             f"its tolerance")
+    _graph_replays_equal(lambda: RS.rglru_scan_bwd(x, a, None, dh, h),
+                         f"rglru_scan_bwd at {(B, S, D)}")
+    bound, by = _bound_ms(kernel_costs.rglru_scan_bwd_cost(x.numel(), 4))
+    rg = dict(max_abs_err=err, bound_ms=bound, bound_by=by, library_ms=None,
+              ms=_time_graph_ms(lambda: RS.rglru_scan_bwd(x, a, None, dh, h),
+                                flush, 20),
+              plain_ms=_time_grad_graph_ms(
+                  lambda *t: ref.ref_rglru(*t), leaves, dh, flush, 3))
+    print(f"kernel rglru_scan_bwd at T4's {(B, S, D)} float32, plan (chunks,"
+          f" steps) {RS.chunk_plan(B, S, D, _n_sms())}: max abs err "
+          f"{err:.3e} = {used:.3f} of the tolerance; 20 graph replays "
+          f"bitwise equal; device times (graph replay, cold L2) kernel "
+          f"{rg['ms']:.4f} ms, autograd through the plain forward "
+          f"{rg['plain_ms']:.4f}, bound {bound:.4f} ({by}); no PyTorch call "
+          f"computes it", flush=True)
+    g_ = torch.Generator(device=dev).manual_seed(12)
+    q, do = (torch.randn((B, 10, S, 256), generator=g_, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, 1, S, 256), generator=g_, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    out["recurrentgemma-2b training"] = dict(
+        rglru_scan=_scan_record(RS, ref, x, a, None, flush),
+        rglru_scan_bwd=rg,
+        flash_attention=_prefill_record(FA, ref, q, k, v, True, 2048, flush),
+        flash_attention_bwd=_bwd_case_record(
+            FA, ref, q, k, v, do, True, flush,
+            "recurrentgemma-2b's training shape"))
+    del x, a, h, dh, leaves, want, got, q, k, v, do
+    # -- rwkv6-7b: the WKV recurrence --------------------------------------
+    r, k, v, lw, u, _ = _wkv_inputs(gen, B, S, torch.bfloat16, dev)
+    r, k, v, lw = (t.contiguous() for t in (r, k, v, lw))
+    dy = torch.randn(r.shape, generator=gen, device=dev).to(torch.bfloat16)
+    leaves = [t.detach().requires_grad_() for t in (r, k, v, lw, u)]
+    want = torch.autograd.grad(ref.ref_wkv6(*leaves)[0], leaves, dy)
+    got = WK.wkv6_bwd(r, k, v, lw, u, None, dy)
+    used = max(_grad_ratio(g, w, WKV_TOL) for g, w in zip(got, want))
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    if used > 1.0:
+        raise AssertionError(f"wkv6_bwd at {tuple(r.shape)}: {used:.3f} of "
+                             f"its tolerance")
+    _graph_replays_equal(lambda: WK.wkv6_bwd(r, k, v, lw, u, None, dy),
+                         f"wkv6_bwd at {tuple(r.shape)}")
+    H, Dh = r.shape[2:]
+    bound, by = _bound_ms(kernel_costs.wkv6_bwd_cost(B, S, H, Dh, 2, False,
+                                                     False))
+    wk = dict(max_abs_err=err, bound_ms=bound, bound_by=by, library_ms=None,
+              ms=_time_graph_ms(lambda: WK.wkv6_bwd(r, k, v, lw, u, None, dy),
+                                flush, 10),
+              plain_ms=_time_grad_graph_ms(
+                  lambda *t: ref.ref_wkv6(*t)[0], leaves, dy, flush, 3))
+    gflop = kernel_costs.wkv6_bwd_cost(B, S, H, Dh, 2, False, False)[0]
+    print(f"kernel wkv6_bwd at T5's {tuple(r.shape)} bf16, plan (chunk, "
+          f"columns, chunks) {WK.bwd_plan(S, Dh)}: max abs err {err:.3e} = "
+          f"{used:.3f} of the tolerance; 20 graph replays bitwise equal; "
+          f"device times (graph replay, cold L2) kernel {wk['ms']:.4f} ms, "
+          f"autograd through the plain forward {wk['plain_ms']:.4f}, bound "
+          f"{bound:.4f} ({by}; {gflop / 1e9:.1f} GFLOP), the kernel "
+          f"{wk['ms'] / bound:.1f}x it; no PyTorch call computes it",
+          flush=True)
+    out["rwkv6-7b training"] = dict(
+        wkv6=_wkv_record(WK, ref, r, k, v, lw, u, None, flush), wkv6_bwd=wk)
+    del r, k, v, lw, u, dy, leaves, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _reckon_train_gib(cfg, B: int, S: int):
+    """(GiB, text): what a training step at ``B`` x ``S`` holds at its
+    peak, reckoned: bf16 parameters and gradients and float32 AdamW
+    moments (12 bytes a parameter), the float32 logits with their
+    gradient and the softmax's (three of B S vocab), the layer inputs kept
+    under remat, and ``TRAIN_ALLOWANCE_GIB`` for one layer's recompute and
+    its backward's scratch."""
+    gib = 2.0 ** 30
+    n = cfg.n_params()
+    parts = dict(params_grads_moments=12 * n,
+                 logits=3 * B * S * cfg.vocab_size * 4,
+                 layer_inputs=cfg.n_layers * B * S * cfg.d_model * 2)
+    total = sum(parts.values()) / gib + TRAIN_ALLOWANCE_GIB
+    return total, (f"{n:,} parameters: bf16 params, grads and float32 "
+                   f"moments {parts['params_grads_moments'] / gib:.2f} GiB, "
+                   f"float32 logits x 3 {parts['logits'] / gib:.2f}, layer "
+                   f"inputs under remat {parts['layer_inputs'] / gib:.2f}, "
+                   f"one layer and its scratch {TRAIN_ALLOWANCE_GIB:.2f}: "
+                   f"{total:.2f} GiB")
+
+
+def _recurrent_train_phase(arch: str, FA, RS, WK, dev) -> dict:
+    """Phases T4 / T5: ``arch`` at full width trained by the port's
+    ``Trainer`` (bf16, remat on) for ``TRAIN["steps"]`` steps on
+    ``SyntheticLM`` at ``RECURRENT_TRAIN_SHAPE``; at full depth, or cut
+    to the deepest depth whose reckoned peak (:func:`_reckon_train_gib`)
+    stays under ``TRAIN_PEAK_GIB`` (at least ``TRAIN_MIN_LAYERS``).  Per
+    step the loss (finite), ms, tokens/s, peak memory and every sequence
+    kernel's launches, exactly one backward a layer of its kind and two
+    forwards (the forward and its recompute); the last step traced, its
+    device time by kind.  Returns the launches over the run, the depth,
+    the steady step, tokens/s and the peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime.train_loop import Trainer
+
+    base = get_config(arch)
+    B, S = RECURRENT_TRAIN_SHAPE
+    gib = 2.0 ** 30
+    cfg, cut = base, ""
+    if _reckon_train_gib(base, B, S)[0] > TRAIN_PEAK_GIB:
+        depth = max(L for L in range(TRAIN_MIN_LAYERS, base.n_layers + 1)
+                    if _reckon_train_gib(dataclasses.replace(
+                        base, n_layers=L), B, S)[0] <= TRAIN_PEAK_GIB)
+        cfg = dataclasses.replace(base, n_layers=depth)
+        cut = (f" (reduced: depth, {depth} of {base.n_layers} layers; full "
+               f"depth reckons {_reckon_train_gib(base, B, S)[0]:.2f} GiB)")
+    label = "T4" if arch == "recurrentgemma-2b" else "T5"
+    counts = _layer_counts(cfg)
+    fwd = {"flash_attention": FA.flash_attention,
+           "rglru_scan": RS.rglru_scan, "wkv6": WK.wkv6}
+    bwd = _bwd_kernels(FA, RS, WK)
+    print(f"{label} train {cfg.name}: {cfg.n_layers} layers{cut}, d_model "
+          f"{cfg.d_model}, remat {cfg.remat}, batch {B} x {S} tokens, kernels"
+          f" a forward {counts}; reckoned: "
+          f"{_reckon_train_gib(cfg, B, S)[1]}", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt = _ckpt_dir()
+    t0 = time.perf_counter()
+    trainer = Trainer(
+        cfg, str(ckpt), opt_cfg=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                            total_steps=100),
+        data_cfg=DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                            global_batch=B, seed=0),
+        n_virtual_workers=4, ckpt_every=10 ** 6, device=dev)
+    torch.cuda.synchronize()
+    print(f"  init {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / gib:.2f} GiB allocated",
+          flush=True)
+    # the main path's counts: set to 0 just before it runs
+    for op in counts:
+        fwd[op].launches = 0
+        bwd[op].launches = 0
+    losses, times = [], []
+    for i in range(TRAIN["steps"]):
+        before = {op: (fwd[op].launches, bwd[op].launches) for op in counts}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i + 1 < TRAIN["steps"]:
+            m = trainer.run_step()  # ends reading the metrics: synchronized
+        else:  # the last step traced: where its device time goes
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU,
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                m = trainer.run_step()
+        dt = time.perf_counter() - t
+        step = {op: (fwd[op].launches - f0, bwd[op].launches - b0)
+                for op, (f0, b0) in before.items()}
+        losses.append(m["loss"])
+        times.append(dt)
+        print(f"  step {m['step']}: loss {m['loss']:.4f} (ce {m['ce']:.4f}),"
+              f" grad_norm {m['grad_norm']:.3f}, lr {m['lr']:.2e}; "
+              f"{dt * 1e3:.1f} ms, {B * S / dt:.0f} tokens/s; peak "
+              f"{torch.cuda.max_memory_allocated() / gib:.2f} GiB; launches "
+              f"(forward, backward) {step}", flush=True)
+        for op, (nf, nb) in step.items():
+            want_f = counts[op] * (2 if cfg.remat else 1)
+            if nf != want_f or nb != counts[op]:
+                raise AssertionError(
+                    f"{label}: a step launched {nf} {op} and {nb} of its "
+                    f"backward, not {want_f} and {counts[op]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{label}: non-finite training loss: {losses}")
+    print(_device_breakdown(prof, times[-1], store=False), flush=True)
+    steady = float(np.median(times[1:-1]))
+    peak = torch.cuda.max_memory_allocated() / gib
+    launches = {}
+    for op in counts:
+        launches[op] = fwd[op].launches
+        launches[op + "_bwd"] = bwd[op].launches
+    print(f"{label} train {cfg.name}: losses {[round(x, 4) for x in losses]}"
+          f" all finite; exactly one backward a layer of each kind and two "
+          f"forwards; steady step {steady * 1e3:.1f} ms (median of steps "
+          f"2-{len(times) - 1}), {B * S / steady:.0f} tokens/s, peak "
+          f"{peak:.2f} GiB (reckoned {_reckon_train_gib(cfg, B, S)[0]:.2f})",
+          flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    import shutil
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return dict(launches=launches, layers=cfg.n_layers, step_ms=steady * 1e3,
+                tokens_per_s=B * S / steady, peak_gib=peak)
+
+
+def _recurrent_grad_phase(arch: str, layers: int, FA, RS, WK, ref,
+                          dev) -> None:
+    """Phases T4b / T5b: ``arch`` at full width, ``layers`` deep, one batch
+    of ``RECURRENT_GRAD_SHAPE`` (batch 1 x 256 tokens: autograd through the
+    plain serial WKV keeps a float32 state a step and head) through the
+    kernels against the plain forwards (:func:`_grad_check`)."""
+    from repro_torch.configs import get_config
+    base = get_config(arch)
+    if layers != base.n_layers:
+        base = dataclasses.replace(base, n_layers=layers)
+    B, S = RECURRENT_GRAD_SHAPE
+    label = "T4b" if arch == "recurrentgemma-2b" else "T5b"
+    cut = ("" if layers == get_config(arch).n_layers else
+           f", reduced: depth {layers}")
+    print(f"{label}: {arch} at full width, batch {B} x {S} tokens (reduced: "
+          f"batch and length{cut})", flush=True)
+    _grad_check(base, B, S, _bwd_kernels(FA, RS, WK), ref, dev, label,
+                floor64=True)
 
 
 def _fault_phase(dev) -> None:
@@ -3142,17 +3696,8 @@ def _roofline_phase() -> dict:
                 rec = json.loads((RESULTS_DIR / f"{arch}__{shape}__{mesh}"
                                   f".json").read_text())
                 counts[rec["status"]] += 1
-                owed = {"rwkv6-7b": "A6", "recurrentgemma-2b": "A7"}
-                if shape == "long_500k" and \
-                        cfg.family not in SUBQUADRATIC_FAMILIES:
-                    want = "skipped"
-                elif shape == "train_4k" and arch in owed:
-                    want = "skipped"
-                    if owed[arch] not in rec.get("skip_reason", ""):
-                        raise AssertionError(f"R1 {arch} {shape} {mesh}: "
-                                             f"{rec.get('skip_reason')}")
-                else:
-                    want = "ok"
+                want = ("skipped" if shape == "long_500k" and cfg.family
+                        not in SUBQUADRATIC_FAMILIES else "ok")
                 if rec["status"] != want:
                     raise AssertionError(
                         f"R1 {arch} x {shape} x {mesh}: {rec['status']}, "
@@ -3164,8 +3709,8 @@ def _roofline_phase() -> dict:
           f"cores): "
           f"{sum(counts.values())} records, {counts['ok']} ok, "
           f"{counts['skipped']} skipped (long_500k of the attention "
-          f"configs; rwkv6-7b's and recurrentgemma-2b's train_4k, A6 / "
-          f"A7), {counts['error']} errors, in {wall:.1f} s; "
+          f"configs), {counts['error']} errors, every train_4k cell ok, in "
+          f"{wall:.1f} s; "
           f"{out.strip().splitlines()[-1]}", flush=True)
     for key, c in picks.items():
         print(f"R1 pick {key}: {c.arch} x {c.shape} x {c.mesh} "
@@ -3271,7 +3816,8 @@ def main() -> int:
     kernels = (("latency_hist.cu", LH.build), ("flash_attention.cu", FA.build),
                ("flash_attention_bwd.cu", FA.build_bwd),
                ("decode_attention.cu", FD.build), ("rglru_scan.cu", RS.build),
-               ("wkv6.cu", WK.build))
+               ("rglru_scan_bwd.cu", RS.build_bwd), ("wkv6.cu", WK.build),
+               ("wkv6_bwd.cu", WK.build_bwd))
     with ThreadPoolExecutor(len(kernels)) as pool:
         logs = list(pool.map(lambda kv: kv[1](), kernels))
     print(f"build: {', '.join(k for k, _ in kernels)} in "
@@ -3321,6 +3867,17 @@ def main() -> int:
           f"{n_wkv} edge cases (B 1/8, S 1-4096, logw model/-5/0/-20, s0 zero "
           f"and given, strided and dense; y and s_last), using at most "
           f"{used} of it", flush=True)
+    # -- A6 / A7. the recurrences' backward against their plain versions ---
+    t0 = time.perf_counter()
+    n_rbwd, used = _recurrence_bwd_edge_cases(RS, WK, ref, dev)
+    print(f"kernel check: wkv6_bwd (WKV_TOL) and rglru_scan_bwd (SCAN_TOL), "
+          f"through their autograd Functions, within tolerance of autograd "
+          f"through the plain forwards, relative to each gradient's largest "
+          f"entry, in {n_rbwd} edge cases (wkv6: B 1/4, S 1/17/32/33/1024/"
+          f"4096, logw model/-5/0/-20, s0 and ds_last zero and given; "
+          f"rglru: B 1/4, S 1/17/32/33/1024/4096, D 2560/77, h0 zero and "
+          f"given; strided and dense; f32 and bf16), using at most {used} "
+          f"of it, in {time.perf_counter() - t0:.1f} s", flush=True)
     # -- T1. the attention backward against its plain version ---------------
     t0 = time.perf_counter()
     n_bwd = _bwd_edge_cases(FA, ref, dev)
@@ -3461,7 +4018,19 @@ def main() -> int:
 
     # -- T2.-T3. the training path; W. whisper-tiny ---------------------------
     train = _train_phase(FA, ref, dev, bwd_rec["ms"])
-    _grad_check_phase(FA, ref, dev)
+    _grad_check_phase(FA, RS, WK, ref, dev)
+    # -- T4.-T5b. the recurrent models' training paths -----------------------
+    rec_train = {arch: _recurrent_train_phase(arch, FA, RS, WK, dev)
+                 for arch in ("recurrentgemma-2b", "rwkv6-7b")}
+    _recurrent_grad_phase("recurrentgemma-2b",
+                          rec_train["recurrentgemma-2b"]["layers"], FA, RS,
+                          WK, ref, dev)
+    _recurrent_grad_phase("rwkv6-7b", T5B_LAYERS, FA, RS, WK, ref, dev)
+    rec_records = _recurrence_bwd_records(FA, RS, WK, ref, dev, flush)
+    for arch, path in (("recurrentgemma-2b", "recurrentgemma-2b training"),
+                       ("rwkv6-7b", "rwkv6-7b training")):
+        for name, rec in rec_records[path].items():
+            rec["launches"] = rec_train[arch]["launches"][name]
     _fault_phase(dev)
     whisper = _whisper_phase(FA, FD, ref, dev, flush)
     # -- D. the distributed runtime ------------------------------------------
@@ -3473,8 +4042,9 @@ def main() -> int:
     print(f"smoke: every phase passed in {time.perf_counter() - t_start:.1f}"
           f" s", flush=True)
 
-    # the backward has no Pallas counterpart: the reference differentiates
-    # its jnp oracle of the forward
+    # the backwards have no Pallas counterpart: the reference differentiates
+    # its jnp oracle of the attention forward and its model-path
+    # recurrences (wkv6_chunked, the associative rglru_scan)
     where = {
         "rglru_scan": ("rglru_scan.cu", "kernels/rglru_scan.py:23"),
         "wkv6": ("wkv6.cu", "kernels/rwkv6_scan.py:24"),
@@ -3483,7 +4053,9 @@ def main() -> int:
         "flash_attention_bwd": ("flash_attention_bwd.cu",
                                 "models/attention.py:76"),
         "flash_decode": ("decode_attention.cu",
-                         "kernels/decode_attention.py:31")}
+                         "kernels/decode_attention.py:31"),
+        "rglru_scan_bwd": ("rglru_scan_bwd.cu", "models/rglru.py:68"),
+        "wkv6_bwd": ("wkv6_bwd.cu", "models/rwkv6.py:153")}
     rows = [dict(name="latency_hist", route="cuda",
                  source="src/repro_torch/kernels/csrc/latency_hist.cu",
                  replaces="src/repro/kernels/latency_hist.py:23",
@@ -3498,6 +4070,7 @@ def main() -> int:
     served["training"] = dict(flash_attention=train_fa_rec,
                               flash_attention_bwd=bwd_rec)
     served["whisper-tiny"] = whisper
+    served.update(rec_records)
     served["distributed"] = distributed
     for arch, records in served.items():
         for name, rec in records.items():

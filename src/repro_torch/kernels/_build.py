@@ -26,12 +26,6 @@ FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v")
 
 
-class NoBackwardKernel(NotImplementedError):
-    """A kernel with no backward yet was asked for a gradient on the card
-    (or on fake tensors, which stand for the card's): the message names
-    the ``ROADMAP.md`` item that owes it."""
-
-
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

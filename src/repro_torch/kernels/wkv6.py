@@ -21,6 +21,14 @@ reads caches again after a step).  A decode step (S = 1) is one launch
 from s0.  A CUDA tensor launches the kernel (or the call raises); a CPU
 tensor runs the plain version :func:`repro_torch.kernels.ref.ref_wkv6`.
 ``wkv6.launches`` counts launches, and only those.
+
+The backward is ``csrc/wkv6_bwd.cu`` (:func:`wkv6_bwd`, through the
+autograd Function :class:`WKV6` where an input requires grad): the serial
+form on the CUDA cores, a block of d x ``BWD_COLUMNS[d]`` threads per
+(batch, head, value columns), walking forward over chunks of
+``BWD_CHUNK`` steps to checkpoint the state entering each, then back over
+them; the column blocks' partial sums added in a fixed order by a second
+kernel.  ``wkv6_bwd.launches`` counts its calls (three kernels each).
 """
 from __future__ import annotations
 
@@ -31,7 +39,7 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..roofline import kernel_costs
-from ._build import NoBackwardKernel, build_library
+from ._build import build_library
 from .flash_attention import aligned_rows
 from .ref import ref_wkv6
 
@@ -44,6 +52,10 @@ CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
 COLUMNS = {16: 16, 32: 32, 64: 32, 128: 16}
 #: value columns of a decode block
 STEP_COLS = 16
+#: steps a chunk of the backward's walks (its checkpoint interval)
+BWD_CHUNK = 16
+#: value columns a backward block owns, by head dim (d x this threads)
+BWD_COLUMNS = {16: 16, 32: 32, 64: 16, 128: 8}
 #: a chunk with a channel whose summed logw is below this is evaluated
 #: step by step: exp(-TOTAL_MIN / 2) stays within float32
 TOTAL_MIN = -165.0
@@ -53,6 +65,8 @@ FACTOR_MAX = 1e38
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
+_bwd_lib: Optional[ctypes.CDLL] = None
+_bwd_build_log = ""
 
 
 def build() -> str:
@@ -69,6 +83,29 @@ def build() -> str:
     fn.restype = ctypes.c_int
     _lib = lib
     return _build_log
+
+
+def build_bwd() -> str:
+    """Compile ``csrc/wkv6_bwd.cu`` (once per source and flags) and load
+    it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
+    global _bwd_lib, _bwd_build_log
+    if _bwd_lib is not None:
+        return _bwd_build_log
+    lib, _bwd_build_log = build_library("wkv6_bwd.cu")
+    fn = lib.wkv6_bwd_launch
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 15 + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    _bwd_lib = lib
+    return _bwd_build_log
+
+
+def bwd_plan(seq: int, head_dim: int) -> Tuple[int, int, int]:
+    """(steps a chunk, value columns a block, chunks) of a backward
+    launch: every (batch, head) walks ``ceil(seq / BWD_CHUNK)`` chunks in
+    ``head_dim / BWD_COLUMNS[head_dim]`` blocks of ``head_dim x
+    BWD_COLUMNS[head_dim]`` threads."""
+    return BWD_CHUNK, BWD_COLUMNS[head_dim], -(-seq // BWD_CHUNK)
 
 
 def plan(seq: int, head_dim: int) -> Tuple[int, int]:
@@ -140,6 +177,141 @@ def _launch(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     return y, s_last
 
 
+def _launch_bwd(r, k, v, logw, u, s0, dy, ds_last):
+    """One counted call of the backward (three kernels)."""
+    B, S, H, D = r.shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the wkv6 kernel takes head dims {HEAD_DIMS}: {D}")
+    r, k, v, logw, dy = (t if t.stride(-1) == 1 else t.contiguous()
+                         for t in (r, k, v, logw, dy))
+    u = u.contiguous()
+    s0, ds_last = (None if t is None else t.contiguous()
+                   for t in (s0, ds_last))
+    dev = r.device
+    dr, dk, dv = (torch.empty((B, S, H, D), dtype=r.dtype, device=dev)
+                  for _ in range(3))
+    dlogw = torch.empty((B, S, H, D), dtype=torch.float32, device=dev)
+    du = torch.empty((H, D), dtype=torch.float32, device=dev)
+    ds0 = (torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
+           if s0 is not None else None)
+    build_bwd()
+    _, vb, n_chunks = bwd_plan(S, D)
+    ncb, n = D // vb, B * S * H * D
+    # the column blocks' partials, du's partials, the checkpoints
+    ws = torch.empty(3 * ncb * n + ncb * B * H * D + n_chunks * B * H * D * D,
+                     dtype=torch.float32, device=dev)
+    strides = (ctypes.c_longlong * 15)(
+        *[x for t in (r, k, v, logw, dy) for x in t.stride()[:3]])
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _bwd_lib.wkv6_bwd_launch(
+            int(r.dtype == torch.bfloat16), D, vb, ptr(r), ptr(k), ptr(v),
+            ptr(logw), ptr(u), ptr(s0), ptr(dy), ptr(ds_last), ptr(dr),
+            ptr(dk), ptr(dv), ptr(dlogw), ptr(du), ptr(ds0), ptr(ws), B, S,
+            H, strides, stream)
+    if err == -1:
+        raise RuntimeError(f"wkv6_bwd has no build for head dim {D} in "
+                           f"blocks of {vb} columns")
+    if err != 0:
+        raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
+                           f"{err}")
+    wkv6_bwd.launches += 1
+    return dr, dk, dv, dlogw, du, ds0
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor, s0: Optional[torch.Tensor],
+             dy: torch.Tensor, ds_last: Optional[torch.Tensor] = None):
+    """The gradients ``(dr, dk, dv, dlogw, du, ds0)`` of :func:`wkv6` at
+    (r, k, v, logw, u, s0), given y's cotangent ``dy`` (r's shape and
+    dtype) and s_last's ``ds_last`` (float32 (B, H, d, d), or None: s_last
+    unused).  dr, dk and dv come in r's dtype, dlogw and du float32, ds0
+    float32 (None where s0 is None).  CUDA tensors run the hand-written
+    kernel; CPU tensors autograd through the plain version; fake tensors
+    return fake gradients and add the kernel's operations and bytes to
+    ``roofline.kernel_costs.COUNTS``.  Any other device raises."""
+    _check(r, k, v, logw, u, s0)
+    if dy.shape != r.shape or dy.dtype != r.dtype:
+        raise ValueError(f"dy must be r's shape and dtype: {tuple(dy.shape)}"
+                         f" {dy.dtype}")
+    B, S, H, D = r.shape
+    if ds_last is not None and (ds_last.shape != (B, H, D, D)
+                                or ds_last.dtype != torch.float32):
+        raise ValueError(f"ds_last must be float32 (B, H, d, d): "
+                         f"{tuple(ds_last.shape)} {ds_last.dtype}")
+    fake = is_fake(r)
+    if r.device.type == "cpu" and not fake:
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (r, k, v, logw, u)]
+            if s0 is not None:
+                leaves.append(s0.detach().requires_grad_())
+            y, s_last = ref_wkv6(*leaves)
+            outs, cots = [y], [dy]
+            if ds_last is not None:
+                outs.append(s_last)
+                cots.append(ds_last)
+            # (one step with no s0 and no ds_last leaves logw unused)
+            grads = [g if g is not None else torch.zeros_like(t)
+                     for g, t in zip(torch.autograd.grad(
+                         outs, leaves, cots, allow_unused=True), leaves)]
+        return (*grads[:5], grads[5] if s0 is not None else None)
+    if r.device.type != "cuda" and not fake:
+        raise ValueError(f"wkv6_bwd runs on cuda or cpu, not {r.device}")
+    if fake:  # counted, not launched (the dry run)
+        kernel_costs.record("wkv6_bwd", kernel_costs.wkv6_bwd_cost(
+            B, S, H, D, r.element_size(), s0 is not None,
+            ds_last is not None))
+        dev = r.device
+        return (*(torch.empty((B, S, H, D), dtype=r.dtype, device=dev)
+                  for _ in range(3)),
+                torch.empty((B, S, H, D), dtype=torch.float32, device=dev),
+                torch.empty((H, D), dtype=torch.float32, device=dev),
+                torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
+                if s0 is not None else None)
+    return _launch_bwd(r, k, v, logw, u, s0, dy, ds_last)
+
+
+wkv6_bwd.launches = 0
+
+
+def _forward(r, k, v, logw, u, s0):
+    """The kernel's launch, or on fake tensors its count and fake
+    outputs."""
+    if is_fake(r):  # counted, not launched (the dry run)
+        B, S, H, D = r.shape
+        kernel_costs.record("wkv6", kernel_costs.wkv6_cost(
+            B, S, H, D, r.element_size(), s0 is not None))
+        return (torch.empty((B, S, H, D), dtype=r.dtype, device=r.device),
+                torch.empty((B, H, D, D), dtype=torch.float32,
+                            device=r.device))
+    return _launch(r, k, v, logw, u, s0)
+
+
+class WKV6(torch.autograd.Function):
+    """:func:`wkv6` on CUDA (or fake) tensors with its gradient: the
+    forward is the kernel and saves r, k, v, logw, u and s0; the backward
+    is :func:`wkv6_bwd` (s_last's cotangent None where s_last is
+    unused)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0):
+        ctx.set_materialize_grads(False)
+        y, s_last = _forward(r, k, v, logw, u, s0)
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        return y, s_last
+
+    @staticmethod
+    def backward(ctx, dy, ds_last):
+        r, k, v, logw, u, s0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(r)
+        return wkv6_bwd(r, k, v, logw, u, s0, dy, ds_last)
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, u: torch.Tensor,
          s0: Optional[torch.Tensor] = None
@@ -150,14 +322,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     serial recurrence ``y_t = r_t (S + diag(u) k_t^T v_t)``,
     ``S <- diag(exp(logw_t)) S + k_t^T v_t`` from ``S = s0`` (or 0).
 
-    CUDA tensors run the hand-written kernel; CPU tensors run the plain
-    version, which autograd differentiates.  The kernel has no backward
-    yet: a CUDA input that requires grad raises ``NoBackwardKernel`` (a
-    ``NotImplementedError``).
-    Any other device raises.  Fake tensors (the dry run) stand for CUDA
-    ones: they raise as those do, else return fake outputs and add the
-    kernel's operations (the serial recurrence's) and bytes to
-    ``roofline.kernel_costs.COUNTS``."""
+    CUDA tensors run the hand-written kernel, differentiable through
+    :class:`WKV6` (the backward kernel) where an input requires grad; CPU
+    tensors run the plain version, which autograd differentiates.  Any
+    other device raises.  Fake tensors (the dry run) stand for CUDA ones:
+    they return fake outputs and add the kernel's operations (the serial
+    recurrence's) and bytes to ``roofline.kernel_costs.COUNTS``, and the
+    backward's through :class:`WKV6`."""
     _check(r, k, v, logw, u, s0)
     fake = is_fake(r)
     if r.device.type == "cpu" and not fake:
@@ -167,18 +338,8 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (r, k, v, logw, u, s0)):
-        raise NoBackwardKernel(
-            "wkv6 has no backward kernel yet: training rwkv6 on the card "
-            "waits for ROADMAP.md queue 2, item A6 (train on the CPU "
-            "meanwhile)")
-    if fake:  # counted, not launched (the dry run)
-        B, S, H, D = r.shape
-        kernel_costs.record("wkv6", kernel_costs.wkv6_cost(
-            B, S, H, D, r.element_size(), s0 is not None))
-        return (torch.empty((B, S, H, D), dtype=r.dtype, device=r.device),
-                torch.empty((B, H, D, D), dtype=torch.float32,
-                            device=r.device))
-    return _launch(r, k, v, logw, u, s0)
+        return WKV6.apply(r, k, v, logw, u, s0)
+    return _forward(r, k, v, logw, u, s0)
 
 
 wkv6.launches = 0

@@ -21,9 +21,9 @@ counts what that rank's program does:
   returns fake outputs and adds its operations and bytes
   (``roofline/kernel_costs.py``) instead of launching; it never runs the
   plain version, which would hold the whole S x S score matrix (and count
-  the causal upper half) that the kernel never holds.  rwkv6-7b's and
-  recurrentgemma-2b's train cells raise the recurrences' missing backward
-  kernels (``ROADMAP.md`` queue 2, A6 / A7) and are recorded skipped.
+  the causal upper half) that the kernel never holds.  The backward
+  kernels (the attention's, ``wkv6_bwd`` and ``rglru_scan_bwd``) count
+  themselves the same way through their autograd Functions.
 
 Each record has the keys ``roofline/analysis.analyze_record`` reads:
 
@@ -84,7 +84,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from ..configs import SHAPES, all_configs, get_config, skip_reason
 from ..configs.base import ModelConfig
 from ..configs.shapes import ShapeSpec
-from ..kernels._build import NoBackwardKernel
 from ..roofline import kernel_costs
 from ..roofline.hlo import CollectiveCounter, tensor_bytes
 from .mesh import MeshShape, make_production_mesh
@@ -327,8 +326,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
              shape: Optional[ShapeSpec] = None,
              mesh_shape: Optional[MeshShape] = None) -> dict:
     """One dry-run cell: the record of :func:`account` at full depth, or
-    ``status`` "skipped" (the reference's skip reasons, and a train cell
-    whose recurrence has no backward kernel yet) or "error".  ``shape``
+    ``status`` "skipped" (the reference's skip reasons) or "error".  ``shape``
     and ``mesh_shape`` override the named shape and production mesh (the
     card's smoke run holds a step of its own size against the card); the
     record then carries the shape as ``shape_spec``, which
@@ -362,13 +360,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                   f"flops/dev={ca['flops']:.3e} coll_bytes/dev={coll:.3e} "
                   f"args={ma['argument_size_in_bytes'] / 2**30:.2f}GiB "
                   f"temp={ma['temp_size_in_bytes'] / 2**30:.2f}GiB",
-                  flush=True)
-    except NoBackwardKernel as e:
-        record.update(status="skipped", skip_reason=str(e))
-        for key in ("trace_seconds", "n_devices"):
-            record.pop(key, None)
-        if verbose:
-            print(f"[skipped] {arch} x {shape_name} x {mesh_kind}: {e}",
                   flush=True)
     except Exception as e:
         record.update(status="error", error=repr(e),

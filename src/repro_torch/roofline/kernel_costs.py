@@ -110,6 +110,14 @@ def rglru_scan_cost(numel: int, esize: int, h0_bytes: int = 0) -> Cost:
     return 2 * numel, 3 * numel * esize + h0_bytes, "f32"
 
 
+def rglru_scan_bwd_cost(numel: int, esize: int, h0_bytes: int = 0) -> Cost:
+    """The backward, g_t = dh_t + a_{t+1} g_{t+1}, dx_t = g_t and
+    da_t = g_t h_{t-1}: three float32 flops an element; dh and a read and
+    dx and da written in their dtype, the float32 carry h read, and h0
+    read and dh0 written."""
+    return 3 * numel, numel * (4 * esize + 4) + 2 * h0_bytes, "f32"
+
+
 def wkv6_cost(B: int, S: int, H: int, D: int, esize: int, has_s0: bool,
               chunk: Optional[int] = None) -> Cost:
     """The WKV recurrence: r, k, v read in their dtype and logw in float32,
@@ -134,3 +142,16 @@ def latency_hist_cost(lanes: int, n: int, bins: int, n_valid: int,
               + lanes * bins * 4)
     ops = lanes * n + n_valid * (math.ceil(math.log2(bins + 2)) + 1)
     return ops, nbytes, "f32"
+
+
+def wkv6_bwd_cost(B: int, S: int, H: int, D: int, esize: int, has_s0: bool,
+                  has_ds_last: bool) -> Cost:
+    """The WKV backward: r, k, v and dy read and dr, dk and dv written in
+    their dtype, logw read and dlogw written in float32, u read and du
+    written, s0 read and ds0 written, ds_last read.  Operations: the
+    serial form's float32 flops, per token and head 12 d^2 + 10 d (the
+    state recomputed from its checkpoints twice, dr, dk, dv, dlogw and
+    the dS update, 2 d^2 each; the bonus terms and v . dy)."""
+    nbytes = (B * S * H * D * (7 * esize + 8) + 8 * H * D
+              + 4 * B * H * D * D * (2 * int(has_s0) + int(has_ds_last)))
+    return (12 * D * D + 10 * D) * B * S * H, nbytes, "f32"

@@ -13,7 +13,9 @@ A process holds one process group, so the cells run in one child process
   two ``_reduced_depths`` (to 1e-9 relative: every layer is counted, and
   each adds the same); the smaller of these run again with the collector
   off, with the same peak memory, exactly;
-* rwkv6-7b ``train_4k`` skipped for the missing WKV backward (A6);
+* rwkv6-7b ``train_4k`` ok, its WKV backward counted once a layer, and
+  recurrentgemma-2b ``train_4k`` ok, its RG-LRU backward counted once an
+  RG-LRU layer and the attention backward once a local-attention layer;
   granite ``long_500k`` skipped with the reference's reason; a decode
   cell ok;
 * the reference's own ``analyze_record`` reading a port record;
@@ -58,6 +60,8 @@ out["train_nogc"] = dryrun.run_cell(
 gc.enable()
 out["rwkv_train"] = dryrun.run_cell("rwkv6-7b", "train_4k", "single",
                                     verbose=False)
+out["rg_train"] = dryrun.run_cell("recurrentgemma-2b", "train_4k", "single",
+                                  verbose=False)
 out["long"] = dryrun.run_cell("granite-3-2b", "long_500k", "single",
                               verbose=False)
 out["decode"] = dryrun.run_cell("granite-3-2b", "decode_32k", "single",
@@ -180,10 +184,30 @@ def test_peak_memory_does_not_wait_for_the_collector(cells):
             > on["memory_analysis"]["argument_size_in_bytes"] // 100)
 
 
-def test_recurrent_train_cell_is_skipped_naming_its_backward(cells):
+def test_rwkv6_train_cell_counts_one_wkv_backward_a_layer(cells):
+    """rwkv6-7b's train step runs on fake tensors through the WKV
+    Function: one ``wkv6_bwd`` a layer, and the forward twice a layer (the
+    forward and its recompute under remat)."""
+    from repro_torch.configs import get_config
     rec = cells["rwkv_train"]
-    assert rec["status"] == "skipped"
-    assert "A6" in rec["skip_reason"] and "wkv6" in rec["skip_reason"]
+    assert rec["status"] == "ok", rec.get("error")
+    L = get_config("rwkv6-7b").n_layers
+    assert rec["kernels"]["wkv6_bwd"]["calls"] == L
+    assert rec["kernels"]["wkv6"]["calls"] == 2 * L
+    assert rec["kernels"]["wkv6_bwd"]["flops"] > 0
+
+
+def test_recurrentgemma_train_cell_counts_its_backward_kernels(cells):
+    """recurrentgemma-2b's train step: one ``rglru_scan_bwd`` for each of
+    its 18 RG-LRU layers and one ``flash_attention_bwd`` for each of its 8
+    local-attention layers, the forwards twice (remat)."""
+    rec = cells["rg_train"]
+    assert rec["status"] == "ok", rec.get("error")
+    k = rec["kernels"]
+    assert k["rglru_scan_bwd"]["calls"] == 18
+    assert k["flash_attention_bwd"]["calls"] == 8
+    assert k["rglru_scan"]["calls"] == 36
+    assert k["flash_attention"]["calls"] == 16
 
 
 def test_long_context_cell_skipped_with_the_references_reason(cells):

@@ -152,8 +152,8 @@ def test_causal_and_windowed_calls_need_equal_lengths():
 
 def test_recurrences_differentiate_on_the_cpu():
     """The plain recurrences are differentiable, so rwkv6 and
-    recurrentgemma train on the CPU (their kernels have no backward yet:
-    see the gpu test below)."""
+    recurrentgemma train on the CPU (on the card their backward kernels
+    run: see the gpu test below)."""
     x = torch.randn(1, 5, 8, requires_grad=True)
     a = torch.rand(1, 5, 8)
     ops.rglru_scan(x, a).sum().backward()
@@ -468,16 +468,39 @@ def test_cuda_backward_replays_are_bitwise_equal(shape):
 
 
 @pytest.mark.gpu
-def test_recurrence_kernels_raise_under_autograd_on_the_card():
+def test_recurrence_kernels_differentiate_on_the_card():
+    """A CUDA input that requires grad runs each recurrence's backward
+    kernel (launch counted), and its gradient agrees with autograd through
+    the plain version on the CPU (float32, within 1e-5 of the gradient's
+    largest entry)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
-    x = torch.randn(1, 5, 8, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.rglru_scan(x, torch.rand(1, 5, 8, device="cuda"))
-    r = torch.randn(1, 4, 2, 16, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.wkv6(r, r.detach(), r.detach(), -torch.rand_like(r.detach()),
-                 torch.randn(2, 16, device="cuda"))
+    from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.kernels import wkv6 as WK
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1, 5, 8, generator=g)
+    a = torch.rand(1, 5, 8, generator=g)
+    before = RS.rglru_scan_bwd.launches
+    xc = x.cuda().requires_grad_()
+    ops.rglru_scan(xc, a.cuda()).sum().backward()
+    assert RS.rglru_scan_bwd.launches == before + 1
+    xr = x.clone().requires_grad_()
+    ops.rglru_scan(xr, a).sum().backward()
+    err = float((xc.grad.cpu() - xr.grad).abs().max())
+    assert err <= 1e-5 * float(xr.grad.abs().max())
+    r = torch.randn(1, 4, 2, 16, generator=g)
+    lw = -torch.rand(1, 4, 2, 16, generator=g)
+    u = torch.randn(2, 16, generator=g)
+    grads, before = [], WK.wkv6_bwd.launches
+    for dev in ("cuda", "cpu"):
+        leaf = r.to(dev).clone().requires_grad_()
+        y, _ = ops.wkv6(leaf, r.to(dev), r.to(dev), lw.to(dev), u.to(dev))
+        y.sum().backward()
+        grads.append(leaf.grad.cpu())
+    assert WK.wkv6_bwd.launches == before + 1
+    err = float((grads[0] - grads[1]).abs().max())
+    assert err <= 1e-5 * float(grads[1].abs().max())
 
 
 @pytest.mark.gpu

@@ -5,7 +5,9 @@ elastic rescale works, two trainers are deterministic.
 
 Besides, the port's ``Trainer`` started from the reference's initial
 weights (carried across by ``models/convert.py``) on the float32 smoke
-config: the loss, ``grad_norm`` and ``lr`` of 3 steps within 1e-4 of the
+configs of granite-3-2b, rwkv6-7b and recurrentgemma-2b (the recurrences
+differentiated through their plain versions here, their backward kernels
+on the card): the loss, ``grad_norm`` and ``lr`` of 3 steps within 1e-4 of the
 reference ``Trainer``'s, and each parameter's ``.grad`` of the first step
 within 1e-4 of its largest entry of the reference's gradient, put through
 the same conversion.
@@ -99,7 +101,9 @@ def test_determinism_across_trainers(tmp_path):
     assert [m["ce"] for m in t1.run(3)] == [m["ce"] for m in t2.run(3)]
 
 
-def test_trainer_matches_reference_from_the_same_weights(tmp_path):
+@pytest.mark.parametrize("name", ["granite-3-2b", "rwkv6-7b",
+                                  "recurrentgemma-2b"])
+def test_trainer_matches_reference_from_the_same_weights(tmp_path, name):
     import jax
     from repro.configs import get_config as jget
     from repro.data.pipeline import DataConfig as JData
@@ -108,7 +112,6 @@ def test_trainer_matches_reference_from_the_same_weights(tmp_path):
     from repro.models import loss_fn as jloss
     from repro_torch.models.convert import params_from_jax
 
-    name = "granite-3-2b"
     jcfg, cfg = jget(name).smoke(), get_config(name).smoke()
     okw = dict(lr=3e-3, warmup_steps=2, total_steps=100, weight_decay=0.01)
     dkw = dict(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4, seed=0)
