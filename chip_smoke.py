@@ -1663,10 +1663,14 @@ def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
 #: cotangent and the gradients are bf16 (8 bits of mantissa)
 BWD_TOL = {"torch.float32": (1e-5, 1e-5), "torch.bfloat16": (2e-2, 1e-3)}
 #: (B, H, H_kv, S_q, S_k, d, causal, window): lengths 1, 17, 127, 300,
-#: 700, 1500 and 2048; groups 1, 4 and 8; head dims 64, 128 and 256;
-#: causal, windowed (the wgmma path's window-edge tiles at d 64 and 128),
+#: 700, 1024, 1500, 2048 and 2112; groups 1, 2, 4, 8 and 10; head dims 64,
+#: 128 and 256; causal, windowed (the wgmma path's window-edge tiles),
 #: and full with S_q != S_k (whisper's cross-attention, queries against
-#: 1500 encoder keys)
+#: 1500 encoder keys).  At d 256 (bf16 on wgmma): windowed
+#: 300 / 100, lengths that are no multiple of 64 (300, 1500), group 10
+#: over 1 kv head, S_q = 1 (causal and against 300 keys), recurrentgemma-
+#: 2b's training shape at B 1 (its 2048-key window; the group split into
+#: 8 shares), and 132 dk/dv blocks, which take no group split
 BWD_CASES = [
     (1, 8, 8, 1, 1, 64, True, None), (2, 8, 2, 17, 17, 64, True, None),
     (1, 8, 1, 127, 127, 128, True, None), (1, 4, 1, 300, 300, 256, True, 100),
@@ -1678,7 +1682,14 @@ BWD_CASES = [
     (1, 32, 8, 2048, 2048, 64, True, None),
     (1, 16, 2, 2048, 2048, 128, True, None),
     (1, 4, 1, 17, 1500, 256, False, None),
+    (1, 4, 1, 1, 1, 256, True, None), (2, 10, 1, 1, 300, 256, False, None),
+    (1, 10, 1, 1024, 1024, 256, True, 2048),
+    (2, 4, 2, 2112, 2112, 256, True, None),
 ]
+#: recurrentgemma-2b's training shape (phase T4's local attention): q (4,
+#: 10, 1024, 256), k/v (4, 1, 1024, 256), bf16, causal (its 2048-key
+#: window covers all 1024 keys)
+RG_TRAIN_ATTN = (4, 10, 1, 1024, 256)
 #: granite-3-2b's training shape: q (4, 32, 1024, 64), k/v (4, 8, 1024,
 #: 64), causal, bf16
 TRAIN_SHAPE = (4, 32, 8, 1024, 64)
@@ -1820,19 +1831,26 @@ def _bwd_build_report(FA, n_sms: int) -> None:
     for name, regs, st, ld in rows:
         print(f"  flash_attention_bwd.cu {name}: {regs} registers, spill "
               f"stores {st} B, loads {ld} B")
-        if (name.startswith(("bwd_wgmma", "bwd_delta_lse", "bwd_dq_merge"))
+        if (name.startswith(("bwd_wgmma", "bwd_delta_lse", "bwd_merge"))
                 and st + ld > 0):
             raise AssertionError(f"{name} spills ({st} / {ld} bytes)")
-    if not any(r[0].startswith("bwd_wgmma") for r in rows):
-        raise AssertionError("no wgmma kernel in the backward's ptxas report")
+    for d in (64, 128, 256):
+        if not any(r[0].startswith(f"bwd_wgmma_kernel<{d},") for r in rows):
+            raise AssertionError(f"no wgmma kernel at d {d} in the "
+                                 f"backward's ptxas report")
     B, H, H_kv, S, D = TRAIN_SHAPE
+    rB, rH, rH_kv, rS, rD = RG_TRAIN_ATTN
     for what, args in (("granite training", (B, H, H_kv, S, S, D, True)),
-                       ("whisper cross", (2, 6, 6, 16, 1500, 64, False))):
+                       ("whisper cross", (2, 6, 6, 16, 1500, 64, False)),
+                       ("recurrentgemma training",
+                        (rB, rH, rH_kv, rS, rS, rD, True))):
         plan = FA.bwd_plan(*args, None, n_sms)
         print(f"  backward plan at {what} {args[:6]}: dk/dv query tile "
-              f"{plan.kv_q_tile}, dk/dv blocks {plan.kv_grid}, dq blocks "
-              f"{plan.dq_grid} ({plan.n_split} key splits), one launch of "
-              f"{plan.n_blocks} blocks on {n_sms} SMs", flush=True)
+              f"{plan.kv_q_tile}, {plan.kv_keys} keys a dk/dv block, dk/dv "
+              f"blocks {plan.kv_grid} ({plan.n_gsplit} group shares), dq "
+              f"blocks {plan.dq_grid} ({plan.n_split} key splits of "
+              f"{plan.dq_keys}-key tiles), one launch of {plan.n_blocks} "
+              f"blocks on {n_sms} SMs", flush=True)
 
 
 def _bwd_check(FA, ref, q, k, v, do, causal: bool, what: str):
@@ -2493,17 +2511,31 @@ def _recurrence_bwd_records(FA, RS, WK, ref, dev, flush) -> dict:
           f"{rg['plain_ms']:.4f}, bound {bound:.4f} ({by}); no PyTorch call "
           f"computes it", flush=True)
     g_ = torch.Generator(device=dev).manual_seed(12)
-    q, do = (torch.randn((B, 10, S, 256), generator=g_, device=dev,
+    aB, aH, aH_kv, aS, aD = RG_TRAIN_ATTN
+    q, do = (torch.randn((aB, aH, aS, aD), generator=g_, device=dev,
                          dtype=torch.bfloat16) for _ in range(2))
-    k, v = (torch.randn((B, 1, S, 256), generator=g_, device=dev,
+    k, v = (torch.randn((aB, aH_kv, aS, aD), generator=g_, device=dev,
                         dtype=torch.bfloat16) for _ in range(2))
+    bwd = _bwd_case_record(FA, ref, q, k, v, do, True, flush,
+                           "recurrentgemma-2b's training shape")
+    _bwd_replays_equal(FA, q, k, v, do, True,
+                       "recurrentgemma-2b's training shape")
+    plan = FA.bwd_plan(aB, aH, aH_kv, aS, aS, aD, True, None, _n_sms())
+    print(f"kernel flash_attention_bwd at recurrentgemma-2b's training "
+          f"shape q {tuple(q.shape)}, k/v {tuple(k.shape)} bf16 causal "
+          f"(wgmma, {plan.n_gsplit} group shares): max abs err "
+          f"{bwd['max_abs_err']:.3e} against autograd through the plain "
+          f"forward; 20 replays bitwise equal; device times (graph replay, "
+          f"cold L2): kernel {bwd['ms']:.4f} ms, SDPA's backward "
+          f"{bwd['library_ms']:.4f} (the kernel "
+          f"{bwd['ms'] / bwd['library_ms']:.2f}x it), autograd through the "
+          f"plain forward {bwd['plain_ms']:.4f}, bound {bwd['bound_ms']:.4f}"
+          f" ({bwd['bound_by']})", flush=True)
     out["recurrentgemma-2b training"] = dict(
         rglru_scan=_scan_record(RS, ref, x, a, None, flush),
         rglru_scan_bwd=rg,
         flash_attention=_prefill_record(FA, ref, q, k, v, True, 2048, flush),
-        flash_attention_bwd=_bwd_case_record(
-            FA, ref, q, k, v, do, True, flush,
-            "recurrentgemma-2b's training shape"))
+        flash_attention_bwd=bwd)
     del x, a, h, dh, leaves, want, got, q, k, v, do
     # -- rwkv6-7b: the WKV recurrence --------------------------------------
     r, k, v, lw, u, _ = _wkv_inputs(gen, B, S, torch.bfloat16, dev)
@@ -3884,9 +3916,10 @@ def main() -> int:
     print(f"kernel check: flash_attention_bwd (dq, dk, dv through the "
           f"autograd Function on the kernel's forward and log-sum-exp) within "
           f"(rtol x largest entry, atol) {BWD_TOL} of autograd through the "
-          f"plain forward in {n_bwd} edge cases (S 1/17/127/300/700/1500/"
-          f"2048, S_q x S_k 1/17/448/1500 x 1500, groups 1/4/8, d 64/128/256, "
-          f"causal, windowed and full; f32 and bf16) in "
+          f"plain forward in {n_bwd} edge cases (S 1/17/127/300/700/1024/"
+          f"1500/2048/2112, S_q x S_k 1/17/448/1500 x 1500 and 1 x 300, "
+          f"groups 1/2/4/8/10, d 64/128/256, causal, windowed and full; f32 "
+          f"and bf16) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     _bwd_build_report(FA, n_sms)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)

@@ -17,11 +17,14 @@ with ``nvcc`` as ``kernels/_build.py`` builds the port's own, into
 prefill and decode at batch 1 and 8; recurrentgemma-2b's 3000-token
 windowed prefill and decode at batch 1 and 8, in the models' strided
 layouts) and, for the backward, at granite-3-2b's training shape,
-whisper-tiny's three train-step shapes and qwen3-moe-30b-a3b's d = 128
-heads on 2048 tokens, each kernel is held to the other
+whisper-tiny's three train-step shapes, qwen3-moe-30b-a3b's d = 128
+heads on 2048 tokens and recurrentgemma-2b's d = 256 training shape,
+each kernel is held to the other
 and timed as ``chip_smoke.py`` times it (CUDA-graph replay after an L2
 flush), in turns baseline, current, current, baseline, beside SDPA (its
-backward for the backward, captured through autograd).  For each
+backward for the backward, captured through autograd); a backward shape
+whose head dim the baseline's entry point refuses in bfloat16
+(``cudaErrorInvalidValue``) is skipped with a line that says so.  For each
 backward shape one ``torch.profiler`` window of each version splits the
 device time between its launches (:func:`_split_ms`).  Prints one line
 per shape and a JSON object of every time.
@@ -52,13 +55,16 @@ PREFILLS = [("granite prefill 2048", 1, 32, 8, 2048, 64, None),
             ("recurrentgemma prefill 3000", 1, 10, 1, 3000, 256, 2048)]
 #: (name, B, H, H_kv, S_q, S_k, d, causal) of the backward: granite-3-2b's
 #: training shape, whisper-tiny's train step (cross-attention, its
-#: encoder, its decoder) and qwen3-moe-30b-a3b's heads (32 over 4, d =
-#: 128) on a 2048-token sequence
+#: encoder, its decoder), qwen3-moe-30b-a3b's heads (32 over 4, d = 128)
+#: on a 2048-token sequence and recurrentgemma-2b's training shape (10
+#: heads over 1, d = 256; its 2048-key window covers all 1024 keys, so
+#: causal is the same function)
 BACKWARDS = [("granite train 4x1024", 4, 32, 8, 1024, 1024, 64, True),
              ("whisper cross 16x1500", 2, 6, 6, 16, 1500, 64, False),
              ("whisper encoder 1500", 2, 6, 6, 1500, 1500, 64, False),
              ("whisper causal 16", 2, 6, 6, 16, 16, 64, True),
-             ("qwen3-moe d128 2048", 1, 32, 4, 2048, 2048, 128, True)]
+             ("qwen3-moe d128 2048", 1, 32, 4, 2048, 2048, 128, True),
+             ("recurrentgemma train d256", 4, 10, 1, 1024, 1024, 256, True)]
 DECODES = [("granite decode b1", 1, 32, 8, 2064, 64, 2064),
            ("granite decode b8", 8, 32, 8, 1024, 64, 576),
            ("recurrentgemma decode b1", 1, 10, 1, 2048, 256, 2048),
@@ -158,6 +164,11 @@ def _old_split_plan(batch, n_kv_heads, s_max, n_sms):
     return -(-s_max // split_len), split_len
 
 
+class Refused(Exception):
+    """The baseline's entry point returned cudaErrorInvalidValue: it does
+    not take this head dim and dtype."""
+
+
 def _base_bwd(lib, q, k, v, out, lse, dout, causal):
     """The baseline's backward: (dq, dk, dv) from its C entry point."""
     B, H, S, D = q.shape
@@ -176,16 +187,18 @@ def _base_bwd(lib, q, k, v, out, lse, dout, causal):
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1],
              S, k.shape[2], int(causal), 0, 1.0 / math.sqrt(D), st,
              torch.cuda.current_stream().cuda_stream)
+    if err == 1:  # cudaErrorInvalidValue
+        raise Refused(D)
     assert err == 0, err
     return dq, dk, dv
 
 
 def _split_ms(fn, reps: int = 5) -> dict:
     """Device ms a call of ``fn`` by launch, from one ``torch.profiler``
-    window of ``reps`` calls: delta, dq, dk/dv (the ``mma.sync``
-    backward's three launches), or delta, "dq + dk/dv" (the ``wgmma``
-    backward's one launch of both roles) and, with key splits, the dq
-    merge."""
+    window of ``reps`` calls: delta, dq, dk/dv (the ``mma.sync`` or CUDA-
+    core backward's three launches), or delta, "dq + dk/dv" (the
+    ``wgmma`` backward's one launch of both roles) and, with key or group
+    splits, the merge."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -199,7 +212,7 @@ def _split_ms(fn, reps: int = 5) -> dict:
                      getattr(evt, "cuda_time_total", 0.0))
         kind = ("delta" if "delta" in evt.key else
                 "dq + dk/dv" if "bwd_wgmma" in evt.key else
-                "dq merge" if "merge" in evt.key else
+                "merge" if "merge" in evt.key else
                 "dk/dv" if "dkdv" in evt.key else
                 "dq" if "dq" in evt.key else None)
         if kind and us > 0:
@@ -230,8 +243,9 @@ def _turns(name, base_fn, new_fn, lib_fn, flush, times, lib_stream=None):
 
 
 def _backward_ab(base_bwd, gen, flush, times) -> None:
-    """The backward at each of ``BACKWARDS``, on the forward kernel's own
-    output and log-sum-exp, in the models' (B, S, H, d) layouts."""
+    """The backward at each of ``BACKWARDS`` that the baseline takes, on
+    the forward kernel's own output and log-sum-exp, in the models' (B, S,
+    H, d) layouts."""
     for name, B, H, H_kv, Sq, Sk, D, causal in BACKWARDS:
         q, do = (_model_view((B, H, Sq, D), gen) for _ in "qo")
         k, v = (_model_view((B, H_kv, Sk, D), gen) for _ in "kv")
@@ -239,6 +253,13 @@ def _backward_ab(base_bwd, gen, flush, times) -> None:
         base_fn = lambda: _base_bwd(base_bwd, q, k, v, out, lse, do, causal)
         new_fn = lambda: FA.flash_attention_bwd(q, k, v, out, lse, do,
                                                 causal=causal)
+        try:
+            base_fn()
+        except Refused:
+            why = f"the baseline's backward refuses d = {D} in bfloat16"
+            times[name] = {"skipped": why}
+            print(f"{name}: skipped, {why}", flush=True)
+            continue
         leaves = [t.detach().requires_grad_() for t in (q, k, v)]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())

@@ -22,35 +22,46 @@
 // dense bf16 rate of 989 TFLOP/s.  The exponentials (one a pair in each
 // of dq's and dk/dv's walk) are the next limit: 16 a cycle an SM.
 //
-// bfloat16 at head dims 64 and 128 (the models that train on the card),
-// three launches, the last two programmatic dependents of the one before
-// (they start while it ends and wait for its writes):
+// bfloat16 at head dims 64, 128 and 256 (the models that train on the
+// card), three launches, the last two programmatic dependents of the one
+// before (they start while it ends and wait for its writes):
 //   1. delta: rowsum(do o) and lse2 = lse log2(e) for every (b, h) row
 //      padded to PAD_ROWS (+inf past S_q, so P = 0 there: no query needs
 //      a bound check), 16-byte loads.
 //   2. one launch of two roles (a block of 384 threads: a producer
 //      warpgroup, whose one thread issues the copy engine's loads and
 //      which hands its registers to the consumers by setmaxnreg, and two
-//      consumer warpgroups of 64 rows each):
-//      * dk/dv, one block per (b, kv head, 128 keys), walking every head
-//        of the group and each query tile (kv_q_tile rows: 128 at d = 64,
-//        64 at d = 128; 16 or 32 where S_q is smaller) that sees its
-//        keys; K and V stay in shared memory, the q / do tiles and their
-//        lse2 / delta come through a ring of 3 stages (2 at d = 128).
+//      consumer warpgroups):
+//      * dk/dv, one block per (b, kv head, key block): 128 keys at d = 64
+//        and 128, 64 a consumer; it walks every head of the group and
+//        each query tile (kv_q_tile rows: 128 at d = 64, 64 at d = 128
+//        and 256; 16 or 32 where S_q is smaller) that sees its keys; K
+//        and V stay in shared memory, the q / do tiles and their lse2 /
+//        delta come through a ring of 3 stages (2 at d = 128 and 256).
 //        S^T = K Q^T and dP^T = V dO^T on wgmma with both operands in
 //        shared memory, P^T and dS^T in registers (masked only on tiles
 //        that cross the diagonal or the window's edge; a tile that no
 //        pair of a consumer sees is skipped), rounded to bf16 and fed
 //        straight back as A: dV += P^T dO, dK += dS^T Q.  The group is
 //        summed in the block: no atomics.
+//        At d = 256 a consumer's two 64 x 256 float32 accumulators would
+//        take 256 registers a thread, so a block has 64 keys and its two
+//        consumers split the products, not the keys: consumer 0 computes
+//        S^T, P^T and dV and hands P^T to consumer 1 in float32 through
+//        shared memory (16 KB at 64 rows, on two mbarriers), which
+//        computes dP^T, dS^T and dK; each holds one accumulator.  Where
+//        the (b, kv head, key block) blocks are fewer than the SMs
+//        (recurrentgemma-2b's 1 kv head for 10 query heads) the group's
+//        heads are split over n_gsplit blocks (bwd_plan), each writing
+//        float32 dk / dv partials.
 //      * dq, one block per (b, h, 128 query rows, key split) walking the
-//        64-key tiles its rows see through the same kind of ring: S =
-//        Q K^T, dP = dO V^T, dQ += dS K.  Where few queries leave SMs idle
-//        (whisper's cross-attention) bwd_plan splits the keys; each split
-//        writes a float32 partial.
+//        key tiles (64 keys, 32 at d = 256) its rows see through the same
+//        kind of ring: S = Q K^T, dP = dO V^T, dQ += dS K.  Where few
+//        queries leave SMs idle (whisper's cross-attention) bwd_plan
+//        splits the keys; each split writes a float32 partial.
 //      The dk/dv blocks come first, longest causal walks first, then the
 //      dq blocks: each role fills the other's last wave.
-//   3. (key splits only) dq = the partials summed in split order.
+//   3. (key or group splits only) the partials summed in split order.
 //   Every tile lands by TMA with the 128-byte swizzle: one layout serves
 //   as K-major operand (S, dP) and MN-major one (dV, dK, dQ).  No atomics
 //   anywhere: every run gives the same bits.  The launch plan (tiles,
@@ -58,26 +69,30 @@
 //   consumer skips or masks) is kernels/flash_attention.py:bwd_plan's;
 //   the kernel reads its walk from the plan's table.
 // Registers (ptxas -v, sm_90a): every wgmma instantiation 168 a thread at
-// launch, 24 / 240 after setmaxnreg, no spill; delta 26-28, merge 36.
+// launch, 24 / 240 after setmaxnreg, no spill; delta 26, merge 36.
 // Shared memory a block (the larger role's, + 1 KB for alignment): d = 64
 // 83,000 B (kv_q_tile 16, 32), 84,536 (64), 135,224 (128); d = 128
-// 132,136 (16, 32), 133,160 (64).
+// 132,136 (16, 32), 133,160 (64); d = 256 230,456 at every kv_q_tile (the
+// dq role's: q and do of 128 rows, 128 KB, and 3 stages of 32-key K and
+// V, 96 KB; the dk/dv role's at 64 rows: K and V 64 KB, 2 stages of q
+// and do 128 KB, P^T 16 KB, 215,096 B).
 // Times (scripts/attention_ab.py --only backward, in turns against the
-// three-launch mma.sync version before it; one NVIDIA H100 80GB HBM3 at
-// a 700.00 W power limit): granite-3-2b's training shape 0.2246-0.2263 ms
-// (was 0.4396-0.4447; SDPA's backward 0.2270-0.2273), whisper-tiny's
-// cross 16 x 1500 0.0229-0.0230 (0.0657-0.0665; SDPA 0.0223-0.0224),
-// encoder 1500 x 1500 0.0987-0.0994 (0.1943-0.1959; SDPA 0.0976-0.0983),
-// causal 16 x 16 0.0100-0.0103 (0.0152-0.0155; SDPA 0.0169-0.0171),
-// qwen3-moe's 32 / 4 heads at d = 128, causal 2048, 0.5122-0.5200
-// (1.1001-1.1109; SDPA 0.2883-0.2903).  More in PERF.md, row 2b.
+// version before; one NVIDIA H100 80GB HBM3 at a 700.00 W power limit):
+// granite-3-2b's training shape 0.2246-0.2263 ms (the mma.sync version
+// 0.4396-0.4447; SDPA's backward 0.2270-0.2273), whisper-tiny's cross 16
+// x 1500 0.0229-0.0230 (0.0657-0.0665; SDPA 0.0223-0.0224), encoder 1500
+// x 1500 0.0987-0.0994 (0.1943-0.1959; SDPA 0.0976-0.0983), causal 16 x
+// 16 0.0100-0.0103 (0.0152-0.0155; SDPA 0.0169-0.0171), qwen3-moe's 32 /
+// 4 heads at d = 128, causal 2048, 0.5122-0.5200 (1.1001-1.1109; SDPA
+// 0.2883-0.2903); recurrentgemma-2b's training shape, 10 / 1 heads at d
+// = 256, causal 1024, 0.1910-0.1917 (the CUDA-core path it replaced
+// 6.8216-6.8650; SDPA 0.2868).  More in PERF.md, row 2b.
 //
-// float32, and bfloat16 at head dim 256: three simple launches (delta,
-// dq, dk/dv) on the CUDA cores, float32 FMAs (bfloat16 widened as it lands
-// in shared memory), to float32 rounding.  Kernel 2 (dq): one block per
-// (b, h, 64 query rows) walks the key tiles its rows see; kernel 3 (dk,
-// dv): one block per (b, kv head, key tile) walks the query tiles that
-// see its keys, for every query head of the group in turn.  P and dS go
+// float32: three simple launches (delta, dq, dk/dv) on the CUDA cores,
+// float32 FMAs, to float32 rounding.  Kernel 2 (dq): one block per (b,
+// h, 64 query rows) walks the key tiles its rows see; kernel 3 (dk, dv):
+// one block per (b, kv head, key tile) walks the query tiles that see
+// its keys, for every query head of the group in turn.  P and dS go
 // through shared memory for the products over the other axis.  256
 // threads as 16 x 16: thread (ty, tx) owns query rows 4ty..4ty+3 and keys
 // tx + 16j of a score tile, and key rows ty + 16r (kernel 3) or query
@@ -101,15 +116,6 @@ struct Strides {
   long long b, h, s;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
 template <int D>
 struct Tile {
   static constexpr int BK = D == 256 ? 32 : 64;  // keys per tile
@@ -121,13 +127,13 @@ struct Tile {
 
 // ROWS x D rows r0.. of src (row stride rs) into dst as float, rows at or
 // past n zero.
-template <int ROWS, int D, int LD, typename T>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
+template <int ROWS, int D, int LD>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           long long rs, int r0, int n) {
   for (int idx = threadIdx.x; idx < ROWS * D; idx += THREADS) {
     const int r = idx / D, c = idx % D;
     const int row = r0 + r;
-    dst[r * LD + c] = row < n ? to_f(src[(long long)row * rs + c]) : 0.f;
+    dst[r * LD + c] = row < n ? src[(long long)row * rs + c] : 0.f;
   }
 }
 
@@ -181,9 +187,8 @@ __device__ __forceinline__ void score_tiles(const float* sq, const float* sdo,
 
 // Kernel 1: delta[row] = sum_d do[row, d] o[row, d], one warp a row of
 // the (B, H, S_q) rows.
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
                  float* __restrict__ delta, int H, int Sq, int D,
                  long long n_rows, Strides os, Strides ds) {
   const long long row = (long long)blockIdx.x * (THREADS / 32) +
@@ -192,11 +197,11 @@ bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const int lane = threadIdx.x % 32;
   const long long b = row / ((long long)H * Sq);
   const int h = (int)((row / Sq) % H), i = (int)(row % Sq);
-  const T* orow = o + b * os.b + h * os.h + (long long)i * os.s;
-  const T* drow = dout + b * ds.b + h * ds.h + (long long)i * ds.s;
+  const float* orow = o + b * os.b + h * os.h + (long long)i * os.s;
+  const float* drow = dout + b * ds.b + h * ds.h + (long long)i * ds.s;
   float acc = 0.f;
   for (int c = lane; c < D; c += 32)
-    acc = fmaf(to_f(orow[c]), to_f(drow[c]), acc);
+    acc = fmaf(orow[c], drow[c], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -204,12 +209,12 @@ bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 }
 
 // Kernel 2: dq for 64 query rows of one (b, h).
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dq, int H, int group, int Sq, int Sk,
+              float* __restrict__ dq, int H, int group, int Sq, int Sk,
               float scale, int causal, int window, Strides qs, Strides ks,
               Strides vs, Strides dos, Strides dqs) {
   using C = Tile<D>;
@@ -238,8 +243,8 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lse_r[i] = qpos < Sq ? lse[row0 + qpos] : 0.f;
     dl_r[i] = qpos < Sq ? delta[row0 + qpos] : 0.f;
   }
-  const T* kb = k + b * ks.b + hk * ks.h;
-  const T* vb = v + b * vs.b + hk * vs.h;
+  const float* kb = k + b * ks.b + hk * ks.h;
+  const float* vb = v + b * vs.b + hk * vs.h;
 
   float acc[4][NC];
 #pragma unroll
@@ -296,26 +301,26 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = dq + b * dqs.b + h * dqs.h;
+  float* ob = dq + b * dqs.b + h * dqs.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * ty + i;
     if (qpos >= Sq) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c)
-      store(ob + (long long)qpos * dqs.s + tx + 16 * c, acc[i][c] * scale);
+      ob[(long long)qpos * dqs.s + tx + 16 * c] = acc[i][c] * scale;
   }
 }
 
 // Kernel 3: dk and dv for one key tile of one (b, kv head), summed over
 // the kv head's group of query heads.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dk,
-                T* __restrict__ dv, int H, int group, int Sq, int Sk,
+                const float* __restrict__ delta, float* __restrict__ dk,
+                float* __restrict__ dv, int H, int group, int Sq, int Sk,
                 float scale, int causal, int window, Strides qs, Strides ks,
                 Strides vs, Strides dos, Strides dks, Strides dvs) {
   using C = Tile<D>;
@@ -351,8 +356,8 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int g = 0; g < group; ++g) {
     const int h = hk * group + g;
     const long long row0 = ((long long)b * H + h) * Sq;
-    const T* qb = q + b * qs.b + h * qs.h;
-    const T* db = dout + b * dos.b + h * dos.h;
+    const float* qb = q + b * qs.b + h * qs.h;
+    const float* db = dout + b * dos.b + h * dos.h;
     for (int qt = qt_lo; qt < qt_hi; ++qt) {
       const int q0 = qt * BQ;
       __syncthreads();  // the previous tile's reads are done
@@ -405,17 +410,16 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* kout = dk + b * dks.b + hk * dks.h;
-  T* vout = dv + b * dvs.b + hk * dvs.h;
+  float* kout = dk + b * dks.b + hk * dks.h;
+  float* vout = dv + b * dvs.b + hk * dvs.h;
 #pragma unroll
   for (int r = 0; r < JK; ++r) {
     const int kpos = k0 + ty + 16 * r;
     if (kpos >= Sk) continue;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      store(kout + (long long)kpos * dks.s + tx + 16 * c,
-            dk_acc[r][c] * scale);
-      store(vout + (long long)kpos * dvs.s + tx + 16 * c, dv_acc[r][c]);
+      kout[(long long)kpos * dks.s + tx + 16 * c] = dk_acc[r][c] * scale;
+      vout[(long long)kpos * dvs.s + tx + 16 * c] = dv_acc[r][c];
     }
   }
 }
@@ -426,7 +430,7 @@ int set_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int B, int H, int H_kv, int Sq, int Sk,
@@ -440,31 +444,32 @@ int launch(const void* q, const void* k, const void* v, const void* o,
                        2 * BQ * C::LDP + 2 * BQ);
   static bool attr_set = false;  // once per instantiation and process
   if (!attr_set) {
-    int e = set_smem(bwd_dq_kernel<T, D>, dq_smem);
-    if (e == 0) e = set_smem(bwd_dkdv_kernel<T, D>, dkdv_smem);
+    int e = set_smem(bwd_dq_kernel<D>, dq_smem);
+    if (e == 0) e = set_smem(bwd_dkdv_kernel<D>, dkdv_smem);
     if (e != 0) return e;
     attr_set = true;
   }
   auto S = [&](int t) { return Strides{st[3 * t], st[3 * t + 1], st[3 * t + 2]}; };
   // tensors: q 0, k 1, v 2, o 3, dout 4, dq 5, dk 6, dv 7
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
   const long long n_rows = (long long)B * H * Sq;
-  bwd_delta_kernel<T><<<(unsigned)((n_rows + 7) / 8), THREADS, 0, stream>>>(
-      static_cast<const T*>(o), tdo, delta, H, Sq, D, n_rows, S(3), S(4));
+  bwd_delta_kernel<<<(unsigned)((n_rows + 7) / 8), THREADS, 0, stream>>>(
+      static_cast<const float*>(o), tdo, delta, H, Sq, D, n_rows, S(3), S(4));
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
   const dim3 gq((Sq + BQ - 1) / BQ, H, B);
-  bwd_dq_kernel<T, D><<<gq, THREADS, dq_smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), H, H / H_kv, Sq, Sk,
+  bwd_dq_kernel<D><<<gq, THREADS, dq_smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), H, H / H_kv, Sq, Sk,
       scale, causal, window, S(0), S(1), S(2), S(4), S(5));
   e = (int)cudaGetLastError();
   if (e != 0) return e;
   const dim3 gk((Sk + C::BK - 1) / C::BK, H_kv, B);
-  bwd_dkdv_kernel<T, D><<<gk, THREADS, dkdv_smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+  bwd_dkdv_kernel<D><<<gk, THREADS, dkdv_smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv),
       H, H / H_kv, Sq, Sk, scale, causal, window, S(0), S(1), S(2), S(4),
       S(6), S(7));
   return (int)cudaGetLastError();
@@ -472,7 +477,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 
 // ---------------------------------------------------------------------------
-// bfloat16 at head dims 64 and 128: wgmma fed by the copy engine
+// bfloat16: wgmma fed by the copy engine
 // ---------------------------------------------------------------------------
 
 #include "mma_bf16.cuh"
@@ -481,10 +486,16 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int WG_THREADS = 384;  // a producer warpgroup, two consumers
-constexpr int KV_KEYS = 128;     // keys of a dk/dv block, 64 a consumer
 constexpr int DQ_ROWS = 128;     // query rows of a dq block, 64 a consumer
-constexpr int DQ_KEYS = 64;      // keys of a dq tile
 constexpr int PAD_ROWS = 128;    // lse2 and delta rows are padded to this
+
+// Keys of a dk/dv block (d = 64, 128: 64 a consumer; d = 256: the same
+// 64 for both consumers, which split the products) and of a dq tile.
+template <int D>
+struct WgTiles {
+  static constexpr int KV = D == 256 ? 64 : 128;
+  static constexpr int DQK = D == 256 ? 32 : 64;
+};
 // registers a producer / consumer thread after setmaxnreg: the whole
 // file, 128 x 24 + 256 x 240 = 384 x 168
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
@@ -501,7 +512,8 @@ struct BwdArgs {
                        // past S_q (so P = 0 there)
   const float* delta;  // (B, H, S_pad): rowsum(do o), 0 past S_q
   const int4* walks;   // the plan's walk table: WALK_INTS ints a block
-  int H, group, Sq, Sk, S_pad, causal, window, n_split;
+  int B, H, group, Sq, Sk, S_pad, causal, window, n_split;
+  int n_gsplit;        // splits of a group's heads over dk/dv blocks
   float scale;
 };
 
@@ -583,17 +595,23 @@ bwd_delta_lse_kernel(const __nv_bfloat16* __restrict__ o,
 // The dk/dv block's shared memory: the K and V tiles (128 keys), then a
 // ring of NS stages of q and do tiles (BQ rows), then the stages' lse2
 // and delta, then the barriers.  Every tile is 1024-byte aligned.
+// At d = 256 a float32 P^T tile (64 keys x BQ queries) follows the ring:
+// one consumer writes it, the other reads it.
 template <int D, int BQ>
 struct KvSmem {
   static constexpr int NCB = D / 64;  // 64-column boxes of a row
+  static constexpr int KEYS = WgTiles<D>::KV;
   static constexpr int NS = D == 64 ? 3 : 2;
-  static constexpr int KT_B = NCB * KV_KEYS * ROW_B;  // K (or V) tile
-  static constexpr int Q_B = NCB * BQ * ROW_B;        // q (or do) tile
+  static constexpr int KT_B = NCB * KEYS * ROW_B;  // K (or V) tile
+  static constexpr int Q_B = NCB * BQ * ROW_B;     // q (or do) tile
   static constexpr int K = 0, V = KT_B, RING = 2 * KT_B;
-  static constexpr int LSE = RING + NS * 2 * Q_B;
+  static constexpr int PT = RING + NS * 2 * Q_B;
+  static constexpr int LSE = PT + (D == 256 ? KEYS * BQ * 4 : 0);
   static constexpr int DL = LSE + NS * BQ * 4;
   static constexpr int BAR = DL + NS * BQ * 4;
-  static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;  // + align
+  // K/V full, the ring's full and empty, (d = 256) P^T full and empty
+  static constexpr int N_BAR = 1 + 2 * NS + (D == 256 ? 2 : 0);
+  static constexpr int BYTES = BAR + 8 * N_BAR + 1024;  // + align
   static_assert(Q_B % 1024 == 0 && BQ % 16 == 0, "aligned tiles");
 };
 
@@ -607,10 +625,57 @@ __device__ __forceinline__ void store_bf16x2(__nv_bfloat16* p, float x,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
+// The dk/dv role's producer, run by one thread: K and V of keys k0..
+// (KvSmem::KEYS of them) of (b, kv head hk), then, through the NS-stage
+// ring, the q, do, lse2 and delta tiles of query tiles [qt_lo, qt_hi) of
+// each of the group's heads g_lo .. g_hi - 1 in turn.
+template <int D, int BQ>
+__device__ __forceinline__ void kv_producer(unsigned char* smem,
+                                            const BwdArgs& a,
+                                            const BwdMaps& maps, int b,
+                                            int hk, int k0, int g_lo,
+                                            int g_hi, int qt_lo, int qt_hi) {
+  using L = KvSmem<D, BQ>;
+  constexpr int NCB = L::NCB, NS = L::NS;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + NS;
+  mbar_expect(kv_full, 2 * L::KT_B);
+  for (int cb = 0; cb < NCB; ++cb) {
+    tma_load(smem + L::K + cb * L::KEYS * ROW_B, &maps.k, 64 * cb, k0, hk,
+             b, kv_full);
+    tma_load(smem + L::V + cb * L::KEYS * ROW_B, &maps.v, 64 * cb, k0, hk,
+             b, kv_full);
+  }
+  grid_wait();  // lse2 and delta are the previous launch's
+  int it = 0;
+  for (int gi = g_lo; gi < g_hi; ++gi) {
+    const int h = hk * a.group + gi;
+    const long long r0 = ((long long)b * a.H + h) * a.S_pad;
+    for (int qt = qt_lo; qt < qt_hi; ++qt, ++it) {
+      const int s = it % NS, r = it / NS;
+      if (r > 0) mbar_wait_or_trap(empty + s, (r - 1) & 1);
+      unsigned char* st = smem + L::RING + s * 2 * L::Q_B;
+      mbar_expect(full + s, 2 * L::Q_B + 2 * BQ * 4);
+      for (int cb = 0; cb < NCB; ++cb) {
+        tma_load(st + cb * BQ * ROW_B, &maps.q, 64 * cb, qt * BQ, h, b,
+                 full + s);
+        tma_load(st + L::Q_B + cb * BQ * ROW_B, &maps.dout, 64 * cb,
+                 qt * BQ, h, b, full + s);
+      }
+      bulk_load(smem + L::LSE + s * BQ * 4, a.lse2 + r0 + qt * BQ, BQ * 4,
+                full + s);
+      bulk_load(smem + L::DL + s * BQ * 4, a.delta + r0 + qt * BQ, BQ * 4,
+                full + s);
+    }
+  }
+}
+
 // The dk/dv role: dk and dv for 128 keys (block by) of one (b, kv head)
-// (block bx), summed over the kv head's group.  Warpgroup 0 is the producer: one thread keeps the
-// copy engine's loads of the q, do, lse2 and delta tiles of every
-// (group head, query tile) in turn in flight in an NS-stage ring.
+// (block bx), summed over the kv head's group.  Warpgroup 0 is the
+// producer: one thread (kv_producer) keeps the copy engine's loads of the
+// q, do, lse2 and delta tiles of every (group head, query tile) in turn
+// in flight in an NS-stage ring.
 // Warpgroup 1 + c (c < 2) owns keys k0 + 64 c .. + 63 and, for each
 // tile: S^T = K Q^T and dP^T = V dO^T (both operands in shared memory),
 // P^T = exp2(S^T scale log2(e) - lse2) and dS^T = P^T (dP^T - delta) in
@@ -629,7 +694,7 @@ __device__ __forceinline__ void dkdv_block(
 
   const int H_kv = a.H / a.group;
   const int hk = bx % H_kv, b = bx / H_kv;
-  const int k0 = by * KV_KEYS;
+  const int k0 = by * L::KEYS;
   const int n_cons = a.Sk - k0 > 64 ? 2 : 1;  // consumers with keys
   // the query tiles that see a key of the block
   const int4 walk = a.walks[by * (WALK_INTS / 4)];
@@ -651,36 +716,8 @@ __device__ __forceinline__ void dkdv_block(
   if (wg == 0) {
     // ====== producer ======
     setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x != 0) return;
-    mbar_expect(kv_full, 2 * L::KT_B);
-    for (int cb = 0; cb < NCB; ++cb) {
-      tma_load(smem + L::K + cb * KV_KEYS * ROW_B, &maps.k, 64 * cb, k0, hk,
-               b, kv_full);
-      tma_load(smem + L::V + cb * KV_KEYS * ROW_B, &maps.v, 64 * cb, k0, hk,
-               b, kv_full);
-    }
-    grid_wait();  // lse2 and delta are the previous launch's
-    int it = 0;
-    for (int gi = 0; gi < a.group; ++gi) {
-      const int h = hk * a.group + gi;
-      const long long r0 = ((long long)b * a.H + h) * a.S_pad;
-      for (int qt = qt_lo; qt < qt_hi; ++qt, ++it) {
-        const int s = it % NS, r = it / NS;
-        if (r > 0) mbar_wait_or_trap(empty + s, (r - 1) & 1);
-        unsigned char* st = smem + L::RING + s * 2 * L::Q_B;
-        mbar_expect(full + s, 2 * L::Q_B + 2 * BQ * 4);
-        for (int cb = 0; cb < NCB; ++cb) {
-          tma_load(st + cb * BQ * ROW_B, &maps.q, 64 * cb, qt * BQ, h, b,
-                   full + s);
-          tma_load(st + L::Q_B + cb * BQ * ROW_B, &maps.dout, 64 * cb,
-                   qt * BQ, h, b, full + s);
-        }
-        bulk_load(smem + L::LSE + s * BQ * 4, a.lse2 + r0 + qt * BQ, BQ * 4,
-                  full + s);
-        bulk_load(smem + L::DL + s * BQ * 4, a.delta + r0 + qt * BQ, BQ * 4,
-                  full + s);
-      }
-    }
+    if (threadIdx.x == 0)
+      kv_producer<D, BQ>(smem, a, maps, b, hk, k0, 0, a.group, qt_lo, qt_hi);
     return;
   }
 
@@ -729,7 +766,7 @@ __device__ __forceinline__ void dkdv_block(
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss<BQ>(st,
-                     sw128_desc(sk + (kk / 4) * KV_KEYS * ROW_B +
+                     sw128_desc(sk + (kk / 4) * L::KEYS * ROW_B +
                                 (kk % 4) * 32),
                      sw128_desc(sq + (kk / 4) * BQ * ROW_B + (kk % 4) * 32),
                      kk);
@@ -737,7 +774,7 @@ __device__ __forceinline__ void dkdv_block(
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
         wgmma_ss<BQ>(dpt,
-                     sw128_desc(sv + (kk / 4) * KV_KEYS * ROW_B +
+                     sw128_desc(sv + (kk / 4) * L::KEYS * ROW_B +
                                 (kk % 4) * 32),
                      sw128_desc(sdo + (kk / 4) * BQ * ROW_B + (kk % 4) * 32),
                      kk);
@@ -813,22 +850,246 @@ __device__ __forceinline__ void dkdv_block(
     }
 }
 
+// The dk/dv role at d = 256: dk and dv for 64 keys (block by) of one
+// (b, kv head) and one share of the kv head's group (block bx: split gs
+// of n_gsplit takes heads [gs group / n_gsplit, (gs + 1) group /
+// n_gsplit)).  The producer is dkdv_block's (kv_producer), over the
+// share's heads.  The two consumers take the same 64 keys and split the
+// products, so that each holds one 64 x 256 float32 accumulator (128
+// registers a thread, where one consumer with both would need 256):
+// consumer 0 computes S^T = K Q^T, P^T (masked on edge tiles) and dV +=
+// P^T dO, and hands P^T in float32 through shared memory; consumer 1
+// computes dP^T = V dO^T, reads P^T, forms dS^T = P^T
+// (dP^T - delta) and dK += dS^T Q.  With one split dk and dv are written
+// in bf16; with more, each split writes float32 partials to part
+// ((2, n_gsplit, B, H_kv, S_k, D): dk's, then dv's) and the merge launch
+// sums them in split order.
+template <int BQ>
+__device__ __forceinline__ void dkdv_block_256(
+    unsigned char* smem, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, float* __restrict__ part,
+    const BwdArgs& a, const Strides& dks, const Strides& dvs,
+    const BwdMaps& maps, int bx, int by) {
+  constexpr int D = 256;
+  using L = KvSmem<D, BQ>;
+  constexpr int NCB = L::NCB, NS = L::NS, NT = BQ / 8;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + NS;
+  // the P^T tile: written by consumer 0 (p_full), read by consumer 1
+  // (p_empty); phase n is the n-th tile the consumers compute
+  uint64_t* p_full = empty + NS;
+  uint64_t* p_empty = p_full + 1;
+
+  const int H_kv = a.H / a.group;
+  const int hk = bx % H_kv, b = (bx / H_kv) % a.B, gs = bx / (H_kv * a.B);
+  const int g_lo = gs * a.group / a.n_gsplit;
+  const int g_hi = (gs + 1) * a.group / a.n_gsplit;
+  const int k0 = by * L::KEYS;
+  const int4 walk = a.walks[by * (WALK_INTS / 4)];
+  const int qt_lo = walk.y, qt_hi = walk.z;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 256);
+    }
+    mbar_init(p_full, 128);
+    mbar_init(p_empty, 128);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+  if (wg == 0) {
+    // ====== producer ======
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0)
+      kv_producer<D, BQ>(smem, a, maps, b, hk, k0, g_lo, g_hi, qt_lo, qt_hi);
+    return;
+  }
+
+  // ====== consumers ======
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int c = wg - 1;  // 0: S^T, P^T, dV; 1: dP^T, dS^T, dK
+  const int t = threadIdx.x % 128, wq = t / 32, lane = t % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int4 span = a.walks[by * (WALK_INTS / 4) + 1];  // both consumers'
+  const int key_a = k0 + 16 * wq + g, key_b = key_a + 8;
+  const float sl2 = a.scale * LOG2E;
+  // P^T: element 4 j + e of thread t at float4 j * 128 + t
+  float4* spt = reinterpret_cast<float4*>(smem + L::PT);
+
+  float acc[NCB][32];  // dV (consumer 0) or dK (consumer 1)
+#pragma unroll
+  for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+
+  mbar_wait_or_trap(kv_full, 0);
+  __syncwarp();
+  int it = 0, n = 0;  // n: the tiles computed so far
+  for (int gi = g_lo; gi < g_hi; ++gi) {
+    for (int qt = qt_lo; qt < qt_hi; ++qt, ++it) {
+      const int s = it % NS, r = it / NS;
+      mbar_wait_or_trap(full + s, r & 1);
+      __syncwarp();
+      const int kind = tile_kind(span, qt);
+      if (kind < 0) {  // no pair of the keys and the tile's queries is visible
+        mbar_arrive(empty + s);
+        continue;
+      }
+      const unsigned char* sq = smem + L::RING + s * 2 * L::Q_B;
+      const unsigned char* sdo = sq + L::Q_B;
+      float st[BQ / 2];
+      if (c == 0) {
+        const bool masked = kind > 0;  // the diagonal or the window's edge
+        const int q0 = qt * BQ;
+        const float* slse =
+            reinterpret_cast<const float*>(smem + L::LSE + s * BQ * 4);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BQ>(st,
+                       sw128_desc(smem + L::K + (kk / 4) * L::KEYS * ROW_B +
+                                  (kk % 4) * 32),
+                       sw128_desc(sq + (kk / 4) * BQ * ROW_B + (kk % 4) * 32),
+                       kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(st);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = 8 * j + 2 * tq + (e & 1);
+            float p = ex2(fmaf(st[4 * j + e], sl2, -slse[qi]));
+            if (masked && !sees(q0 + qi, e < 2 ? key_a : key_b, a.causal,
+                                a.window))
+              p = 0.f;
+            st[4 * j + e] = p;  // P^T
+          }
+        uint32_t pa[BQ / 16][4];  // P^T as A operands
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x)
+            pa[kk][x] = pack_bf16(st[8 * kk + 2 * x], st[8 * kk + 2 * x + 1]);
+        // consumer 1 has read the last tile's P^T
+        if (n > 0) mbar_wait_or_trap(p_empty, (n - 1) & 1);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          spt[j * 128 + t] = make_float4(st[4 * j], st[4 * j + 1],
+                                         st[4 * j + 2], st[4 * j + 3]);
+        mbar_arrive(p_full);
+        wgmma_fence();
+#pragma unroll
+        for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            wgmma_rs_64(acc[cb], pa[kk],
+                        sw128_desc(sdo + cb * BQ * ROW_B + kk * 16 * ROW_B));
+      } else {
+        const float* sdl =
+            reinterpret_cast<const float*>(smem + L::DL + s * BQ * 4);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          wgmma_ss<BQ>(st,
+                       sw128_desc(smem + L::V + (kk / 4) * L::KEYS * ROW_B +
+                                  (kk % 4) * 32),
+                       sw128_desc(sdo + (kk / 4) * BQ * ROW_B + (kk % 4) * 32),
+                       kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(st);  // dP^T
+        mbar_wait_or_trap(p_full, n & 1);  // consumer 0 wrote this P^T
+        uint32_t da[BQ / 16][4];  // dS^T as A operands
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk) {
+          const float4 p0 = spt[(2 * kk) * 128 + t];
+          const float4 p1 = spt[(2 * kk + 1) * 128 + t];
+          const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int i0 = 8 * kk + 2 * x, qi = 8 * (i0 / 4) + 2 * tq;
+            da[kk][x] = pack_bf16(pv[2 * x] * (st[i0] - sdl[qi]),
+                                  pv[2 * x + 1] * (st[i0 + 1] - sdl[qi + 1]));
+          }
+        }
+        mbar_arrive(p_empty);
+        wgmma_fence();
+#pragma unroll
+        for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk)
+            wgmma_rs_64(acc[cb], da[kk],
+                        sw128_desc(sq + cb * BQ * ROW_B + kk * 16 * ROW_B));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int cb = 0; cb < NCB; ++cb) reg_fence(acc[cb]);
+      mbar_arrive(empty + s);
+      ++n;
+    }
+  }
+
+  const float mul = c == 0 ? 1.f : a.scale;
+  const long long slot = (long long)b * H_kv + hk;
+  if (a.n_gsplit == 1) {
+    __nv_bfloat16* out = c == 0 ? dv + b * dvs.b + hk * dvs.h
+                                : dk + b * dks.b + hk * dks.h;
+    const long long rs = c == 0 ? dvs.s : dks.s;
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cb + 8 * j + 2 * tq, i = 4 * j;
+        if (key_a < a.Sk)
+          store_bf16x2(out + (long long)key_a * rs + col, acc[cb][i] * mul,
+                       acc[cb][i + 1] * mul);
+        if (key_b < a.Sk)
+          store_bf16x2(out + (long long)key_b * rs + col,
+                       acc[cb][i + 2] * mul, acc[cb][i + 3] * mul);
+      }
+  } else {
+    // dk's partials, then dv's: (n_gsplit, B, H_kv, S_k) rows of D floats
+    const long long rows = (long long)a.B * H_kv * a.Sk;
+    float* pb = part + ((c == 0 ? a.n_gsplit : 0) + gs) * rows * D +
+                slot * a.Sk * D;
+#pragma unroll
+    for (int cb = 0; cb < NCB; ++cb)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * cb + 8 * j + 2 * tq, i = 4 * j;
+        if (key_a < a.Sk)
+          *reinterpret_cast<float2*>(pb + (long long)key_a * D + col) =
+              make_float2(acc[cb][i] * mul, acc[cb][i + 1] * mul);
+        if (key_b < a.Sk)
+          *reinterpret_cast<float2*>(pb + (long long)key_b * D + col) =
+              make_float2(acc[cb][i + 2] * mul, acc[cb][i + 3] * mul);
+      }
+  }
+}
+
 // The dq block's shared memory: its q and do tiles (128 rows), a ring of
-// NS stages of K and V tiles (64 keys), the barriers.
+// NS stages of K and V tiles (64 keys, 32 at d = 256), the barriers.
 template <int D>
 struct DqSmem {
   static constexpr int NCB = D / 64;
-  static constexpr int NS = D == 64 ? 3 : 2;
+  static constexpr int NS = D == 128 ? 2 : 3;
   static constexpr int Q_B = NCB * DQ_ROWS * ROW_B;
-  static constexpr int KT_B = NCB * DQ_KEYS * ROW_B;
+  static constexpr int KT_B = NCB * WgTiles<D>::DQK * ROW_B;
   static constexpr int Q = 0, DO = Q_B, RING = 2 * Q_B;
   static constexpr int BAR = RING + NS * 2 * KT_B;
   static constexpr int BYTES = BAR + 8 * (1 + 2 * NS) + 1024;
 };
 
 // The dq role: dq for 128 query rows (tile y of n_qt, from the last in a
-// causal grid) of one (b, h)
-// (block x of n_bh), over the key split z of the key tiles they see: the
+// causal grid) of one (b, h) (block x of n_bh), over the key split z of
+// the key tiles (DQK keys) they see: the
 // producer keeps K and V tiles in flight in the ring; consumer c owns
 // rows q0 + 64 c .. + 63: S = Q K^T and dP = dO V^T, dS = P (dP -
 // delta), dQ += dS K.  With one split dq is written in bf16; with more,
@@ -841,7 +1102,7 @@ __device__ __forceinline__ void dq_block(
     const BwdMaps& maps, int x, int y, int split, int n_qt, int n_bh,
     int n_kb) {
   using L = DqSmem<D>;
-  constexpr int NCB = L::NCB, NS = L::NS;
+  constexpr int NCB = L::NCB, NS = L::NS, DQK = WgTiles<D>::DQK;
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + NS;
@@ -885,10 +1146,10 @@ __device__ __forceinline__ void dq_block(
       unsigned char* st = smem + L::RING + s * 2 * L::KT_B;
       mbar_expect(full + s, 2 * L::KT_B);
       for (int cb = 0; cb < NCB; ++cb) {
-        tma_load(st + cb * DQ_KEYS * ROW_B, &maps.k, 64 * cb, kt * DQ_KEYS,
+        tma_load(st + cb * DQK * ROW_B, &maps.k, 64 * cb, kt * DQK,
                  hk, b, full + s);
-        tma_load(st + L::KT_B + cb * DQ_KEYS * ROW_B, &maps.v, 64 * cb,
-                 kt * DQ_KEYS, hk, b, full + s);
+        tma_load(st + L::KT_B + cb * DQK * ROW_B, &maps.v, 64 * cb,
+                 kt * DQK, hk, b, full + s);
       }
     }
     return;
@@ -922,7 +1183,7 @@ __device__ __forceinline__ void dq_block(
     const int it = kt - s_lo, s = it % NS, r = it / NS;
     mbar_wait_or_trap(full + s, r & 1);
     __syncwarp();
-    const int k0 = kt * DQ_KEYS;
+    const int k0 = kt * DQK;
     const int kind = tile_kind(span, kt);
     if (kind < 0) {
       mbar_arrive(empty + s);  // no pair visible
@@ -932,30 +1193,30 @@ __device__ __forceinline__ void dq_block(
     const bool masked = kind > 0;
     const unsigned char* sk = smem + L::RING + s * 2 * L::KT_B;
     const unsigned char* sv = sk + L::KT_B;
-    float sc[DQ_KEYS / 2], dp[DQ_KEYS / 2];
+    float sc[DQK / 2], dp[DQK / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<DQ_KEYS>(sc,
+      wgmma_ss<DQK>(sc,
                         sw128_desc(sq + (kk / 4) * DQ_ROWS * ROW_B +
                                    (kk % 4) * 32),
-                        sw128_desc(sk + (kk / 4) * DQ_KEYS * ROW_B +
+                        sw128_desc(sk + (kk / 4) * DQK * ROW_B +
                                    (kk % 4) * 32),
                         kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<DQ_KEYS>(dp,
+      wgmma_ss<DQK>(dp,
                         sw128_desc(sdo + (kk / 4) * DQ_ROWS * ROW_B +
                                    (kk % 4) * 32),
-                        sw128_desc(sv + (kk / 4) * DQ_KEYS * ROW_B +
+                        sw128_desc(sv + (kk / 4) * DQK * ROW_B +
                                    (kk % 4) * 32),
                         kk);
     wgmma_commit();
     wgmma_wait<1>();
     reg_fence(sc);
 #pragma unroll
-    for (int j = 0; j < DQ_KEYS / 8; ++j)
+    for (int j = 0; j < DQK / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = k0 + 8 * j + 2 * tq + (e & 1);
@@ -967,9 +1228,9 @@ __device__ __forceinline__ void dq_block(
       }
     wgmma_wait<0>();
     reg_fence(dp);
-    uint32_t da[DQ_KEYS / 16][4];  // dS as A operands
+    uint32_t da[DQK / 16][4];  // dS as A operands
 #pragma unroll
-    for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
+    for (int kk = 0; kk < DQK / 16; ++kk)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const int i0 = 8 * kk + 2 * x;
@@ -981,9 +1242,9 @@ __device__ __forceinline__ void dq_block(
 #pragma unroll
     for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
-      for (int kk = 0; kk < DQ_KEYS / 16; ++kk)
+      for (int kk = 0; kk < DQK / 16; ++kk)
         wgmma_rs_64(acc[cb], da[kk],
-                    sw128_desc(sk + cb * DQ_KEYS * ROW_B + kk * 16 * ROW_B));
+                    sw128_desc(sk + cb * DQK * ROW_B + kk * 16 * ROW_B));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -1023,32 +1284,42 @@ __device__ __forceinline__ void dq_block(
   }
 }
 
-// Kernel 3: dq = the sum of the n_split float32 partials, in split
-// order (the same bits every run), written in bf16; four columns a
-// thread.  part is (n_split, B, H, S_q, D) dense.
+// Kernel 3: the float32 partials of dq (key splits) and, at d = 256, of
+// dk and dv (group splits) summed in split order (the same bits every
+// run) and written in bf16; four columns a thread, one job a grid row.
+struct MergeJob {
+  const float* part;     // (n, rows, D) float32 partials, rows = B H S
+  __nv_bfloat16* out;    // (B, H, S, D) with strides st
+  int H, S, n;
+  long long rows;
+  Strides st;
+};
+struct MergeJobs {
+  MergeJob job[3];
+};
+
 template <int D>
 __global__ void __launch_bounds__(256)
-bwd_dq_merge_kernel(const float* __restrict__ part,
-                    __nv_bfloat16* __restrict__ dq, int H, int Sq,
-                    int n_split, long long n_rows, Strides dqs) {
+bwd_merge_kernel(const MergeJobs jobs) {
   grid_wait();  // the partials are the previous launch's
+  const MergeJob& m = jobs.job[blockIdx.y];
   const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (idx >= n_rows * (D / 4)) return;
+  if (idx >= m.rows * (D / 4)) return;
   const long long row = idx / (D / 4);
   const int col = (int)(idx % (D / 4)) * 4;
   float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < n_split; ++s) {
+  for (int s = 0; s < m.n; ++s) {
     const float4 x = *reinterpret_cast<const float4*>(
-        part + ((long long)s * n_rows + row) * D + col);
+        m.part + ((long long)s * m.rows + row) * D + col);
     sum.x += x.x;
     sum.y += x.y;
     sum.z += x.z;
     sum.w += x.w;
   }
-  const long long bh = row / Sq;
-  const int i = (int)(row % Sq);
-  __nv_bfloat16* p = dq + (bh / H) * dqs.b + (bh % H) * dqs.h +
-                     (long long)i * dqs.s + col;
+  const long long bh = row / m.S;
+  const int i = (int)(row % m.S);
+  __nv_bfloat16* p = m.out + (bh / m.H) * m.st.b + (bh % m.H) * m.st.h +
+                     (long long)i * m.st.s + col;
   store_bf16x2(p, sum.x, sum.y);
   store_bf16x2(p + 2, sum.z, sum.w);
 }
@@ -1062,7 +1333,8 @@ template <int D, int BQ>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 bwd_wgmma_kernel(__nv_bfloat16* __restrict__ dq, float* __restrict__ part,
                  __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, BwdArgs a, Strides dqs,
+                 __nv_bfloat16* __restrict__ dv,
+                 float* __restrict__ kv_part, BwdArgs a, Strides dqs,
                  Strides dks, Strides dvs, int kv_x, int n_kv, int dq_x,
                  int dq_y, const __grid_constant__ BwdMaps kv_maps,
                  const __grid_constant__ BwdMaps dq_maps) {
@@ -1071,8 +1343,12 @@ bwd_wgmma_kernel(__nv_bfloat16* __restrict__ dq, float* __restrict__ part,
   let_dependents_start();
   const int i = blockIdx.x;
   if (i < n_kv) {
-    dkdv_block<D, BQ>(smem, dk, dv, a, dks, dvs, kv_maps, i % kv_x,
-                      i / kv_x);
+    if constexpr (D == 256)
+      dkdv_block_256<BQ>(smem, dk, dv, kv_part, a, dks, dvs, kv_maps,
+                         i % kv_x, i / kv_x);
+    else
+      dkdv_block<D, BQ>(smem, dk, dv, a, dks, dvs, kv_maps, i % kv_x,
+                        i / kv_x);
     return;
   }
   const int j = i - n_kv;
@@ -1135,53 +1411,60 @@ struct Launch {
 };
 
 template <int D, int BQ>
-int launch_main(void* dq, float* part, void* dk, void* dv, const BwdArgs& a,
-                const Strides* st, const void* q, const void* dout,
-                const void* k, const void* v, int B, int H_kv, int n_kb,
-                int n_qt, cudaStream_t stream) {
+int launch_main(void* dq, float* part, void* dk, void* dv, float* kv_part,
+                const BwdArgs& a, const Strides* st, const void* q,
+                const void* dout, const void* k, const void* v, int H_kv,
+                int n_kb, int n_qt, cudaStream_t stream) {
   constexpr int SMEM = bwd_smem<D, BQ>();
+  static_assert(SMEM <= 232448, "a block's shared memory");
   static int ready = 1;  // once per instantiation and process
   if (ready != 0) {
     ready = prepare_wgmma(bwd_wgmma_kernel<D, BQ>, SMEM);
     if (ready != 0) return ready;
   }
+  const int B = a.B;
   BwdMaps km, qm;
   if (!bwd_map(&km.q, q, B, a.H, a.Sq, D, st[0], BQ) ||
       !bwd_map(&km.dout, dout, B, a.H, a.Sq, D, st[4], BQ) ||
-      !bwd_map(&km.k, k, B, H_kv, a.Sk, D, st[1], KV_KEYS) ||
-      !bwd_map(&km.v, v, B, H_kv, a.Sk, D, st[2], KV_KEYS) ||
+      !bwd_map(&km.k, k, B, H_kv, a.Sk, D, st[1], WgTiles<D>::KV) ||
+      !bwd_map(&km.v, v, B, H_kv, a.Sk, D, st[2], WgTiles<D>::KV) ||
       !bwd_map(&qm.q, q, B, a.H, a.Sq, D, st[0], DQ_ROWS) ||
       !bwd_map(&qm.dout, dout, B, a.H, a.Sq, D, st[4], DQ_ROWS) ||
-      !bwd_map(&qm.k, k, B, H_kv, a.Sk, D, st[1], DQ_KEYS) ||
-      !bwd_map(&qm.v, v, B, H_kv, a.Sk, D, st[2], DQ_KEYS))
+      !bwd_map(&qm.k, k, B, H_kv, a.Sk, D, st[1], WgTiles<D>::DQK) ||
+      !bwd_map(&qm.v, v, B, H_kv, a.Sk, D, st[2], WgTiles<D>::DQK))
     return -2;
-  const int n_kv = B * H_kv * n_kb;
+  const int kv_x = B * H_kv * a.n_gsplit;
+  const int n_kv = kv_x * n_kb;
   const int n_dq = B * a.H * n_qt * a.n_split;
   Launch cfg(n_kv + n_dq, WG_THREADS, SMEM, stream);
   const int e = (int)cudaLaunchKernelEx(
       &cfg.c, bwd_wgmma_kernel<D, BQ>, static_cast<__nv_bfloat16*>(dq), part,
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a,
-      st[5], st[6], st[7], B * H_kv, n_kv, B * a.H, n_qt, km, qm);
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+      kv_part, a, st[5], st[6], st[7], kv_x, n_kv, B * a.H, n_qt, km, qm);
   return e != 0 ? e : (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                  const void* dout, const float* lse, float* lse2,
-                 float* delta, float* part, const int* walks, void* dq,
-                 void* dk, void* dv, int B, int H, int H_kv, int Sq, int Sk,
-                 int causal, int window, float scale,
+                 float* delta, float* part, float* kv_part, const int* walks,
+                 void* dq, void* dk, void* dv, int B, int H, int H_kv,
+                 int Sq, int Sk, int causal, int window, float scale,
                  const long long* strides, const int* plan,
                  cudaStream_t stream) {
   using T = __nv_bfloat16;
   // plan: (q rows of a dk/dv step, key splits of dq, padded rows, records
-  // of the walk table: one a key block, one a (split, query tile))
+  // of the walk table: one a key block, one a (split, query tile), group
+  // splits of dk/dv)
   const int bq = plan[0], n_split = plan[1], S_pad = plan[2];
-  const int n_kb = (Sk + KV_KEYS - 1) / KV_KEYS;
+  const int n_gsplit = plan[4];
+  const int n_kb = (Sk + WgTiles<D>::KV - 1) / WgTiles<D>::KV;
   const int n_qt = (Sq + DQ_ROWS - 1) / DQ_ROWS;
+  const int group = H / H_kv;
   if (n_split < 1 || S_pad % PAD_ROWS != 0 || S_pad < Sq ||
       plan[3] != n_kb + n_qt * n_split || walks == nullptr ||
-      (n_split > 1 && part == nullptr))
+      (n_split > 1 && part == nullptr) || n_gsplit < 1 ||
+      n_gsplit > group || (n_gsplit > 1 && (D != 256 || kv_part == nullptr)))
     return (int)cudaErrorInvalidValue;
   Strides st[8];
   for (int t = 0; t < 8; ++t)
@@ -1196,51 +1479,63 @@ int launch_wgmma(const void* q, const void* k, const void* v, const void* o,
                                       st[4]);
   int e = (int)cudaGetLastError();
   if (e != 0) return e;
-  const BwdArgs a{lse2, delta, reinterpret_cast<const int4*>(walks), H,
-                  H / H_kv, Sq, Sk, S_pad, causal, window, n_split, scale};
+  const BwdArgs a{lse2,   delta,  reinterpret_cast<const int4*>(walks),
+                  B,      H,      group,
+                  Sq,     Sk,     S_pad,
+                  causal, window, n_split,
+                  n_gsplit, scale};
+#define BW_MAIN(BQ)                                                         \
+  launch_main<D, BQ>(dq, part, dk, dv, kv_part, a, st, q, dout, k, v, H_kv, \
+                     n_kb, n_qt, stream)
   switch (bq) {
-    case 16:
-      e = launch_main<D, 16>(dq, part, dk, dv, a, st, q, dout, k, v, B, H_kv,
-                             n_kb, n_qt, stream);
-      break;
-    case 32:
-      e = launch_main<D, 32>(dq, part, dk, dv, a, st, q, dout, k, v, B, H_kv,
-                             n_kb, n_qt, stream);
-      break;
-    case 64:
-      e = launch_main<D, 64>(dq, part, dk, dv, a, st, q, dout, k, v, B, H_kv,
-                             n_kb, n_qt, stream);
-      break;
+    case 16: e = BW_MAIN(16); break;
+    case 32: e = BW_MAIN(32); break;
+    case 64: e = BW_MAIN(64); break;
     case 128:  // d = 64 only (at d = 128 the accumulators would spill)
       if constexpr (D == 64) {
-        e = launch_main<64, 128>(dq, part, dk, dv, a, st, q, dout, k, v, B,
-                                 H_kv, n_kb, n_qt, stream);
+        e = BW_MAIN(128);
         break;
       }
       return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
-  if (e != 0 || n_split == 1) return e;
-  const long long n_rows = (long long)B * H * Sq;
-  Launch cfg((unsigned)((n_rows * (D / 4) + 255) / 256), 256, 0, stream);
-  e = (int)cudaLaunchKernelEx(&cfg.c, bwd_dq_merge_kernel<D>,
-                              (const float*)part, static_cast<T*>(dq), H, Sq,
-                              n_split, n_rows, st[5]);
+#undef BW_MAIN
+  if (e != 0 || (n_split == 1 && n_gsplit == 1)) return e;
+  // the merges: dq's key splits, dk's and dv's group splits
+  MergeJobs jobs{};
+  int n_jobs = 0;
+  long long most = 0;
+  if (n_split > 1) {
+    jobs.job[n_jobs++] = MergeJob{part, static_cast<T*>(dq), H, Sq, n_split,
+                                  (long long)B * H * Sq, st[5]};
+  }
+  if (n_gsplit > 1) {
+    const long long rows = (long long)B * H_kv * Sk;
+    jobs.job[n_jobs++] = MergeJob{kv_part, static_cast<T*>(dk), H_kv, Sk,
+                                  n_gsplit, rows, st[6]};
+    jobs.job[n_jobs++] = MergeJob{kv_part + (long long)n_gsplit * rows * D,
+                                  static_cast<T*>(dv), H_kv, Sk, n_gsplit,
+                                  rows, st[7]};
+  }
+  for (int j = 0; j < n_jobs; ++j)
+    most = jobs.job[j].rows > most ? jobs.job[j].rows : most;
+  Launch cfg((unsigned)((most * (D / 4) + 255) / 256), 256, 0, stream);
+  cfg.c.gridDim.y = n_jobs;
+  e = (int)cudaLaunchKernelEx(&cfg.c, bwd_merge_kernel<D>, jobs);
   return e != 0 ? e : (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point of the float32 path and of bfloat16 at head dim 256:
-// launches the three kernels on `stream` in turn and returns the first
-// cudaGetLastError() that is not 0.  is_bf16 selects bfloat16 (1) or
-// float32 (0) for q, k, v, o, dout, dq, dk and dv alike; lse (the
-// forward's) and delta (scratch) are float32 (B, H, S_q) dense.  S_q ==
-// S_k where causal or windowed.  window: 0 for none.  strides: 24
-// element strides, (batch, head, seq) of q, k, v, o, dout, dq, dk, dv in
-// turn.
+// C entry point of the float32 path (bfloat16 takes the wgmma path at
+// every head dim): launches the three kernels on `stream` in turn and
+// returns the first cudaGetLastError() that is not 0.  q, k, v, o, dout,
+// dq, dk and dv are float32; lse (the forward's) and delta (scratch) are
+// float32 (B, H, S_q) dense.  S_q == S_k where causal or windowed.
+// window: 0 for none.  strides: 24 element strides, (batch, head, seq)
+// of q, k, v, o, dout, dq, dk, dv in turn.
 extern "C" int flash_attention_bwd_launch(
-    int is_bf16, int d, const void* q, const void* k, const void* v,
+    int d, const void* q, const void* k, const void* v,
     const void* o, const void* dout, const float* lse, float* delta,
     void* dq, void* dk, void* dv, int B, int H, int H_kv, int Sq, int Sk,
     int causal, int window, float scale, const long long* strides,
@@ -1249,43 +1544,44 @@ extern "C" int flash_attention_bwd_launch(
 #define BW_ARGS                                                              \
   q, k, v, o, dout, lse, delta, dq, dk, dv, B, H, H_kv, Sq, Sk, causal,      \
       window, scale, strides, st
-  switch (d * 2 + (is_bf16 ? 1 : 0)) {
-    case 64 * 2: return launch<float, 64>(BW_ARGS);
-    case 128 * 2: return launch<float, 128>(BW_ARGS);
-    case 256 * 2: return launch<float, 256>(BW_ARGS);
-    case 256 * 2 + 1: return launch<__nv_bfloat16, 256>(BW_ARGS);
+  switch (d) {
+    case 64: return launch<64>(BW_ARGS);
+    case 128: return launch<128>(BW_ARGS);
+    case 256: return launch<256>(BW_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef BW_ARGS
 }
 
-// C entry point of bfloat16 at head dims 64 and 128 (the wgmma path):
+// C entry point of bfloat16 (the wgmma path, head dims 64, 128 and 256):
 // the delta / lse2 kernel, the dk/dv and dq blocks in one launch, and
-// dq's merge where plan[1] > 1, on `stream` in turn; returns the first
-// error (-2: a tensor map the encoder refused, -3: a build without the
-// registers setmaxnreg hands out).  lse: the forward's float32 (B, H,
-// S_q) dense; lse2_delta: scratch of 2 x (B, H, plan[2]) floats; part:
-// scratch of plan[1] x (B, H, S_q, d) floats where plan[1] > 1, else
-// null; walks: the plan's walk table on the card (plan[3] records of
-// WALK_INTS ints).  plan: the 4 ints of kernels/flash_attention.py:
-// BwdPlan.c_args.  Strides as above.
+// the merge of dq's key splits (plan[1] > 1) and of dk's and dv's group
+// splits (plan[4] > 1, d = 256) where there are any, on `stream` in turn;
+// returns the first error (-2: a tensor map the encoder refused, -3: a
+// build without the registers setmaxnreg hands out).  lse: the forward's
+// float32 (B, H, S_q) dense; lse2_delta: scratch of 2 x (B, H, plan[2])
+// floats; part: scratch of plan[1] x (B, H, S_q, d) floats where plan[1]
+// > 1, else null; kv_part: scratch of 2 x plan[4] x (B, H_kv, S_k, d)
+// floats where plan[4] > 1, else null; walks: the plan's walk table on
+// the card (plan[3] records of WALK_INTS ints).  plan: the 5 ints of
+// kernels/flash_attention.py:BwdPlan.c_args.  Strides as above.
 extern "C" int flash_attention_bwd_wgmma_launch(
     int d, const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* lse2_delta, float* part,
-    const int* walks, void* dq, void* dk, void* dv, int B, int H, int H_kv,
-    int Sq, int Sk, int causal, int window, float scale,
+    float* kv_part, const int* walks, void* dq, void* dk, void* dv, int B,
+    int H, int H_kv, int Sq, int Sk, int causal, int window, float scale,
     const long long* strides, const int* plan, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* delta = lse2_delta + (long long)B * H * plan[2];
+#define BW_WG(D)                                                            \
+  launch_wgmma<D>(q, k, v, o, dout, lse, lse2_delta, delta, part, kv_part,  \
+                  walks, dq, dk, dv, B, H, H_kv, Sq, Sk, causal, window,    \
+                  scale, strides, plan, st)
   switch (d) {
-    case 64:
-      return launch_wgmma<64>(q, k, v, o, dout, lse, lse2_delta, delta, part,
-                              walks, dq, dk, dv, B, H, H_kv, Sq, Sk, causal,
-                              window, scale, strides, plan, st);
-    case 128:
-      return launch_wgmma<128>(q, k, v, o, dout, lse, lse2_delta, delta,
-                               part, walks, dq, dk, dv, B, H, H_kv, Sq, Sk,
-                               causal, window, scale, strides, plan, st);
+    case 64: return BW_WG(64);
+    case 128: return BW_WG(128);
+    case 256: return BW_WG(256);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef BW_WG
 }

@@ -27,9 +27,9 @@ writes each row's log-sum-exp, and its backward runs
 :func:`flash_attention_bwd` - on the card the hand-written backward
 kernel ``csrc/flash_attention_bwd.cu`` (P recomputed from the saved
 log-sum-exp, dK and dV summed over each kv head's group inside one block:
-no atomics, the same bits every run; bfloat16 at head dims 64 and 128 on
-``wgmma`` fed by the copy engine, laid out by :func:`bwd_plan`, the rest
-on the CUDA cores).  A CPU tensor is not sent
+no atomics, the same bits every run; bfloat16 at head dims 64, 128 and
+256 on ``wgmma`` fed by the copy engine, laid out by :func:`bwd_plan`,
+float32 on the CUDA cores).  A CPU tensor is not sent
 through it: autograd differentiates the plain version.  Head dims 64, 128
 and 256 train.  ``flash_attention.launches`` and
 ``flash_attention_bwd.launches`` count kernel launches (one per call),
@@ -54,15 +54,23 @@ from .ref import ref_attention
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
-#: head dims the backward kernel takes
+#: head dims the backward kernel takes (bfloat16 on ``wgmma``, float32 on
+#: the CUDA cores)
 BWD_HEAD_DIMS = (64, 128, 256)
-#: head dims of its bfloat16 ``wgmma`` path (the rest: the CUDA cores)
-WGMMA_BWD_HEAD_DIMS = (64, 128)
-#: the ``wgmma`` path's fixed tiles (the same names in the source): keys
-#: of a dk/dv block (64 a consumer warpgroup), query rows of a dq block
-#: (64 a consumer), keys of a dq tile, and the row padding of the lse2 /
-#: delta scratch
+#: the ``wgmma`` path's tiles at head dims 64 and 128 (the same names in
+#: the source): keys of a dk/dv block (64 a consumer warpgroup), query
+#: rows of a dq block (64 a consumer), keys of a dq tile, and the row
+#: padding of the lse2 / delta scratch.  At 256: :func:`wgmma_tiles`.
 KV_KEYS, DQ_ROWS, DQ_KEYS, PAD_ROWS = 128, 128, 64, 128
+
+
+def wgmma_tiles(head_dim: int) -> Tuple[int, int]:
+    """(keys of a dk/dv block, keys of a dq tile) of the ``wgmma`` path
+    (``WgTiles`` in the source): at d = 256, 64 keys that both consumer
+    warpgroups of a dk/dv block share (they split the products, each
+    holding one 64 x 256 float32 accumulator), and dq tiles of 32 keys
+    (so that 128 rows of q and do and three stages of K and V fit)."""
+    return (64, 32) if head_dim == 256 else (KV_KEYS, DQ_KEYS)
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
@@ -94,12 +102,12 @@ def build_bwd() -> str:
         return _bwd_build_log
     lib, _bwd_build_log = build_library("flash_attention_bwd.cu")
     fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
                    + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_bwd_wgmma_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
                    + [ctypes.c_int] * 7
                    + [ctypes.c_float] + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
@@ -209,25 +217,34 @@ WALK_INTS = 12
 
 @dataclass(frozen=True)
 class BwdPlan:
-    """The launch plan of the bfloat16 ``wgmma`` backward (head dims 64
-    and 128) for one call: the kernels' tiles and grids, and the walk of
-    every block, which the kernel reads from :attr:`walks`.
+    """The launch plan of the bfloat16 ``wgmma`` backward for one call: the
+    kernels' tiles and grids, and the walk of every block, which the
+    kernel reads from :attr:`walks`.
 
-    * dk/dv: one block per (kv head and batch, 128 keys), grid
-      ``kv_grid`` = (H_kv B, key blocks); it walks every head of the kv
-      head's group and, for each, the query tiles of ``kv_q_tile`` rows
-      that see its keys: 128 at d = 64 (64 at d = 128, where the
-      accumulators take the registers), or 16, 32 or 64 where S_q is
-      smaller (whisper's 16 queries do not pad 48 rows).
+    * dk/dv: one block per (kv head and batch, group share, ``kv_keys``
+      keys), grid ``kv_grid`` = (H_kv B ``n_gsplit``, key blocks); it
+      walks the heads of its share of the kv head's group and, for each,
+      the query tiles of ``kv_q_tile`` rows that see its keys: 128 at
+      d = 64 (64 at d = 128 and 256, where the accumulators take the
+      registers), or 16, 32 or 64 where S_q is smaller (whisper's 16
+      queries do not pad 48 rows).  At d = 64 and 128 a block has 128
+      keys, 64 a consumer warpgroup; at d = 256 it has 64, which both
+      consumers take (one computes P^T and dV, the other dS^T and dK).
+    * The group split (d = 256): where the (b, kv head, key block) blocks
+      are fewer than the SMs (recurrentgemma-2b's one kv head for 10
+      query heads), the group's heads are split over ``n_gsplit`` blocks
+      of contiguous heads, as many as fill the card; each writes float32
+      dk / dv partials and the merge launch sums them in split order 0,
+      1, ... (the same bits every run).
     * dq: one block per (head and batch, 128 query rows, key split), grid
       ``dq_grid`` = (H B, query tiles, ``n_split``), the longest causal
-      walks first (the kernel takes the tiles from the last); split s takes the s-th share of the key tiles (``DQ_KEYS``
-      keys) the rows see.  Where the dq blocks are fewer than the SMs
-      (few queries: whisper's cross-attention) the keys are split until
-      they fill the SMs that the dk/dv blocks leave idle in their last
-      wave (or a wave of their own); each split then writes a float32
-      partial and a third launch sums them in split order 0, 1, ... (the
-      same bits every run).
+      walks first (the kernel takes the tiles from the last); split s
+      takes the s-th share of the key tiles (``dq_keys`` keys) the rows
+      see.  Where the dq blocks are fewer than the SMs (few queries:
+      whisper's cross-attention) the keys are split until they fill the
+      SMs that the dk/dv blocks leave idle in their last wave (or a wave
+      of their own); each split then writes a float32 partial and the
+      merge launch sums them in split order.
     * Both roles run in one launch of :attr:`n_blocks` blocks, the dk/dv
       blocks first (key block major, so the longest causal walks start
       first), then the dq blocks.
@@ -236,9 +253,9 @@ class BwdPlan:
     * ``walks``: ``WALK_INTS`` ints a record, one record per key block
       (dk/dv), then one per (split, query tile) of dq, at ``kv_grid[1] +
       split * dq_grid[1] + tile``.  A record is (0, the block's tiles
-      [lo, hi), 0), then for each of the two consumer warpgroups (64 keys of a dk/dv
-      block, 64 rows of a dq block) the tiles it computes, [vis_lo,
-      vis_hi), and of those the ones it computes without a mask,
+      [lo, hi), 0), then for each of the two consumer warpgroups (its keys
+      of a dk/dv block, 64 rows of a dq block) the tiles it computes,
+      [vis_lo, vis_hi), and of those the ones it computes without a mask,
       [full_lo, full_hi): the others cross the diagonal, the window's
       edge or (dq) the last key."""
     B: int
@@ -254,10 +271,26 @@ class BwdPlan:
     dq_grid: Tuple[int, int, int]
     s_pad: int
     walks: Tuple[int, ...] = field(repr=False, compare=False)
+    n_gsplit: int = 1
 
     @property
     def n_split(self) -> int:
         return self.dq_grid[2]
+
+    @property
+    def kv_keys(self) -> int:
+        return wgmma_tiles(self.D)[0]
+
+    @property
+    def dq_keys(self) -> int:
+        return wgmma_tiles(self.D)[1]
+
+    def group_heads(self, share: int) -> Tuple[int, int]:
+        """The heads [lo, hi) of a kv head's group that group share
+        ``share`` of the dk/dv blocks walks (as the kernel splits them)."""
+        group = self.H // self.H_kv
+        return (share * group // self.n_gsplit,
+                (share + 1) * group // self.n_gsplit)
 
     @property
     def n_blocks(self) -> int:
@@ -265,11 +298,12 @@ class BwdPlan:
         return math.prod(self.kv_grid) + math.prod(self.dq_grid)
 
     def c_args(self) -> Tuple[int, ...]:
-        """The 4 ints the C entry point receives beside the walk table:
-        the dk/dv query tile, the key splits, the padded rows and the
-        table's records (which the C side checks against its tiles)."""
+        """The 5 ints the C entry point receives beside the walk table:
+        the dk/dv query tile, the key splits, the padded rows, the table's
+        records (which the C side checks against its tiles) and the group
+        splits."""
         return (self.kv_q_tile, self.n_split, self.s_pad,
-                len(self.walks) // WALK_INTS)
+                len(self.walks) // WALK_INTS, self.n_gsplit)
 
 
 def _span(vis_lo: int, full_lo: int, full_hi: int, vis_hi: int, lo: int,
@@ -283,18 +317,19 @@ def _span(vis_lo: int, full_lo: int, full_hi: int, vis_hi: int, lo: int,
 
 
 def _dkdv_record(kb: int, bq: int, S_q: int, S_k: int, causal: bool,
-                 w: int) -> Tuple[int, ...]:
-    """Key block ``kb``: the query tiles (``bq`` rows) that see a key of
-    it; consumer c's keys [kw, kw + 63] are visible to query tile t from
-    the tile holding kw (causal) to the last one with a query within the
-    window of kw + 63, and unmasked from the first tile whose first query
-    sees kw + 63 to the last whose last query sees kw."""
-    k0 = kb * KV_KEYS
+                 w: int, kv_keys: int) -> Tuple[int, ...]:
+    """Key block ``kb`` (``kv_keys`` keys): the query tiles (``bq`` rows)
+    that see a key of it; consumer c's keys [kw, kw + 63] (its half of
+    128, or at d = 256 all 64, the same for both) are visible to query
+    tile t from the tile holding kw (causal) to the last one with a query
+    within the window of kw + 63, and unmasked from the first tile whose
+    first query sees kw + 63 to the last whose last query sees kw."""
+    k0 = kb * kv_keys
     lo = k0 // bq if causal else 0
-    hi = _cdiv(min(S_q, k0 + KV_KEYS - 1 + w) if w else S_q, bq)
+    hi = _cdiv(min(S_q, k0 + kv_keys - 1 + w) if w else S_q, bq)
     rec = [0, lo, hi, 0]
     for c in (0, 1):
-        kw = k0 + 64 * c
+        kw = k0 + (64 * c if kv_keys == 128 else 0)
         if kw >= S_k:  # no keys: the consumer does not walk
             rec += [lo, lo, lo, lo]
             continue
@@ -306,26 +341,26 @@ def _dkdv_record(kb: int, bq: int, S_q: int, S_k: int, causal: bool,
 
 
 def _dq_record(qt: int, split: int, n_split: int, S_k: int, causal: bool,
-               w: int) -> Tuple[int, ...]:
+               w: int, dq_keys: int) -> Tuple[int, ...]:
     """dq block (query tile ``qt``, split): its share of the key tiles
-    (``DQ_KEYS`` keys) the tile's rows see; consumer c's rows [qw, qw +
+    (``dq_keys`` keys) the tile's rows see; consumer c's rows [qw, qw +
     63] see key tile t from the first with a key within the window of qw
     to the one holding qw + 63 (causal), unmasked from the first whose
     first key qw + 63 sees to the last whose last key qw sees and lies
     below S_k."""
-    q0, n_kt = qt * DQ_ROWS, _cdiv(S_k, DQ_KEYS)
-    lo = max(0, q0 - w + 1) // DQ_KEYS if w else 0
-    hi = min(n_kt, (q0 + DQ_ROWS - 1) // DQ_KEYS + 1) if causal else n_kt
+    q0, n_kt = qt * DQ_ROWS, _cdiv(S_k, dq_keys)
+    lo = max(0, q0 - w + 1) // dq_keys if w else 0
+    hi = min(n_kt, (q0 + DQ_ROWS - 1) // dq_keys + 1) if causal else n_kt
     n = max(0, hi - lo)
     lo, hi = lo + split * n // n_split, lo + (split + 1) * n // n_split
     rec = [0, lo, hi, 0]
     for c in (0, 1):
         qw = q0 + 64 * c
-        rec += _span((qw - w + 1) // DQ_KEYS if w else lo,
-                     (qw + 63 - w) // DQ_KEYS + 1 if w else lo,
-                     min((qw + 1) // DQ_KEYS if causal else n_kt,
-                         S_k // DQ_KEYS),
-                     (qw + 63) // DQ_KEYS + 1 if causal else hi, lo, hi)
+        rec += _span((qw - w + 1) // dq_keys if w else lo,
+                     (qw + 63 - w) // dq_keys + 1 if w else lo,
+                     min((qw + 1) // dq_keys if causal else n_kt,
+                         S_k // dq_keys),
+                     (qw + 63) // dq_keys + 1 if causal else hi, lo, hi)
     return tuple(rec)
 
 
@@ -334,13 +369,19 @@ def bwd_plan(B: int, H: int, H_kv: int, S_q: int, S_k: int, D: int,
              causal: bool, window: Optional[int], n_sms: int) -> BwdPlan:
     """The launch plan of the ``wgmma`` backward (see :class:`BwdPlan`)
     on a card of ``n_sms`` SMs."""
-    if D not in WGMMA_BWD_HEAD_DIMS:
+    if D not in BWD_HEAD_DIMS:
         raise ValueError(f"head dim {D} not in the wgmma path's "
-                         f"{WGMMA_BWD_HEAD_DIMS}")
+                         f"{BWD_HEAD_DIMS}")
+    kv_keys, dq_keys = wgmma_tiles(D)
     kv_q_tile = (16 if S_q <= 16 else 32 if S_q <= 32 else
-                 64 if S_q <= 64 or D == 128 else 128)
-    n_qt, n_kt = _cdiv(S_q, DQ_ROWS), _cdiv(S_k, DQ_KEYS)
-    kv_grid = (H_kv * B, _cdiv(S_k, KV_KEYS))
+                 64 if S_q <= 64 or D >= 128 else 128)
+    n_qt, n_kt = _cdiv(S_q, DQ_ROWS), _cdiv(S_k, dq_keys)
+    kv_blocks = H_kv * B * _cdiv(S_k, kv_keys)
+    n_gsplit = 1
+    if D == 256 and kv_blocks < n_sms:
+        # the group's heads over as many blocks as fill the card
+        n_gsplit = max(1, min(H // H_kv, n_sms // kv_blocks))
+    kv_grid = (H_kv * B * n_gsplit, _cdiv(S_k, kv_keys))
     blocks = n_qt * H * B
     n_split = 1
     if blocks < n_sms:
@@ -351,12 +392,14 @@ def bwd_plan(B: int, H: int, H_kv: int, S_q: int, S_k: int, D: int,
                              else _cdiv(n_sms, blocks)))
     w = window or 0
     walks = [x for kb in range(kv_grid[1])
-             for x in _dkdv_record(kb, kv_q_tile, S_q, S_k, causal, w)]
+             for x in _dkdv_record(kb, kv_q_tile, S_q, S_k, causal, w,
+                                   kv_keys)]
     walks += [x for split in range(n_split) for qt in range(n_qt)
-              for x in _dq_record(qt, split, n_split, S_k, causal, w)]
+              for x in _dq_record(qt, split, n_split, S_k, causal, w,
+                                  dq_keys)]
     return BwdPlan(B, H, H_kv, S_q, S_k, D, causal, window, kv_q_tile,
                    kv_grid, (H * B, n_qt, n_split),
-                   _cdiv(S_q, PAD_ROWS) * PAD_ROWS, tuple(walks))
+                   _cdiv(S_q, PAD_ROWS) * PAD_ROWS, tuple(walks), n_gsplit)
 
 
 @functools.lru_cache(maxsize=None)
@@ -374,7 +417,7 @@ def _sm_count(index: int) -> int:
 
 def _launch_bwd_wgmma(q, k, v, out, lse, dout, dq, dk, dv, causal: bool,
                       window: Optional[int]) -> None:
-    """The bfloat16 ``wgmma`` path (head dims 64 and 128)."""
+    """The bfloat16 ``wgmma`` path (head dims 64, 128 and 256)."""
     B, H, S, D = q.shape
     lse = lse.contiguous()
     with torch.cuda.device(q.device):
@@ -386,15 +429,19 @@ def _launch_bwd_wgmma(q, k, v, out, lse, dout, dq, dk, dv, causal: bool,
                               device=q.device)
         part = (torch.empty((plan.n_split, B, H, S, D), dtype=torch.float32,
                             device=q.device) if plan.n_split > 1 else None)
+        kv_part = (torch.empty((2, plan.n_gsplit) + tuple(k.shape),
+                               dtype=torch.float32, device=q.device)
+                   if plan.n_gsplit > 1 else None)
         strides = (ctypes.c_longlong * 24)(*(
             s for t in (q, k, v, out, dout, dq, dk, dv)
             for s in t.stride()[:3]))
-        c_plan = (ctypes.c_int * 4)(*plan.c_args())
+        c_plan = (ctypes.c_int * 5)(*plan.c_args())
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib.flash_attention_bwd_wgmma_launch(
             D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
             part.data_ptr() if part is not None else None,
+            kv_part.data_ptr() if kv_part is not None else None,
             walks.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], S, k.shape[2],
             int(causal), window or 0, 1.0 / math.sqrt(D), strides, c_plan,
@@ -427,7 +474,7 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool,
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     build_bwd()
-    if q.dtype == torch.bfloat16 and D in WGMMA_BWD_HEAD_DIMS:
+    if q.dtype == torch.bfloat16:
         _launch_bwd_wgmma(q, k, v, out, lse, dout, dq, dk, dv, causal,
                           window)
         flash_attention_bwd.launches += 1
@@ -438,8 +485,8 @@ def _launch_bwd(q, k, v, out, lse, dout, causal: bool,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib.flash_attention_bwd_launch(
-            int(q.dtype == torch.bfloat16), D, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            D, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(),
             lse.contiguous().data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, H, k.shape[1], S, k.shape[2],
             int(causal), window or 0, 1.0 / math.sqrt(D), strides, stream)

@@ -233,11 +233,18 @@ def unembed(params: Mapping[str, torch.Tensor], x: torch.Tensor
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token CE.  logits (B, S, V), computed in float32; labels
-    (B, S); with ``mask`` (B, S) the masked mean, over at least 1."""
+    (B, S); with ``mask`` (B, S) the masked mean, over at least 1.  Inside
+    the sharded train step the mean is the whole batch's: the sum and the
+    count are summed over the batch's ranks before the division."""
+    from ..runtime.mesh_context import batch_axes, whole_batch_sum
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - label_logit
+    if batch_axes():
+        w = torch.ones_like(nll) if mask is None else mask.float()
+        total, count = whole_batch_sum((nll * w).sum(), w.sum())
+        return total / torch.clamp(count, min=1.0)
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

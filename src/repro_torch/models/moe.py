@@ -105,6 +105,22 @@ def load_balance_loss(gates: torch.Tensor, top_i: torch.Tensor,
     return n_experts * (f * p).sum()
 
 
+def batch_load_balance_loss(gates: torch.Tensor, top_i: torch.Tensor,
+                            n_experts: int) -> torch.Tensor:
+    """:func:`load_balance_loss` over the whole batch: inside the sharded
+    train step, whose ranks each route their own rows, f_e and P_e are
+    sums over the batch's ranks before the product (the reference's one
+    SPMD program takes them over every token); elsewhere the same
+    function of these tokens."""
+    from ..runtime.mesh_context import batch_axes, whole_batch_sum
+    if not batch_axes():
+        return load_balance_loss(gates, top_i, n_experts)
+    hits, p, n = whole_batch_sum(
+        _hits(top_i, n_experts).float().sum(dim=(0, 1)), gates.sum(dim=0),
+        gates.new_tensor(gates.shape[0]))
+    return n_experts * ((hits / (n * top_i.shape[1])) * (p / n)).sum()
+
+
 # ---------------------------------------------------------------------------
 # dense (oracle) path
 # ---------------------------------------------------------------------------
@@ -123,7 +139,8 @@ def apply_moe_dense(params: Mapping, x: torch.Tensor, cfg: MoEConfig,
     out = torch.einsum("te,etd->td", combine.to(x.dtype), all_out)
     if "shared" in params:
         out = out + apply_mlp(params["shared"], xt, mlp_kind)
-    aux = load_balance_loss(gates, top_i, cfg.n_experts) if need_aux else None
+    aux = (batch_load_balance_loss(gates, top_i, cfg.n_experts)
+           if need_aux else None)
     return out.reshape(B, S, D), aux
 
 
@@ -208,7 +225,7 @@ def apply_moe_gshard(params: Mapping, x: torch.Tensor, cfg: MoEConfig,
     out = torch.bmm(weights[:, None, :], picked)[:, 0]
     if "shared" in params:
         out = out + apply_mlp(params["shared"], xt, mlp_kind)
-    aux = load_balance_loss(gates, top_i, E) if need_aux else None
+    aux = batch_load_balance_loss(gates, top_i, E) if need_aux else None
     return out.reshape(B, S, D), aux
 
 

@@ -39,6 +39,7 @@ Numerics match ``models.moe.apply_moe_dense`` when capacity is sufficient
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Mapping, Tuple
 
 import torch
@@ -47,6 +48,7 @@ from ..models.layers import apply_mlp
 from ..models.moe import (MoEConfig, _capacity, _hits, load_balance_loss,
                           router_probs)
 from .collectives import collective, mean_over
+from .mesh_context import batch_axes
 
 
 def _local_dispatch(x: torch.Tensor, top_w: torch.Tensor,
@@ -207,13 +209,18 @@ def make_moe_a2a(mesh, cfg: MoEConfig, mlp_kind: str, d_model: int,
         aux = None
         if need_aux:
             aux = load_balance_loss(gates, top_i, cfg.n_experts)
+            split = batch_axes()
             with torch.no_grad():
-                mean = mean_over(aux.detach().clone(), mesh,
-                                 [a for a in (dp_axis, axis) if a in names])
+                mean = mean_over(aux.detach().clone(), mesh, list(
+                    dict.fromkeys([a for a in (dp_axis, axis) if a in names]
+                                  + list(split))))
             # the value is the mean over the ranks; the gradient is the
-            # rank's own tokens' (1 / |axis| of it), partial over ``axis``
-            # as the router's and the experts' gradients are
-            aux = aux / M + (mean - aux.detach() / M)
+            # rank's own tokens' share of it (1 / |axis|, and 1 / the
+            # batch's ranks inside the sharded step), partial over
+            # ``axis`` and the batch's axes as the router's and the
+            # experts' gradients are
+            share = M * math.prod(mesh.size(names.index(a)) for a in split)
+            aux = aux / share + (mean - aux.detach() / share)
         return out, aux
 
     return fn

@@ -173,19 +173,23 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, policy):
     experts see only its rows, and its experts only the tokens routed to
     them (the other ranks hold zeros for them), and the backward sums
     them there - a reduce-scatter into the experts' shards, an all-reduce
-    for the replicated router and shared experts.  The sum is divided by
-    the batch's ranks (the a2a layer's split of the rows is a split of
-    the work, not of the batch).  AdamW then updates each rank's blocks
-    in the moments' layout (ZeRO-1: a block of the data axis too), from
+    for the replicated router and shared experts.  The loss is the whole
+    batch's on every rank, as the reference's one SPMD program computes
+    it: the model runs under ``use_mesh`` with the batch's axes, so the
+    cross-entropy and the load-balance loss take their sums and counts
+    over the batch's ranks before they divide or multiply
+    (``mesh_context.whole_batch_sum``), with the gradient of the rank's
+    own rows; the ranks' gradients summed are then the whole batch's, and
+    nothing is divided or averaged after.  AdamW then updates each rank's
+    blocks in the moments' layout (ZeRO-1: a block of the data axis too), from
     the whole gradient's global norm, and the new blocks go back to the
     parameters' layout (an all-gather over "data" under ZeRO-1).  The
     gradients land on the parameters, which require grad through the
-    step only, and are dropped after it.  The metrics are averaged over
-    the batch's ranks (the a2a layer's load-balance loss is already its
-    mean over the data and model ranks, as the reference's)."""
+    step only, and are dropped after it.  The metrics are the whole
+    batch's on every rank (the a2a layer's load-balance loss is its mean
+    over the batch's and the model's ranks, the reference's estimator)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
 
-    from .collectives import mean_over
     from .mesh_context import use_mesh
     from .sharding import placements
 
@@ -210,11 +214,15 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, policy):
         grad_pl = {id(p): [Partial() if a in batch_axes or (
             a == "model" and id(p) in moe) else Replicate() for a in names]
             for p in named.values()}
-        with _gathered_at_use(params, grad_pl), use_mesh(mesh):
+        # the losses take their sums over the batch's ranks: each rank's
+        # loss and metrics are the whole batch's, and the sum of the
+        # ranks' gradients is its gradient
+        with _gathered_at_use(params, grad_pl), use_mesh(
+                mesh, batch_axes if n_batch > 1 else ()):
             loss, metrics = model_lib.loss_fn(cfg, params, local)
             loss.backward()
         with torch.no_grad():
-            grads = {n: p.grad.div_(n_batch) if p.grad is not None
+            grads = {n: p.grad if p.grad is not None
                      else torch.zeros_like(p) for n, p in named.items()}
             norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                   .full_tensor() for g in grads.values()))
@@ -242,8 +250,7 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, policy):
                     run_check=False).redistribute(mesh, p.placements)
                 p.to_local().copy_(new.to_local())
         opt_state["step"] = local_state["step"]
-        metrics = {k: mean_over(v.detach().clone(), mesh, batch_axes)
-                   for k, v in metrics.items()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.update(opt_metrics)
         return params, opt_state, metrics
 

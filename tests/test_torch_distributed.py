@@ -347,6 +347,127 @@ def test_sharded_step_levers_equal_the_single_process_step(tmp_path, ref,
     _check_against_single_process(tmp_path, ref)
 
 
+#: the configs the 2x2 step is held on beside granite's ``STEP_CFG``:
+#: (the config, whether the batch carries a ``loss_mask``).  The masked
+#: granite batch keeps 8 tokens on data rank 0 and 32 on rank 1, and the
+#: MoE configs' load-balance loss is a product of means over every token:
+#: neither is a plain mean over rows of equal weight, so a step that
+#: averaged the ranks' losses would miss the whole batch's.
+WHOLE_BATCH_CASES = {
+    "granite-3-2b-loss-mask": ("get_config('granite-3-2b').smoke()", True),
+    "deepseek-moe-16b-gshard": (
+        "dataclasses.replace(get_config('deepseek-moe-16b').smoke(), "
+        "moe_impl='gshard')", False),
+    "deepseek-moe-16b-dense": (
+        "dataclasses.replace(get_config('deepseek-moe-16b').smoke(), "
+        "moe_impl='dense')", False),
+    "qwen3-moe-30b-a3b": ("get_config('qwen3-moe-30b-a3b').smoke()", False),
+    "rwkv6-7b": ("get_config('rwkv6-7b').smoke()", False),
+    "recurrentgemma-2b": ("get_config('recurrentgemma-2b').smoke()", False),
+    "qwen2-vl-72b": ("get_config('qwen2-vl-72b').smoke()", False),
+}
+
+
+def _reference_whole_batch_step(out: Path, cfg_expr: str, mask: bool):
+    """The reference's 2x2 step (data 2, model 2) on ``cfg_expr`` from
+    ``init_params(cfg, key(0))``; tokens then labels drawn from
+    ``default_rng(0)``, and with ``mask`` a ``loss_mask`` of ones with rows
+    0-1 zeroed from column 4.  Leaves the inputs, the weights and the
+    step's parameters and metrics in ``out``."""
+    run_reference(f"""
+    import dataclasses
+    from pathlib import Path
+    from repro.configs import get_config
+    from repro.configs.shapes import ShapeSpec
+    from repro.models import init_params
+    from repro.optim.adamw import init_opt_state
+    from repro.runtime.sharding import ShardingPolicy
+    from repro.runtime.steps import input_specs, make_train_step
+    OUT = Path({str(out)!r})
+    cfg = {cfg_expr}
+    rng = np.random.default_rng(0)
+    batch = {{"tokens": rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32),
+              "labels": rng.integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)}}
+    if {mask}:
+        m = np.ones((4, 16), np.float32)
+        m[:2, 4:] = 0.0
+        batch["loss_mask"] = m
+    for k, v in batch.items():
+        np.save(OUT / f"{{k}}.npy", v)
+    mesh = jax.make_mesh((2, 2), ("data", "model"))
+    policy = ShardingPolicy(cfg, mesh)
+    specs = input_specs(cfg, ShapeSpec("tiny", seq_len=16, global_batch=4,
+                                       kind="train"))
+    specs["batch"].update({{k: jax.ShapeDtypeStruct(v.shape, v.dtype)
+                            for k, v in batch.items()}})
+    step = jax.jit(make_train_step(cfg),
+                   in_shardings=(policy.params_shardings(specs["params"]),
+                                 policy.opt_state_shardings(specs["params"]),
+                                 policy.batch_shardings(specs["batch"])))
+    params = init_params(cfg, jax.random.key(0))
+    pickle.dump(jax.tree.map(np.asarray, params),
+                open(OUT / "params0.pkl", "wb"))
+    p2, _, metrics = step(params, init_opt_state(params), batch)
+    pickle.dump({{"params": jax.tree.map(np.asarray, p2),
+                  "metrics": {{k: float(v) for k, v in metrics.items()}}}},
+                open(OUT / "step.pkl", "wb"))
+    """)
+
+
+@pytest.mark.parametrize("case", list(WHOLE_BATCH_CASES))
+def test_sharded_step_takes_the_whole_batch_loss(tmp_path, case):
+    """The port's 2x2 step against the reference's 2x2 step, from the same
+    weights and batch: metrics ("loss", "ce", "aux", "grad_norm") within
+    1e-4, every parameter after the step within 1e-6; and against the
+    port's single-process step on the whole batch, to the same limits.  A
+    masked cross-entropy's sum and count and the load-balance loss's
+    f_e and P_e are taken over the batch's ranks (``mesh_context.
+    whole_batch_sum``), not each rank's own averaged."""
+    import dataclasses
+    import pickle
+
+    import jax
+    from repro_torch.configs import get_config
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime.steps import make_train_step
+
+    cfg_expr, mask = WHOLE_BATCH_CASES[case]
+    ref = tmp_path / "reference"
+    ref.mkdir()
+    _reference_whole_batch_step(ref, cfg_expr, mask)
+    keys = ("tokens", "labels") + (("loss_mask",) if mask else ())
+    run_ranks(STEP_BODY.format(ref=str(ref), cfg=cfg_expr) + textwrap.dedent(f"""
+    batch = {{n: torch.from_numpy(np.load(os.path.join(REF, n + ".npy")))
+              for n in {keys!r}}}
+    LEVERS = {{}}
+    """) + SAVE_STEP, tmp_path / "ranks")
+    sharded = pickle.load(open(tmp_path / "ranks" / "step.pkl", "rb"))
+    jstep = pickle.load(open(ref / "step.pkl", "rb"))
+    cfg = eval(cfg_expr, {"dataclasses": dataclasses,
+                          "get_config": get_config})
+    model = params_from_jax(cfg, pickle.load(open(ref / "params0.pkl", "rb")),
+                            device="cpu").requires_grad_(True)
+    batch = {n: torch.from_numpy(np.load(ref / f"{n}.npy")) for n in keys}
+    _, _, metrics = make_train_step(cfg)(model, init_opt_state(model), batch)
+    for key in ("loss", "ce", "aux", "grad_norm"):
+        np.testing.assert_allclose(sharded["metrics"][key],
+                                   jstep["metrics"][key], rtol=1e-4,
+                                   atol=1e-7, err_msg=key)
+        np.testing.assert_allclose(sharded["metrics"][key],
+                                   float(metrics[key]), rtol=1e-4, atol=1e-7,
+                                   err_msg=key)
+    want = dict(params_from_jax(cfg, jax.tree.map(np.asarray,
+                                                  jstep["params"]),
+                                device="cpu").named_parameters())
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(sharded["params"][n],
+                                   want[n].detach().numpy(), rtol=0,
+                                   atol=1e-6, err_msg=n)
+        np.testing.assert_allclose(sharded["params"][n], p.detach().numpy(),
+                                   rtol=0, atol=1e-6, err_msg=n)
+
+
 @pytest.mark.parametrize("remat", [False, True])
 def test_sharded_step_gathers_one_layer_at_a_time(tmp_path, remat):
     """The sharded step gathers each layer's parameters at use: while a

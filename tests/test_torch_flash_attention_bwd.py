@@ -15,6 +15,8 @@ the forward kernel's log-sum-exp must equal the scores' logsumexp; there
 run ``python -m pytest --noconftest -m gpu
 tests/test_torch_flash_attention_bwd.py``.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -167,7 +169,10 @@ def test_recurrences_differentiate_on_the_cpu():
 
 # (B, H, H_kv, S_q, S_k, d, causal, window) of the wgmma path's plan:
 # causal lengths on and off the tiles, a window, cross-attention (whisper's
-# split dq), one query row, d = 128 with qwen3-moe's group of 8
+# split dq), one query row, d = 128 with qwen3-moe's group of 8; at d =
+# 256: recurrentgemma-2b's training shape (T4: its 2048-key window over
+# 1024 keys, group 10 over one kv head, the group split), a window, a
+# length that is no multiple of 64, one query row, cross-attention
 PLAN_CASES = [
     (4, 32, 8, 1024, 1024, 64, True, None),
     (1, 8, 2, 1000, 1000, 64, True, None),
@@ -178,6 +183,11 @@ PLAN_CASES = [
     (1, 32, 4, 2048, 2048, 128, True, None),
     (2, 6, 6, 16, 16, 64, True, None),
     (1, 6, 6, 448, 1500, 64, False, None),
+    (4, 10, 1, 1024, 1024, 256, True, 2048),
+    (1, 4, 1, 300, 300, 256, True, 100),
+    (1, 10, 1, 1000, 1000, 256, True, None),
+    (2, 10, 1, 1, 1, 256, True, None),
+    (1, 8, 2, 17, 300, 256, False, None),
 ]
 
 
@@ -236,17 +246,28 @@ def test_bwd_plan_walks_cover_every_visible_pair_once(case):
     counts = np.zeros(vis.shape, dtype=np.int64)
     bq = plan.kv_q_tile
     n_kb = plan.kv_grid[1]
+    assert plan.kv_keys == (64 if D == 256 else KV_KEYS)
+    # at d = 256 the two consumers take the same keys and split the
+    # products: consumer 0's P^T is the tile's one P, consumer 1 walks
+    # the same tiles (it reads that P^T)
+    consumers = (0,) if D == 256 else (0, 1)
     for kb in range(n_kb):
         walk, spans = recs[kb][0], recs[kb][1:]
+        if D == 256:
+            assert tuple(spans[0]) == tuple(spans[1])
         for qt in range(walk[1], walk[2]):
-            for c in (0, 1):  # the consumer warpgroups with keys
-                kw = kb * KV_KEYS + 64 * c
+            for c in consumers:  # the consumer warpgroups with keys
+                kw = kb * plan.kv_keys + 64 * c
                 if kw < S_k:
                     _account(counts, vis, _kind(spans[c], qt), qt * bq, bq,
                              kw, 64)
     np.testing.assert_array_equal(counts, vis)
+    # each head of a kv head's group in exactly one group share, in order
+    heads = [h for share in range(plan.n_gsplit)
+             for h in range(*plan.group_heads(share))]
+    assert heads == list(range(H // H_kv))
     counts[:] = 0
-    n_qt, n_split = plan.dq_grid[1], plan.dq_grid[2]
+    n_qt, n_split, dk = plan.dq_grid[1], plan.dq_grid[2], plan.dq_keys
     for qt in range(n_qt):
         tiles = []
         for split in range(n_split):
@@ -255,15 +276,16 @@ def test_bwd_plan_walks_cover_every_visible_pair_once(case):
             tiles += list(range(walk[1], walk[2]))
             for kt in range(walk[1], walk[2]):
                 for c in (0, 1):  # the consumer warpgroups with rows
-                    qw, k0 = qt * DQ_ROWS + 64 * c, kt * DQ_KEYS
+                    qw, k0 = qt * DQ_ROWS + 64 * c, kt * dk
                     if qw < S_q:
                         kind = _kind(spans[c], kt)
-                        assert kind != "full" or k0 + DQ_KEYS <= S_k
-                        _account(counts, vis, kind, qw, 64, k0, DQ_KEYS)
+                        assert kind != "full" or k0 + dk <= S_k
+                        _account(counts, vis, kind, qw, 64, k0, dk)
         assert tiles == sorted(set(tiles))  # splits in order, disjoint
     np.testing.assert_array_equal(counts, vis)
     assert plan.s_pad % 128 == 0 and plan.s_pad >= S_q
-    assert plan.c_args()[:3] == (bq, n_split, plan.s_pad)
+    assert plan.c_args() == (bq, n_split, plan.s_pad, len(recs),
+                             plan.n_gsplit)
 
 
 def test_bwd_plan_key_split_sums_to_dq_in_split_order():
@@ -301,7 +323,9 @@ def test_bwd_plan_fills_the_card_for_few_queries():
     """Whisper's cross-attention (16 queries, 1500 keys) splits dq's keys
     so that its blocks fill the SMs the dk/dv blocks leave idle: the one
     launch is whole waves; granite-3-2b's training shape needs no split;
-    the dk/dv query tile follows S_q."""
+    the dk/dv query tile follows S_q.  At d = 256 the tiles are smaller
+    and a kv head's group is split over dk/dv blocks where they are
+    fewer than the SMs."""
     plan = bwd_plan(2, 6, 6, 16, 1500, 64, False, None, n_sms=132)
     kv_blocks = plan.kv_grid[0] * plan.kv_grid[1]
     dq_blocks = plan.dq_grid[0] * plan.dq_grid[1] * plan.dq_grid[2]
@@ -313,8 +337,70 @@ def test_bwd_plan_fills_the_card_for_few_queries():
     assert bwd_plan(1, 1, 1, 17, 17, 64, True, None, 132).kv_q_tile == 32
     assert bwd_plan(1, 1, 1, 2048, 2048, 128, True, None,
                     132).kv_q_tile == 64
+    # d = 256: 64-key dk/dv blocks of 64-row query tiles, 32-key dq tiles;
+    # at recurrentgemma-2b's training shape (T4) the 64 (b, kv head, key
+    # block) blocks would leave half the card idle, so its group of 10
+    # heads is split in two: 128 dk/dv blocks of 5 heads each
+    t4 = bwd_plan(4, 10, 1, 1024, 1024, 256, True, 2048, 132)
+    assert (t4.kv_keys, t4.dq_keys, t4.kv_q_tile) == (64, 32, 64)
+    assert t4.n_gsplit == 2 and t4.kv_grid == (8, 16)
+    assert 132 // 2 < math.prod(t4.kv_grid) <= 132
+    assert [t4.group_heads(s) for s in range(2)] == [(0, 5), (5, 10)]
+    assert t4.n_split == 1 and t4.dq_grid == (40, 8, 1)
+    assert bwd_plan(1, 1, 1, 1, 1, 256, True, None, 132).kv_q_tile == 16
+    # enough blocks without it: no group split (and none below d = 256)
+    assert bwd_plan(16, 10, 1, 1024, 1024, 256, True, None,
+                    132).n_gsplit == 1
+    assert granite.n_gsplit == plan.n_gsplit == 1
     with pytest.raises(ValueError):
-        bwd_plan(1, 1, 1, 64, 64, 256, True, None, 132)
+        bwd_plan(1, 1, 1, 64, 64, 512, True, None, 132)
+
+
+@pytest.mark.parametrize("shape", [(1, 10, 1, 300, 300, True, 100),
+                                   (2, 6, 2, 70, 70, True, None)],
+                         ids=["group10-window", "group3-causal"])
+def test_bwd_plan_group_split_sums_dkdv_in_split_order(shape):
+    """At d = 256 with few dk/dv blocks, the group split: each share of a
+    kv head's group (``BwdPlan.group_heads``) forms float32 partials of dk
+    and dv over its own heads, each (head, key) in exactly one share, and
+    the partials summed in split order 0, 1, ... equal autograd's dk and
+    dv through the plain version."""
+    B, H, H_kv, S_q, S_k, causal, window = shape
+    D = 256
+    plan = bwd_plan(B, H, H_kv, S_q, S_k, D, causal, window, n_sms=132)
+    assert plan.n_gsplit > 1
+    group = H // H_kv
+    seen = np.zeros(group, dtype=np.int64)
+    for share in range(plan.n_gsplit):
+        lo, hi = plan.group_heads(share)
+        seen[lo:hi] += 1
+    np.testing.assert_array_equal(seen, 1)
+    rng = np.random.default_rng(12)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape_))
+                   for shape_ in ((B, H, S_q, D), (B, H_kv, S_k, D),
+                                  (B, H_kv, S_k, D), (B, H, S_q, D)))
+    kg, vg = k.clone().requires_grad_(), v.clone().requires_grad_()
+    want = torch.autograd.grad(ref.ref_attention(q, kg, vg, causal=causal,
+                                                 window=window), (kg, vg), do)
+    scale = D ** -0.5
+    kr, vr = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    s = q @ kr.transpose(-1, -2) * scale
+    vis = torch.from_numpy(_visible(S_q, S_k, causal, window))
+    p = torch.softmax(s.masked_fill(~vis, -1e30), dim=-1) * vis
+    ds = p * (do @ vr.transpose(-1, -2)
+              - (do * (p @ vr)).sum(-1, keepdim=True))
+    dk_h = (ds.transpose(-1, -2) @ q * scale).reshape(B, H_kv, group, S_k, D)
+    dv_h = (p.transpose(-1, -2) @ do).reshape(B, H_kv, group, S_k, D)
+    got = []
+    for per_head in (dk_h, dv_h):
+        parts = [per_head[:, :, slice(*plan.group_heads(share))]
+                 .sum(dim=2).float() for share in range(plan.n_gsplit)]
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        got.append(total)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_.double(), w, rtol=1e-5, atol=1e-5)
 
 
 def test_ptxas_report_reads_registers_and_spills_by_kernel():
@@ -357,8 +443,10 @@ def _gpu_case(case, dtype, seed):
     return q, k, v, do
 
 
-# (B, S_q, S_k, H, H_kv, d, causal, window) at the kernel's head dims;
-# from the seventh: whisper's cross-attention shape (its dq split over
+# (B, S_q, S_k, H, H_kv, d, causal, window) at the kernel's head dims
+# (the fifth: d = 256 windowed; the last two: recurrentgemma-2b's
+# training shape at B 1, the group split, and d = 256 cross-attention,
+# whose dq keys and dk/dv group are both split); from the seventh: whisper's cross-attention shape (its dq split over
 # the keys), one query row against 1500 keys at d = 128 with a group, d =
 # 128 causal at 2048 with qwen3-moe's 32 / 4 heads, a causal length that
 # is no multiple of 128, a window at d = 64
@@ -373,6 +461,8 @@ GPU_CASES = [
     (1, 2048, 2048, 32, 4, 128, True, None), (1, 1000, 1000, 8, 2, 64, True,
                                               None),
     (1, 300, 300, 4, 1, 64, True, 100),
+    (1, 1024, 1024, 10, 1, 256, True, 2048),  # T4's shape at B 1
+    (1, 17, 1500, 4, 1, 256, False, None),  # dq key and group splits
 ]
 
 
