@@ -132,8 +132,11 @@ A6 / A7. (right after phase 3) the recurrences' backward kernels -
     ``wkv6_bwd`` and ``rglru_scan_bwd`` through their autograd Functions
     against autograd through the plain forwards on edge cases
     (``WKV_BWD_CASES``, ``RG_BWD_CASES``; float32 and bf16, strided and
-    dense) within ``WKV_TOL`` / ``SCAN_TOL`` relative to each gradient's
-    largest entry;
+    dense; the WKV backward at the -5 clamp over 1024 steps and at -20,
+    whose chunks are walked back step by step) within ``WKV_TOL`` /
+    ``SCAN_TOL`` relative to each gradient's largest entry; (in phase 2)
+    ``wkv6_bwd.cu``'s registers and spills, a spill in any of its kernels
+    failing;
 T4. recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU, 8
     local attention of 10/1 heads x 256, window 2048; bf16, remat on)
     trained as T2 at ``RECURRENT_TRAIN_SHAPE``, the memory reckoned first:
@@ -149,7 +152,8 @@ T4b / T5b. one batch of ``RECURRENT_GRAD_SHAPE`` (reduced: batch and
     recurrentgemma-2b at T4's depth, rwkv6-7b at ``T5B_LAYERS`` (reduced:
     depth); then both backward kernels at T4's and T5's shapes against
     autograd through the plain forwards, 20 CUDA-graph replays bitwise
-    equal, their times beside their bounds and the plain backward's, and
+    equal, their times beside their bounds and the plain backward's (the
+    WKV backward's plan and workspace bytes printed), and
     the forwards (T4's local attention and its backward too, with SDPA's)
     at the same shapes;
 T3. the trainer's fault path - granite-3-2b cut to 4 layers (reduced:
@@ -1740,16 +1744,18 @@ DIST = dict(arch="granite-3-2b", layers=4, batch=4, seq_len=1024,
             decode=(1, 8), cache_rows=2048)
 #: A6 / A7, the recurrences' backward kernels against autograd through
 #: their plain forwards.  wkv6_bwd at rwkv6-7b's 64 heads of 64: (B, S,
-#: logw, s0 given, ds_last given) - one step, S short of, at and past the
-#: kernel's 16-step chunk and the forward's 32, T5's 1024 and the longest
-#: prompt; logw from the model's range, at its -5 clamp, at 0 (the state
-#: grows with S) and at -20 (the forward's chunks go step by step)
+#: logw, s0 given, ds_last given) - one step, S short of, at and past a
+#: 32-step chunk, T5's 1024 and the longest prompt; logw from the model's
+#: range, at its -5 clamp (32 chunks of totals -160, on the recentring's
+#: edge, at 1024), at 0 (the state grows with S) and at -20 (the chunks
+#: are walked back step by step)
 WKV_BWD_CASES = [
     (1, 1, None, True, True), (4, 1, None, False, False),
     (1, 17, -5.0, True, False), (4, 17, None, False, True),
     (1, 32, 0.0, True, True), (4, 32, -20.0, False, False),
     (1, 33, -20.0, True, True), (4, 33, -5.0, True, False),
     (4, 1024, None, False, False), (1, 1024, 0.0, True, True),
+    (1, 1024, -5.0, True, True), (4, 1024, -5.0, False, False),
     (1, 4096, None, True, True)]
 #: rglru_scan_bwd: (B, S, D, h0 given) at recurrentgemma-2b's width 2560
 #: and a ragged 77 channels
@@ -1820,6 +1826,25 @@ def _bwd_replays_equal(FA, q, k, v, do, causal: bool, what: str) -> None:
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"flash_attention_bwd replays differ at "
                                  f"{what}")
+
+
+def _wkv_bwd_build_report(log: str) -> None:
+    """Registers and spills of the WKV backward's kernels: a spill in any
+    fails (the chunked kernel keeps dS and its accumulators in
+    registers), and each head dim has its chunked kernel in both
+    dtypes."""
+    from repro_torch.kernels._build import ptxas_report
+    rows = ptxas_report(log)
+    for name, regs, st, ld in rows:
+        print(f"  wkv6_bwd.cu {name}: {regs} registers, spill stores {st} B,"
+              f" loads {ld} B")
+        if st + ld > 0:
+            raise AssertionError(f"{name} spills ({st} / {ld} bytes)")
+    for dt in ("float", "bf16"):
+        for d in (16, 32, 64, 128):
+            if not any(r[0] == f"wkv6_bwd_kernel<{dt}, {d}>" for r in rows):
+                raise AssertionError(f"no wkv6_bwd_kernel<{dt}, {d}> in the "
+                                     f"backward's ptxas report")
 
 
 def _bwd_build_report(FA, n_sms: int) -> None:
@@ -2553,22 +2578,24 @@ def _recurrence_bwd_records(FA, RS, WK, ref, dev, flush) -> dict:
     _graph_replays_equal(lambda: WK.wkv6_bwd(r, k, v, lw, u, None, dy),
                          f"wkv6_bwd at {tuple(r.shape)}")
     H, Dh = r.shape[2:]
-    bound, by = _bound_ms(kernel_costs.wkv6_bwd_cost(B, S, H, Dh, 2, False,
-                                                     False))
+    cost = kernel_costs.wkv6_bwd_cost(B, S, H, Dh, 2, False, False,
+                                      WK.BWD_CHUNK[Dh])
+    bound, by = _bound_ms(cost)
     wk = dict(max_abs_err=err, bound_ms=bound, bound_by=by, library_ms=None,
               ms=_time_graph_ms(lambda: WK.wkv6_bwd(r, k, v, lw, u, None, dy),
                                 flush, 10),
               plain_ms=_time_grad_graph_ms(
                   lambda *t: ref.ref_wkv6(*t)[0], leaves, dy, flush, 3))
-    gflop = kernel_costs.wkv6_bwd_cost(B, S, H, Dh, 2, False, False)[0]
     print(f"kernel wkv6_bwd at T5's {tuple(r.shape)} bf16, plan (chunk, "
-          f"columns, chunks) {WK.bwd_plan(S, Dh)}: max abs err {err:.3e} = "
-          f"{used:.3f} of the tolerance; 20 graph replays bitwise equal; "
-          f"device times (graph replay, cold L2) kernel {wk['ms']:.4f} ms, "
-          f"autograd through the plain forward {wk['plain_ms']:.4f}, bound "
-          f"{bound:.4f} ({by}; {gflop / 1e9:.1f} GFLOP), the kernel "
-          f"{wk['ms'] / bound:.1f}x it; no PyTorch call computes it",
-          flush=True)
+          f"chunks) {WK.bwd_plan(S, Dh)}, {B * H} blocks of a whole head, "
+          f"workspace {WK.bwd_workspace_bytes(B, S, H, Dh):,} bytes: max abs"
+          f" err {err:.3e} = {used:.3f} of the tolerance; 20 graph replays "
+          f"bitwise equal; device times (graph replay, cold L2) kernel "
+          f"{wk['ms']:.4f} ms, autograd through the plain forward "
+          f"{wk['plain_ms']:.4f}, bound {bound:.4f} ({by}; "
+          f"{cost[0] / 1e9:.1f} GFLOP split TF32, {cost[1] / 1e6:.1f} MB), "
+          f"the kernel {wk['ms'] / bound:.1f}x it; no PyTorch call computes "
+          f"it", flush=True)
     out["rwkv6-7b training"] = dict(
         wkv6=_wkv_record(WK, ref, r, k, v, lw, u, None, flush), wkv6_bwd=wk)
     del r, k, v, lw, u, dy, leaves, want, got
@@ -3857,6 +3884,7 @@ def main() -> int:
     for (src, _), log in zip(kernels, logs):
         for line in log.splitlines():
             print(f"  ptxas {src}: {line.strip()}")
+    _wkv_bwd_build_report(logs[[k for k, _ in kernels].index("wkv6_bwd.cu")])
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"  bf16 flash_attention tiles, head dim -> (query rows, keys): "
           f"{FA.MMA_TILES}, two-stage cp.async ring; bf16 flash_decode: "

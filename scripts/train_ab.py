@@ -1,19 +1,19 @@
 #!/usr/bin/env python3
-"""Time recurrentgemma-2b's training step (``chip_smoke.py``'s phase T4)
-on this tree against an earlier tree, in turns, on one card.
+"""Time rwkv6-7b's training step (``chip_smoke.py``'s phase T5) on this
+tree against an earlier tree, in turns, on one card.
 
     git archive <commit> | tar -x -C build/parent
     python3 scripts/train_ab.py --baseline build/parent
 
 Each run is a child process that imports its tree's own ``chip_smoke.py``
-and runs its ``_recurrent_train_phase`` for recurrentgemma-2b (its trainer
-at full width, batch 4 x 1024, 4 steps, the last traced; the kernels built
-from that tree's sources into its own gitignored ``build/``), in turns
-baseline, current, current, baseline.  Hosts differ
-from call to call, so the two trees' step times are compared only
-within one call.  Prints each run's lines of the phase (steady step ms,
-tokens/s, peak GiB, the traced step's device time by kind) and, last,
-one JSON object of every run's numbers.
+and runs its ``_recurrent_train_phase`` for ``ARCH`` (rwkv6-7b: its
+trainer at full width, cut to the depth whose reckoned peak fits, batch
+4 x 1024, 4 steps, the last traced; the kernels built from that tree's
+sources into its own gitignored ``build/``), in turns baseline, current,
+current, baseline.  Hosts differ from call to call, so the two trees'
+step times are compared only within one call.  Prints each run's lines of
+the phase (steady step ms, tokens/s, peak GiB, the traced step's device
+time by kind) and, last, one JSON object of every run's numbers.
 """
 from __future__ import annotations
 
@@ -24,7 +24,7 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-ARCH = "recurrentgemma-2b"
+ARCH = "rwkv6-7b"
 ORDER = ("baseline", "current", "current", "baseline")
 TIMEOUT_S = 600  # a run: its kernels' build and 4 steps
 

@@ -23,12 +23,17 @@ tensor runs the plain version :func:`repro_torch.kernels.ref.ref_wkv6`.
 ``wkv6.launches`` counts launches, and only those.
 
 The backward is ``csrc/wkv6_bwd.cu`` (:func:`wkv6_bwd`, through the
-autograd Function :class:`WKV6` where an input requires grad): the serial
-form on the CUDA cores, a block of d x ``BWD_COLUMNS[d]`` threads per
-(batch, head, value columns), walking forward over chunks of
-``BWD_CHUNK`` steps to checkpoint the state entering each, then back over
-them; the column blocks' partial sums added in a fixed order by a second
-kernel.  ``wkv6_bwd.launches`` counts its calls (three kernels each).
+autograd Function :class:`WKV6` where an input requires grad): the
+forward's chunked form transposed, on the tensor cores in split TF32, one
+block of 8 warps per (batch, head) over chunks of ``BWD_CHUNK[d]`` steps.
+A walk forward writes the state entering each chunk to a workspace
+(:func:`bwd_workspace_bytes`); a walk back, last chunk first, keeps dS in
+registers, takes dr, dk and dv from the chunk's products and sums dlogw
+directly from them (no difference of sums), and walks a chunk past the
+forward's guards step by step; a second kernel adds du's partials over the
+batch in batch order.  It is bound by bytes at rwkv6-7b's training shape
+(``roofline.kernel_costs.wkv6_bwd_cost`` counts its products on the TF32
+rate).  ``wkv6_bwd.launches`` counts its calls (two kernels each).
 """
 from __future__ import annotations
 
@@ -52,10 +57,9 @@ CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
 COLUMNS = {16: 16, 32: 32, 64: 32, 128: 16}
 #: value columns of a decode block
 STEP_COLS = 16
-#: steps a chunk of the backward's walks (its checkpoint interval)
-BWD_CHUNK = 16
-#: value columns a backward block owns, by head dim (d x this threads)
-BWD_COLUMNS = {16: 16, 32: 32, 64: 16, 128: 8}
+#: steps a chunk of the backward's walks, by head dim (the forward's
+#: CHUNK: 32 steps at the -5 clamp stay within the recentring's range)
+BWD_CHUNK = {16: 32, 32: 32, 64: 32, 128: 16}
 #: a chunk with a channel whose summed logw is below this is evaluated
 #: step by step: exp(-TOTAL_MIN / 2) stays within float32
 TOTAL_MIN = -165.0
@@ -93,19 +97,26 @@ def build_bwd() -> str:
         return _bwd_build_log
     lib, _bwd_build_log = build_library("wkv6_bwd.cu")
     fn = lib.wkv6_bwd_launch
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 15 + [
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 15 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     _bwd_lib = lib
     return _bwd_build_log
 
 
-def bwd_plan(seq: int, head_dim: int) -> Tuple[int, int, int]:
-    """(steps a chunk, value columns a block, chunks) of a backward
-    launch: every (batch, head) walks ``ceil(seq / BWD_CHUNK)`` chunks in
-    ``head_dim / BWD_COLUMNS[head_dim]`` blocks of ``head_dim x
-    BWD_COLUMNS[head_dim]`` threads."""
-    return BWD_CHUNK, BWD_COLUMNS[head_dim], -(-seq // BWD_CHUNK)
+def bwd_plan(seq: int, head_dim: int) -> Tuple[int, int]:
+    """(steps a chunk, chunks) of a backward launch: one block per (batch,
+    head), a whole head, walking ``ceil(seq / BWD_CHUNK[head_dim])``
+    chunks forward (but the last) and then back."""
+    chunk = BWD_CHUNK[head_dim]
+    return chunk, -(-seq // chunk)
+
+
+def bwd_workspace_bytes(B: int, S: int, H: int, D: int) -> int:
+    """The backward's float32 workspace: the state entering each chunk of
+    each (batch, head), d x d, and du's partials, (B, H, d)."""
+    _, n_chunks = bwd_plan(S, D)
+    return 4 * (n_chunks * B * H * D * D + B * H * D)
 
 
 def plan(seq: int, head_dim: int) -> Tuple[int, int]:
@@ -178,12 +189,11 @@ def _launch(r, k, v, logw, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _launch_bwd(r, k, v, logw, u, s0, dy, ds_last):
-    """One counted call of the backward (three kernels)."""
+    """One counted call of the backward (two kernels)."""
     B, S, H, D = r.shape
     if D not in HEAD_DIMS:
         raise ValueError(f"the wkv6 kernel takes head dims {HEAD_DIMS}: {D}")
-    r, k, v, logw, dy = (t if t.stride(-1) == 1 else t.contiguous()
-                         for t in (r, k, v, logw, dy))
+    r, k, v, logw, dy = (aligned_rows(t) for t in (r, k, v, logw, dy))
     u = u.contiguous()
     s0, ds_last = (None if t is None else t.contiguous()
                    for t in (s0, ds_last))
@@ -195,11 +205,8 @@ def _launch_bwd(r, k, v, logw, u, s0, dy, ds_last):
     ds0 = (torch.empty((B, H, D, D), dtype=torch.float32, device=dev)
            if s0 is not None else None)
     build_bwd()
-    _, vb, n_chunks = bwd_plan(S, D)
-    ncb, n = D // vb, B * S * H * D
-    # the column blocks' partials, du's partials, the checkpoints
-    ws = torch.empty(3 * ncb * n + ncb * B * H * D + n_chunks * B * H * D * D,
-                     dtype=torch.float32, device=dev)
+    nbytes = bwd_workspace_bytes(B, S, H, D)
+    ws = torch.empty(nbytes // 4, dtype=torch.float32, device=dev)
     strides = (ctypes.c_longlong * 15)(
         *[x for t in (r, k, v, logw, dy) for x in t.stride()[:3]])
 
@@ -209,13 +216,13 @@ def _launch_bwd(r, k, v, logw, u, s0, dy, ds_last):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib.wkv6_bwd_launch(
-            int(r.dtype == torch.bfloat16), D, vb, ptr(r), ptr(k), ptr(v),
+            int(r.dtype == torch.bfloat16), D, ptr(r), ptr(k), ptr(v),
             ptr(logw), ptr(u), ptr(s0), ptr(dy), ptr(ds_last), ptr(dr),
             ptr(dk), ptr(dv), ptr(dlogw), ptr(du), ptr(ds0), ptr(ws), B, S,
             H, strides, stream)
-    if err == -1:
-        raise RuntimeError(f"wkv6_bwd has no build for head dim {D} in "
-                           f"blocks of {vb} columns")
+    if err == -2:
+        raise RuntimeError("wkv6_bwd: cuTensorMapEncodeTiled refused the "
+                           "tensor maps")
     if err != 0:
         raise RuntimeError(f"wkv6_bwd kernel launch failed: CUDA error "
                            f"{err}")
@@ -264,7 +271,7 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if fake:  # counted, not launched (the dry run)
         kernel_costs.record("wkv6_bwd", kernel_costs.wkv6_bwd_cost(
             B, S, H, D, r.element_size(), s0 is not None,
-            ds_last is not None))
+            ds_last is not None, BWD_CHUNK[D]))
         dev = r.device
         return (*(torch.empty((B, S, H, D), dtype=r.dtype, device=dev)
                   for _ in range(3)),

@@ -145,13 +145,15 @@ def latency_hist_cost(lanes: int, n: int, bins: int, n_valid: int,
 
 
 def wkv6_bwd_cost(B: int, S: int, H: int, D: int, esize: int, has_s0: bool,
-                  has_ds_last: bool) -> Cost:
+                  has_ds_last: bool, chunk: int) -> Cost:
     """The WKV backward: r, k, v and dy read and dr, dk and dv written in
     their dtype, logw read and dlogw written in float32, u read and du
     written, s0 read and ds0 written, ds_last read.  Operations: the
-    serial form's float32 flops, per token and head 12 d^2 + 10 d (the
-    state recomputed from its checkpoints twice, dr, dk, dv, dlogw and
-    the dS update, 2 d^2 each; the bonus terms and v . dy)."""
+    chunked form's products on the tensor cores, per token and head
+    10 C d + 10 d^2 with C = ``chunk`` (the walk forward's state update;
+    the scores A and dA, dA k_in, dA^T q_in and A^T dy over the chunk; the
+    inter-chunk dr, dk and dv and the dS update), tripled by the split TF32
+    products, as ``wkv6_cost`` counts the forward's."""
     nbytes = (B * S * H * D * (7 * esize + 8) + 8 * H * D
               + 4 * B * H * D * D * (2 * int(has_s0) + int(has_ds_last)))
-    return (12 * D * D + 10 * D) * B * S * H, nbytes, "f32"
+    return 3 * (10 * chunk * D + 10 * D * D) * B * S * H, nbytes, "tf32"

@@ -12,14 +12,17 @@ serial forms; 1e-4 against the chunked WKV form, the tolerance the
 reference holds that form to against its serial one).
 
 The kernels' arithmetic is modelled here in torch (the WKV backward's
-checkpoints, its recomputed states, its column blocks' partials added in
-block order; the RG-LRU backward's chunk summaries folded last chunk
-first) and held to autograd through the plain versions within the card's
-tolerance (``CARD_TOL``: atol relative to each gradient's largest entry).
-On a card (``-m gpu``) the CUDA kernels must agree with autograd through
-the plain versions within ``CARD_TOL`` and give the same bits over 20
-calls; the card's machine has no JAX, so there run ``python -m pytest
---noconftest -m gpu tests/test_torch_recurrence_bwd.py``.
+chunked form in split TF32: the states entering each chunk from a walk
+forward, the chunk's products, dlogw summed directly, chunks past the
+forward's guards walked step by step; the RG-LRU backward's chunk
+summaries folded last chunk first) and held to autograd through the plain
+versions within the card's tolerance (``CARD_TOL``: atol relative to each
+gradient's largest entry), and the WKV model also to ``jax.grad`` of
+``wkv6_serial`` within 1e-5, where the chunked form's own gradient misses
+dlogw at logw = -5.  On a card (``-m gpu``) the CUDA kernels must agree
+with autograd through the plain versions within ``CARD_TOL`` and give the
+same bits over 20 calls; the card's machine has no JAX, so there run
+``python -m pytest --noconftest -m gpu tests/test_torch_recurrence_bwd.py``.
 """
 import numpy as np
 import pytest
@@ -34,9 +37,12 @@ from repro_torch.kernels.rglru_scan import (  # noqa: E402
 )
 from repro_torch.kernels.wkv6 import (  # noqa: E402
     BWD_CHUNK,
-    BWD_COLUMNS,
+    CHUNK,
+    FACTOR_MAX,
     HEAD_DIMS,
+    TOTAL_MIN,
     bwd_plan,
+    bwd_workspace_bytes,
     wkv6_bwd,
 )
 from repro_torch.roofline import kernel_costs  # noqa: E402
@@ -191,71 +197,147 @@ def test_cpu_wrappers_differentiate_through_the_plain_versions():
 # ---------------------------------------------------------------------------
 
 
-def _wkv_bwd_model(r, k, v, logw, u, s0, dy, ds_last, chunk=BWD_CHUNK,
-                   vb=None):
+def _tf32(x):
+    """x rounded to TF32 as the card's cvt.rna.tf32.f32 rounds it: 10
+    mantissa bits, to nearest, ties away from zero (as in
+    tests/test_torch_wkv6.py)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _product(a, b):
+    """a @ b as the tensor cores give it in split TF32: hi*hi + hi*lo +
+    lo*hi of the parts hi = tf32(x), lo = tf32(x - hi) (a bfloat16 value
+    has no lo part, so its products are the same)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _wkv_bwd_model(r, k, v, logw, u, s0, dy, ds_last, chunk=None,
+                   stats=None):
     """``csrc/wkv6_bwd.cu``'s arithmetic in torch, float32, batched over
-    (B, H): a walk forward over chunks of ``chunk`` steps keeping the
-    state entering each; then back over the chunks, last first, the
-    chunk's states recomputed from its checkpoint and its steps walked
-    back; dr, dk, dlogw and du summed over each block's ``vb`` value
-    columns, the blocks' partials added in block order (du batch by
-    batch); dv summed over every row.  Steps past S are padded with
-    r = k = v = dy = 0 and logw = 0, as the kernel stages them."""
+    (B, H), chunks of ``chunk`` steps (``BWD_CHUNK[d]``), steps past S
+    padded with r = k = v = dy = 0 and logw = 0 as the copy engine pads
+    them.  A walk forward keeps the state entering each chunk, S <-
+    exp(tot) S + (k exp(tot - cum))^T v; the walk back, last chunk first,
+    per chunk: q_in = r exp(cume - theta), k_in = k / exp(cum - theta),
+    k_carry = k_in exp(theta), r_e = q_in exp(theta); A = q_in k_in^T and
+    dA = dy v^T strictly below the diagonal (by select); dr, dk, dv from
+    dA k_in, dA^T q_in, A^T dy and the inter-chunk products dy S_c^T,
+    v dS^T, k_carry dS; dlogw summed directly (exp(tot) rowsum(S_c o dS), the
+    suffix sums of r o dr^inter, the prefix sums of k o dk^inter and the
+    running sum over a < s < b of q_in[b] k_in[a] dA[b, a]); dS <-
+    exp(tot) dS + r_e^T dy.  A (batch, head)'s chunk with a total below
+    ``TOTAL_MIN`` or a factor q_in or k_in past ``FACTOR_MAX`` is walked
+    back step by step; ``stats`` counts the chunks of each path.  Each
+    product is split TF32 (``_product``)."""
     B, S, H, D = r.shape
-    vb = vb or BWD_COLUMNS[D]
-    ncb, n_chunks = D // vb, -(-S // chunk)
-    pad = n_chunks * chunk - S
+    C = chunk or BWD_CHUNK[D]
+    n = -(-S // C)
+    pad = n * C - S
 
-    def padded(t):
-        return torch.cat([t.float(), t.new_zeros((B, pad, H, D)).float()], 1)
+    def chunks(t):  # (n, B, H, C, D)
+        t = torch.cat([t.float(), t.new_zeros((B, pad, H, D)).float()], 1)
+        return t.reshape(B, n, C, H, D).permute(1, 0, 3, 2, 4)
 
-    r, k, v, dy = (padded(t) for t in (r, k, v, dy))
-    w = torch.exp(padded(logw))
+    R, K, V, W, DY = (chunks(t) for t in (r, k, v, logw, dy))
+
+    def T(x):
+        return x.transpose(-1, -2)
+
     st = s0.clone() if s0 is not None else torch.zeros(B, H, D, D)
-    ckpt = []
-    for c in range(n_chunks):
-        ckpt.append(st.clone())
-        for t in range(c * chunk, (c + 1) * chunk):
-            st = w[:, t, :, :, None] * st + k[:, t, :, :, None] * v[:, t, :,
-                                                                     None]
+    states = [st]
+    for c in range(n - 1):
+        cum = torch.cumsum(W[c], -2)
+        tot = cum[..., -1:, :]
+        st = T(torch.exp(tot)) * st + _product(T(K[c] * torch.exp(tot - cum)),
+                                               V[c])
+        states.append(st)
     ds = ds_last.clone() if ds_last is not None else torch.zeros(B, H, D, D)
-    part = torch.zeros(3, ncb, B, n_chunks * chunk, H, D)
-    du_part = torch.zeros(ncb, B, H, D)
-    dv = torch.zeros(B, n_chunks * chunk, H, D)
-    for c in reversed(range(n_chunks)):
-        hist, sc = [], ckpt[c]
-        for t in range(c * chunk, (c + 1) * chunk):
-            hist.append(sc)
-            sc = w[:, t, :, :, None] * sc + k[:, t, :, :, None] * v[:, t, :,
-                                                                    None]
-        for q in reversed(range(chunk)):
-            t = c * chunk + q
-            st_t, rt, kt, wt = hist[q], r[:, t], k[:, t], w[:, t]
-            for jb in range(ncb):
-                J = slice(jb * vb, (jb + 1) * vb)
-                vdy = (v[:, t, :, J] * dy[:, t, :, J]).sum(-1)[..., None]
-                a_r = (st_t[..., J] * dy[:, t, :, None, J]).sum(-1)
-                a_k = (ds[..., J] * v[:, t, :, None, J]).sum(-1)
-                a_w = (st_t[..., J] * ds[..., J]).sum(-1)
-                part[0, jb, :, t] = a_r + u * kt * vdy
-                part[1, jb, :, t] = a_k + u * rt * vdy
-                part[2, jb, :, t] = wt * a_w
-                du_part[jb] += rt * kt * vdy
-            ruk = (rt * u * kt).sum(-1)[..., None]
-            dv[:, t] = (ds * kt[..., None]).sum(-2) + ruk * dy[:, t]
-            ds = wt[..., None] * ds + rt[..., None] * dy[:, t, :, None]
-    sums = []
-    for kind in range(3):
-        acc = torch.zeros(B, n_chunks * chunk, H, D)
-        for jb in range(ncb):
-            acc = acc + part[kind, jb]
-        sums.append(acc[:, :S])
-    du = torch.zeros(H, D)
-    for b in range(B):
-        for jb in range(ncb):
-            du = du + du_part[jb, b]
-    return (sums[0], sums[1], dv[:, :S], sums[2], du,
-            ds if s0 is not None else None)
+    outs = torch.zeros(4, n, B, H, C, D)  # dr, dk, dv, dlogw
+    du = torch.zeros(B, H, D)
+    idx = torch.arange(C)
+    below = idx[:, None] > idx[None, :]
+    zero = torch.zeros(())
+    for c in reversed(range(n)):
+        Rc, Kc, Vc, Wc, DYc, Sc = R[c], K[c], V[c], W[c], DY[c], states[c]
+        cum = torch.cumsum(Wc, -2)
+        tot = cum[..., -1:, :]
+        theta = 0.5 * tot
+        cume = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]],
+                         -2)
+        e1, e2 = torch.exp(cume - theta), 1.0 / torch.exp(cum - theta)
+        eth, etot = torch.exp(theta), torch.exp(tot)
+        q_in, k_in = Rc * e1, Kc * e2
+        k_carry, r_e = k_in * eth, q_in * eth
+        vdy = (Vc * DYc).sum(-1, keepdim=True)
+        ruk = (Rc * u[:, None] * Kc).sum(-1, keepdim=True)
+        du += (Rc * Kc * vdy).sum(-2)
+        big = torch.maximum(q_in.abs().amax((-1, -2)),
+                            k_in.abs().amax((-1, -2)))
+        serial = (tot < TOTAL_MIN).any(-1).any(-1) | ~(big <= FACTOR_MAX)
+        if stats is not None:
+            stats["step by step"] = (stats.get("step by step", 0)
+                                     + int(serial.sum()))
+            stats["chunked"] = stats.get("chunked", 0) + int((~serial).sum())
+        A = torch.where(below, _product(q_in, T(k_in)), zero)
+        dA = torch.where(below, _product(DYc, T(Vc)), zero)
+        dr_inter = (e1 * eth) * _product(DYc, T(Sc))
+        dk_inter = (e2 * eth) * _product(Vc, T(ds))
+        grads = [e1 * _product(dA, k_in) + dr_inter + u[:, None] * Kc * vdy,
+                 e2 * _product(T(dA), q_in) + dk_inter
+                 + u[:, None] * Rc * vdy,
+                 _product(T(A), DYc) + _product(k_carry, ds) + ruk * DYc]
+        rdr, kdk = Rc * dr_inter, Kc * dk_inter
+        dlogw = (etot * (Sc * ds).sum(-1)[..., None, :]).expand(
+            -1, -1, C, -1).clone()
+        run = torch.zeros_like(rdr[..., 0, :])
+        for s in reversed(range(C)):
+            dlogw[..., s, :] += run
+            run = run + rdr[..., s, :]
+        run = torch.zeros_like(kdk[..., 0, :])
+        inner = torch.zeros_like(q_in)  # b: sum_{a < s} k_in[a] dA[b, a]
+        for s in range(C):
+            later = (idx > s)[:, None]
+            dlogw[..., s, :] += run + torch.where(later, q_in * inner,
+                                                  zero).sum(-2)
+            run = run + kdk[..., s, :]
+            inner = inner + k_in[..., s:s + 1, :] * dA[..., :, s:s + 1]
+        grads.append(dlogw)
+        ds_new = T(etot) * ds + _product(T(r_e), DYc)
+        if bool(serial.any()):
+            hist, sc = [], Sc
+            for s in range(C):
+                hist.append(sc)
+                sc = (torch.exp(Wc[..., s, :])[..., None] * sc
+                      + Kc[..., s, :, None] * Vc[..., s, None, :])
+            d2 = ds
+            step = torch.zeros(4, B, H, C, D)
+            for s in reversed(range(C)):
+                w = torch.exp(Wc[..., s, :])
+                bonus = u * vdy[..., s, :]
+                step[0, ..., s, :] = ((hist[s] * DYc[..., s, None, :]).sum(-1)
+                                      + bonus * Kc[..., s, :])
+                step[1, ..., s, :] = ((d2 * Vc[..., s, None, :]).sum(-1)
+                                      + bonus * Rc[..., s, :])
+                step[2, ..., s, :] = ((d2 * Kc[..., s, :, None]).sum(-2)
+                                      + ruk[..., s, :] * DYc[..., s, :])
+                step[3, ..., s, :] = w * (hist[s] * d2).sum(-1)
+                d2 = (w[..., None] * d2
+                      + Rc[..., s, :, None] * DYc[..., s, None, :])
+            pick = serial[..., None, None]
+            grads = [torch.where(pick, a, g) for a, g in zip(step, grads)]
+            ds_new = torch.where(pick, d2, ds_new)
+        for q, g in enumerate(grads):
+            outs[q, c] = g
+        ds = ds_new
+
+    def back(t):
+        return t.permute(1, 0, 3, 2, 4).reshape(B, n * C, H, D)[:, :S]
+
+    return (back(outs[0]), back(outs[1]), back(outs[2]), back(outs[3]),
+            du.sum(0), ds if s0 is not None else None)
 
 
 def _plain_wkv_grads(arrays, with_s0=True, with_ds_last=True):
@@ -269,31 +351,84 @@ def _plain_wkv_grads(arrays, with_s0=True, with_ds_last=True):
 @pytest.mark.parametrize("logw", [None, -5.0, 0.0, -20.0],
                          ids=["model", "-5", "0", "-20"])
 def test_wkv_bwd_kernel_model_matches_autograd_through_plain(S, logw):
-    """The kernel's arithmetic (checkpoints every ``BWD_CHUNK`` steps,
-    recomputed states, rwkv6-7b's d = 64 in four 16-column blocks) within
-    ``CARD_TOL`` of autograd through the plain recurrence: the model's
-    decays, the -5 clamp, no decay (the state grows with S) and -20 (the
-    serial form needs no guard where the forward's chunks go step by
-    step: it only multiplies by w <= 1)."""
+    """The kernel's arithmetic (rwkv6-7b's d = 64, chunks of 32 steps, a
+    ragged last chunk) within ``CARD_TOL`` of autograd through the plain
+    recurrence: the model's decays, the -5 clamp (totals of -160, on the
+    recentring's edge), no decay (the state grows with S) and -20 (every
+    chunk of 9 steps or more past ``TOTAL_MIN``, walked back step by step;
+    a shorter tail chunk not)."""
     arrays = _wkv_inputs(1, S, 2, 64, seed=50 + S, logw=logw)
     want = _plain_wkv_grads(arrays)
     t = [torch.from_numpy(a) for a in arrays]
-    got = _wkv_bwd_model(*t)
+    stats = {}
+    got = _wkv_bwd_model(*t, stats=stats)
     for name, g, w in zip(WKV_NAMES, got, want):
         _card_close(g, w, torch.float32, f"{name} S={S} logw={logw}")
+    # (batch, head) chunks whose total at -20 passes TOTAL_MIN
+    past = sum(2 for c in range(0, S, 32) if -20.0 * min(32, S - c)
+               < TOTAL_MIN)
+    assert stats.get("step by step", 0) == (past if logw == -20.0 else 0)
 
 
+@pytest.mark.parametrize("logw", [None, -5.0], ids=["model", "-5"])
 @pytest.mark.parametrize("D", [16, 32, 128])
-def test_wkv_bwd_kernel_model_at_every_head_dim(D):
-    """The other head dims' column blocks (one of 16 or 32 columns, or
-    sixteen of 8), without s0 and without ds_last."""
-    arrays = _wkv_inputs(2, 21, 2, D, seed=D)
+def test_wkv_bwd_kernel_model_at_every_head_dim(D, logw):
+    """The other head dims (chunks of 32 steps, 16 at d = 128), without
+    s0 and without ds_last."""
+    arrays = _wkv_inputs(2, 21 if D < 128 else 37, 2, D, seed=D, logw=logw)
     want = _plain_wkv_grads(arrays, with_s0=False, with_ds_last=False)
     t = [torch.from_numpy(a) for a in arrays]
     got = _wkv_bwd_model(*t[:5], None, t[6], None)
     for name, g, w in zip(WKV_NAMES[:5], got, want):
         _card_close(g, w, torch.float32, f"{name} D={D}")
     assert got[5] is None and want[5] is None
+
+
+def _jax_wkv_grads(fn, arrays):
+    """jax.grad of <y, dy> + <s_last, ds_last> through the reference's
+    ``fn`` at (r, k, v, logw, u, s0)."""
+    import jax
+    import jax.numpy as jnp
+    r, k, v, lw, u, s0, dy, dsl = arrays
+
+    def loss(r_, k_, v_, lw_, u_, s0_):
+        y, s_last = fn(r_, k_, v_, lw_, u_, s0_)
+        return jnp.sum(y * dy) + jnp.sum(s_last * dsl)
+
+    return jax.grad(loss, argnums=tuple(range(6)))(
+        *(jnp.asarray(a) for a in (r, k, v, lw, u, s0)))
+
+
+@pytest.mark.parametrize("S", [1, 17, 33, 64])
+@pytest.mark.parametrize("logw", [None, -5.0], ids=["model", "-5"])
+def test_wkv_bwd_kernel_model_matches_jax_grad_of_serial(S, logw):
+    """The kernel's arithmetic within ``JAX_TOL["serial"]`` of jax.grad
+    of the reference's ``wkv6_serial``, every gradient, dlogw at the -5
+    clamp included."""
+    from repro.models.rwkv6 import wkv6_serial
+    arrays = _wkv_inputs(2, S, 2, 64, seed=60 + S, logw=logw)
+    want = _jax_wkv_grads(wkv6_serial, arrays)
+    got = _wkv_bwd_model(*(torch.from_numpy(a) for a in arrays))
+    for name, g, w in zip(WKV_NAMES, got, want):
+        _close_to_max(g.numpy(), np.asarray(w), JAX_TOL["serial"],
+                      f"{name} S={S} logw={logw}")
+
+
+@pytest.mark.parametrize("S", [17, 64])
+def test_direct_dlogw_holds_where_the_chunked_forms_gradient_misses(S):
+    """Why dlogw is summed directly: at logw = -5 the chunked form's own
+    gradient (jax.grad of ``wkv6_chunked``, a difference of sums dominated
+    by adjacent pairs) is more than 1e-5 of dlogw's largest entry from
+    jax.grad of ``wkv6_serial`` (4.2e-05 and 3.4e-05 here), and the
+    kernel's direct form within it."""
+    from repro.models.rwkv6 import wkv6_chunked, wkv6_serial
+    arrays = _wkv_inputs(2, S, 2, 64, seed=1, logw=-5.0)
+    serial = np.asarray(_jax_wkv_grads(wkv6_serial, arrays)[3], np.float64)
+    chunked = np.asarray(_jax_wkv_grads(wkv6_chunked, arrays)[3], np.float64)
+    scale = float(np.abs(serial).max())
+    assert float(np.abs(chunked - serial).max()) > JAX_TOL["serial"] * scale
+    got = _wkv_bwd_model(*(torch.from_numpy(a) for a in arrays))[3]
+    _close_to_max(got.numpy(), serial, JAX_TOL["serial"], f"dlogw S={S}")
 
 
 def _rglru_bwd_model(dh, a, h, h0, n_chunks, chunk, parts=4):
@@ -394,29 +529,36 @@ BWD_PLAN_SHAPES = [(4, 1024, 64, 64), (1, 256, 64, 64), (1, 1, 64, 64),
 
 @pytest.mark.parametrize("shape", BWD_PLAN_SHAPES, ids=str)
 def test_wkv_bwd_launch_plan_covers_every_step_and_column_once(shape):
-    """The blocks (column slice, head, batch) and the chunks each walks
-    write every (b, step, head, value column) of dv and every (b, head,
-    row, column) of ds0 once, and d / VB partials of each (b, step, head,
-    row) of dr, dk and dlogw; a block is d x VB <= 1024 threads, whole
-    warps, and a row's VB lanes lie in one warp."""
+    """One block per (head, batch), a whole head: its walk forward covers
+    chunks 0 .. n - 2 (writing the state entering each, and the last one's
+    when it turns), its walk back every chunk last first, so every
+    (b, step, head, channel) of dr, dk, dv and dlogw and every (b, head,
+    row, column) of ds0 is written once; chunks of BWD_CHUNK[d] steps in
+    strips of 16; the workspace holds n states a (batch, head) and du's
+    partials, 134 MB at rwkv6-7b's training shape."""
     B, S, H, D = shape
-    chunk, vb, n_chunks = bwd_plan(S, D)
-    assert chunk == BWD_CHUNK and D % vb == 0 and 32 % vb == 0
-    assert D * vb <= 1024 and (D * vb) % 32 == 0
+    chunk, n_chunks = bwd_plan(S, D)
+    assert chunk == BWD_CHUNK[D] and chunk % 16 == 0
     assert n_chunks * chunk >= S > (n_chunks - 1) * chunk
-    dv_cover = np.zeros((B, S, H, D), np.int32)
-    part_cover = np.zeros((B, S, H, D), np.int32)
+    out_cover = np.zeros((B, S, H, D), np.int32)
     s_cover = np.zeros((B, H, D, D), np.int32)
     for b in range(B):
         for h in range(H):
-            for j0 in range(0, D, vb):
-                s_cover[b, h, :, j0:j0 + vb] += 1
-                for c in range(n_chunks):
-                    ts = slice(c * chunk, min(S, (c + 1) * chunk))
-                    dv_cover[b, ts, h, j0:j0 + vb] += 1
-                    part_cover[b, ts, h, :] += 1
-    assert (dv_cover == 1).all() and (s_cover == 1).all()
-    assert (part_cover == D // vb).all()
+            forward = list(range(n_chunks - 1))
+            back = [2 * (n_chunks - 1) - x
+                    for x in range(n_chunks - 1, 2 * n_chunks - 1)]
+            assert back == list(reversed(range(n_chunks)))
+            written = set(forward) | {n_chunks - 1}
+            assert written == set(range(n_chunks))  # every state read back
+            for c in back:
+                out_cover[b, c * chunk:min(S, (c + 1) * chunk), h, :] += 1
+            s_cover[b, h] += 1
+    assert (out_cover == 1).all() and (s_cover == 1).all()
+    assert bwd_workspace_bytes(B, S, H, D) == 4 * (
+        n_chunks * B * H * D * D + B * H * D)
+    if shape == (4, 1024, 64, 64):
+        assert B * H == 256 and n_chunks == 32
+        assert bwd_workspace_bytes(B, S, H, D) == 134_217_728 + 65_536
 
 
 @pytest.mark.parametrize("shape", [(4, 1024, 2560), (1, 256, 2560),
@@ -478,7 +620,7 @@ def test_fake_tensors_record_the_backward_costs():
     c = kernel_costs.COUNTS
     assert c["wkv6.calls"] == 1 and c["wkv6_bwd.calls"] == 1
     assert c["wkv6_bwd.flops"] == kernel_costs.wkv6_bwd_cost(
-        B, S, H, D, 2, False, False)[0]
+        B, S, H, D, 2, False, False, BWD_CHUNK[D])[0]
     assert c["rglru_scan.calls"] == 1 and c["rglru_scan_bwd.calls"] == 1
     assert c["rglru_scan_bwd.bytes"] == kernel_costs.rglru_scan_bwd_cost(
         B * S * 96, 4, B * 96 * 4)[1]
@@ -488,16 +630,19 @@ def test_fake_tensors_record_the_backward_costs():
 
 
 def test_backward_costs():
-    """The bounds' counts: the WKV backward's 12 d^2 + 10 d float32 flops
-    a token and head (13.1 GFLOP at rwkv6-7b's training shape, 0.19 ms at
-    the CUDA cores' peak, above its bytes' time); the RG-LRU backward's
-    three flops an element, its bytes those it moves."""
+    """The bounds' counts: the WKV backward's products, 3 (10 C d + 10 d^2)
+    flops a token and head on the TF32 rate (48.3 GFLOP at rwkv6-7b's
+    training shape, 0.098 ms at the card's TF32 rate, below its bytes'
+    0.110 ms: bound by bytes); the RG-LRU backward's three flops an
+    element, its bytes those it moves."""
     from repro_torch.roofline.analysis import HBM_BW, PEAK_BY_RATE
-    flops, nbytes, rate = kernel_costs.wkv6_bwd_cost(4, 1024, 64, 64, 2,
-                                                     False, False)
-    assert rate == "f32" and f"{flops / 1e9:.1f}" == "13.1"
-    assert flops / PEAK_BY_RATE[rate] > nbytes / HBM_BW
+    flops, nbytes, rate = kernel_costs.wkv6_bwd_cost(
+        4, 1024, 64, 64, 2, False, False, BWD_CHUNK[64])
+    assert rate == "tf32" and f"{flops / 1e9:.1f}" == "48.3"
+    assert flops == 3 * (10 * 32 * 64 + 10 * 64 * 64) * 4 * 1024 * 64
     assert nbytes == 4 * 1024 * 64 * 64 * (7 * 2 + 8) + 8 * 64 * 64
+    assert f"{nbytes / HBM_BW * 1e3:.3f}" == "0.110"
+    assert f"{flops / PEAK_BY_RATE[rate] * 1e3:.3f}" == "0.098"
     flops, nbytes, rate = kernel_costs.rglru_scan_bwd_cost(10, 4, 8)
     assert (flops, nbytes, rate) == (30, 10 * 20 + 16, "f32")
 
@@ -514,6 +659,7 @@ GPU_WKV_CASES = [
     (4, 32, 8, 64, 0.0, False, True, True),
     (1, 33, 8, 64, -20.0, True, True, False),
     (4, 1024, 8, 64, None, False, False, False),
+    (1, 1024, 8, 64, -5.0, True, True, True),
     (1, 4096, 2, 64, None, True, True, True),
     (2, 50, 3, 16, None, True, True, False),
     (1, 77, 4, 32, -5.0, False, True, True),
@@ -618,4 +764,6 @@ def test_cuda_backward_replays_are_bitwise_equal():
 
 
 def test_backward_head_dims_are_the_forwards():
-    assert set(BWD_COLUMNS) == set(HEAD_DIMS)
+    """The backward takes the forward's head dims and chunks: 32 steps at
+    the -5 clamp stay within the recentring's range (16 at d = 128)."""
+    assert set(BWD_CHUNK) == set(HEAD_DIMS) and BWD_CHUNK == CHUNK
