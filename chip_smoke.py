@@ -17,13 +17,26 @@ no result line):
    group-10 decode and the RG-LRU scan from a zero and from a given
    starting state, within ``SCAN_TOL``, too, and the WKV recurrence
    within ``WKV_TOL``), then the histogram on the execution path's own
-   full-size tensors, with its times and bound;
+   full-size tensors, with its times and bound (each execute there runs
+   the step kernel: its launches and scan time, beside the plain loop's
+   ms a step from 3b);
+3b. the execution lanes' step kernel - ``exec_lanes`` against the plain
+   step loop (``ref_exec_lanes``), both on the card, bitwise (completion
+   masks, latencies, the state after the run, drain counts, makespans):
+   phase 4's grid at both mixes with its commands cut to
+   ``EXEC_LANES_CUT_COMMANDS`` (reduced: commands; every step of both,
+   with the plain loop's ms a step), phase 5's grid with injected and
+   with generator draws, and the first block of steps of phase 4's own
+   90 %-read lanes, where both are timed beside the block's bound;
 4. the execution path - ``compile_sweep`` of the 32-config
    compartmentalized MultiPaxos grid (f = 1, 2x2 acceptor grid; the
    deployment family of the paper's ablation, arXiv 2012.15762 section 8,
    Fig. 29), its bottleneck law and MVA on the card, and ``.execute`` at
    2048 commands x 8 seeds x 64 clients for the paper's two headline
-   mixes; every lane must drain and the histogram kernel must launch;
+   mixes; every lane must drain, the step kernel must launch once a
+   block of ``BLOCK_STEPS`` steps (its device time summed by CUDA
+   events, beside the scan's bound) and the histogram kernel must
+   launch;
 5. the card against the CPU - the port on ``cuda`` and on ``cpu`` agree on
    a 4-config x 2-seed grid;
 6. the transient path - the same 32-config grid through
@@ -247,6 +260,11 @@ GRID = dict(variants=("compartmentalized",),
             n_proxy_leaders=(2, 3, 4, 5, 6, 7, 8, 10), grids=((2, 2),),
             n_replicas=(2, 3, 4, 6))
 EXECUTE = dict(n_commands=2048, seeds=8, n_clients=64, probe_n=96)
+#: phase 3b: the grid's lanes with the commands cut to this (reduced:
+#: commands), so that the plain step loop runs every step on the card too
+EXEC_LANES_CUT_COMMANDS = 256
+#: the state the execution lanes' step loop updates in place
+EXEC_STATE = ("stage", "rank", "enter_t", "op_i", "q", "work")
 #: The transient phase: the grid's lanes, and the leader crash ``autotune``
 #: ranks deployments under by default (demand x 1e9 over 40-60 % of the run)
 TRANSIENT = dict(n_clients=64, seeds=8, n_steps=4000)
@@ -454,6 +472,181 @@ def _hist_bound_ms(samples, mask, edges, n_valid: int):
     lanes, n = samples.shape
     return _bound_ms(kernel_costs.latency_hist_cost(
         lanes, n, edges.shape[1] - 1, n_valid, mask.element_size()))
+
+
+def _step_run(PB, steps, fn, *args, **kw):
+    """``fn(*args, **kw)`` with the execution engine's step function
+    (``batched_execution.exec_lanes``) replaced by ``steps``, each call
+    timed by CUDA events.  Returns (fn's result, the calls' device ms
+    summed, the last call's state tensors, which then hold the run's final
+    state; nothing else of the calls is kept, so no table or output lives
+    longer than the run would keep it)."""
+    import torch
+    events, last = [], {}
+
+    def timed(**a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        steps(**a)
+        end.record()
+        events.append((start, end))
+        last.update((key, a[key]) for key in EXEC_STATE)
+
+    real = PB.exec_lanes
+    PB.exec_lanes = timed
+    try:
+        out = fn(*args, **kw)
+    finally:
+        PB.exec_lanes = real
+    torch.cuda.synchronize()
+    return out, sum(a.elapsed_time(b) for a, b in events), last
+
+
+def _lanes_equal(got, want, what: str) -> float:
+    """got / want: ``_step_run``'s results of ``_execute_batch`` through
+    the kernel and through the plain loop: raise unless the completion
+    masks, latencies, drain counts, makespans and final state are bitwise
+    equal.  Returns the largest |a - b| over the float outputs and state
+    (latencies, makespans, entry times, work; equal infinities count 0)."""
+    import torch
+    (out_a, _, last_a), (out_b, _, last_b) = got, want
+    pairs = list(zip(("fin", "lat", "done_w", "done_r", "t_last"), out_a,
+                     out_b))
+    pairs += [(key, last_a[key], last_b[key]) for key in EXEC_STATE]
+    err = 0.0
+    for name, a, b in pairs:
+        if a.is_floating_point():
+            diff = torch.where(a == b, 0.0, (a.double() - b.double()).abs())
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: exec_lanes differs from its plain "
+                                 f"version in {name} (max |diff| {err})")
+    return err
+
+
+def _exec_lanes_phase(P, PB, EL, ref, sweep, dev) -> dict:
+    """Phase 3b: the execution lanes' step kernel against the plain step
+    loop, both on the card, bitwise: the Fig. 29 grid (32 configs x 8
+    seeds x 64 clients) at both mixes with its commands cut to
+    ``EXEC_LANES_CUT_COMMANDS`` (every step of both), phase 5's small grid
+    with injected and with generator draws, and the first block of steps
+    of the main path's own 90 %-read lanes (2048 commands), where both are
+    timed beside the block's bound.  Returns the ``kernels`` row's numbers
+    and the plain loop's ms a step at the cut size by mix."""
+    import torch
+    t_phase = time.perf_counter()
+    n_clients = EXECUTE["n_clients"]
+    seeds = np.arange(EXECUTE["seeds"], dtype=np.int32)
+    errs = []   # max |kernel - plain| of each comparison
+
+    def both(inp, n_clients, n_steps, exponential, what):
+        before = EL.exec_lanes.launches
+        t0 = time.perf_counter()
+        got = _step_run(PB, EL.exec_lanes, PB._execute_batch, inp,
+                        n_clients, n_steps, exponential)
+        kernel_s = time.perf_counter() - t0
+        launches = EL.exec_lanes.launches - before
+        if launches != -(-n_steps // PB.BLOCK_STEPS):
+            raise AssertionError(f"{what}: {launches} exec_lanes launches "
+                                 f"for {n_steps} steps")
+        t0 = time.perf_counter()
+        want = _step_run(PB, ref.ref_exec_lanes, PB._execute_batch, inp,
+                         n_clients, n_steps, exponential)
+        plain_s = time.perf_counter() - t0
+        if EL.exec_lanes.launches != before + launches:
+            raise AssertionError(f"{what}: the plain loop launched the "
+                                 f"kernel")
+        errs.append(_lanes_equal(got, want, what))
+        return got, kernel_s, plain_s, launches
+
+    plain_ms_step = {}
+    for label, w in _mixes(P):
+        low = PB._lower_configs(sweep.configs, w,
+                                n_commands=EXEC_LANES_CUT_COMMANDS,
+                                seeds_arr=seeds, n_clients=n_clients,
+                                probe_n=EXECUTE["probe_n"])
+        (out, dev_ms, _), kernel_s, plain_s, launches = both(
+            PB._lane_inputs(low, dev), n_clients, low.n_steps, False,
+            f"{label}, {EXEC_LANES_CUT_COMMANDS} commands")
+        done = (out[2] + out[3]).cpu().numpy().reshape(len(low.lane_n), -1)
+        if not np.all(done == low.lane_n[:, None]):
+            raise AssertionError(f"{label}: a cut lane did not drain")
+        n = low.n_steps
+        plain_ms_step[label] = plain_s / n * 1e3
+        print(f"kernel check: exec_lanes == plain step loop bitwise (fin, "
+              f"lat, state, done, t_last), {label}, the Fig. 29 grid "
+              f"({len(low.lane_n)} configs x {seeds.size} seeds x "
+              f"{n_clients} clients) with {EXEC_LANES_CUT_COMMANDS} commands "
+              f"(reduced: commands, from {EXECUTE['n_commands']}), {n} steps: "
+              f"kernel {launches} launches, {dev_ms:.2f} ms on the card "
+              f"({dev_ms / n * 1e3:.3f} us a step), scan {kernel_s:.3f} s; "
+              f"the plain loop {plain_s:.1f} s ({plain_ms_step[label]:.3f} "
+              f"ms a step)", flush=True)
+        del out, low
+    small = P.compile_sweep(P.SweepSpec(n_proxy_leaders=(2, 4),
+                                        grids=((2, 2),), n_replicas=(2, 3)))
+    small_seeds = np.arange(2, dtype=np.int32)
+    for mode in ("injected", "generator"):
+        low = PB._lower_configs(small.configs, P.MIXED_50_50, n_commands=64,
+                                seeds_arr=small_seeds, n_clients=8,
+                                exponential_service=True)
+        draws = None
+        if mode == "injected":
+            draws = np.random.default_rng(29).exponential(
+                size=(len(low.dt), small_seeds.size, low.n_steps + 1,
+                      low.d_w.shape[1])).astype(np.float32)
+        inp = P.lane_inputs_from_numpy(low.d_w, low.d_r, low.entry, low.nxt,
+                                       low.cls, low.budget, low.dt,
+                                       low.seeds, draws, device=dev)
+        (out, _, _), _, _, launches = both(inp, 8, low.n_steps, True,
+                                           f"small grid, {mode} draws")
+        done = (out[2] + out[3]).cpu().numpy().reshape(len(low.lane_n), -1)
+        if not np.all(done == low.lane_n[:, None]):
+            raise AssertionError(f"small grid, {mode} draws: a lane did not "
+                                 f"drain")
+        print(f"kernel check: exec_lanes == plain step loop bitwise, phase "
+              f"5's grid ({len(low.lane_n)} configs x 2 seeds x 8 clients, "
+              f"64 commands), exponential service, {mode} draws, "
+              f"{low.n_steps} steps in {launches} launches; every lane "
+              f"drained", flush=True)
+
+    # the first block of the main path's own 90 %-read lanes, timed
+    low = PB._lower_configs(sweep.configs, P.Workload.read_mix(0.9),
+                            n_commands=EXECUTE["n_commands"],
+                            seeds_arr=seeds, n_clients=n_clients,
+                            probe_n=EXECUTE["probe_n"])
+    inp = PB._lane_inputs(low, dev)
+    block = min(PB.BLOCK_STEPS, low.n_steps)
+    runs = [_step_run(PB, EL.exec_lanes, PB._execute_batch, inp, n_clients,
+                      block, False) for _ in range(6)]
+    plain = [_step_run(PB, ref.ref_exec_lanes, PB._execute_batch, inp,
+                       n_clients, block, False) for _ in range(2)]
+    errs.append(_lanes_equal(runs[-1], plain[-1],
+                             "the main path's first block"))
+    lanes, k1 = inp.d_w.shape[0], inp.d_w.shape[1] + 1
+    n_ops = inp.cls.shape[2]
+    ms = float(np.median([r[1] for r in runs[1:]]))
+    plain_ms = min(r[1] for r in plain)
+    bound_ms, bound_by = _bound_ms(kernel_costs.exec_lanes_cost(
+        lanes, block, n_clients, k1, n_ops, False))
+    scan_bound_ms, _ = _bound_ms(kernel_costs.exec_lanes_cost(
+        lanes, low.n_steps, n_clients, k1, n_ops, False))
+    print(f"kernel exec_lanes: the 90 % reads execute's first {block} steps "
+          f"(L={lanes} lanes x N={n_clients} clients x {k1} station "
+          f"columns, of {low.n_steps} steps): bitwise equal; kernel "
+          f"{ms:.4f} ms ({ms / block * 1e3:.3f} us a step), plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}); the "
+          f"whole scan's bound {scan_bound_ms:.3f} ms; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del runs, plain, inp, low
+    torch.cuda.empty_cache()
+    return dict(record=dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            shape=dict(lanes=lanes, clients=n_clients,
+                                       columns=k1, steps=block),
+                            plain_ms_per_step_cut=plain_ms_step),
+                plain_ms_step=plain_ms_step)
 
 
 def _time_graph_ms(fn, flush, reps: int, stream=None) -> float:
@@ -3854,6 +4047,7 @@ def main() -> int:
     from repro_torch.core import batched_execution as PB
     from repro_torch.core import transient as PT
     from repro_torch.kernels import decode_attention as FD
+    from repro_torch.kernels import exec_lanes as EL
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import latency_hist as LH
     from repro_torch.kernels import ref
@@ -3872,7 +4066,8 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    kernels = (("latency_hist.cu", LH.build), ("flash_attention.cu", FA.build),
+    kernels = (("latency_hist.cu", LH.build), ("exec_lanes.cu", EL.build),
+               ("flash_attention.cu", FA.build),
                ("flash_attention_bwd.cu", FA.build_bwd),
                ("decode_attention.cu", FD.build), ("rglru_scan.cu", RS.build),
                ("rglru_scan_bwd.cu", RS.build_bwd), ("wkv6.cu", WK.build),
@@ -3963,10 +4158,18 @@ def main() -> int:
     sweep = P.compile_sweep(P.SweepSpec(**GRID))
     if len(sweep) != 32:
         raise AssertionError(f"expected 32 configs, got {len(sweep)}")
+    # -- 3b. the execution lanes' step kernel against its plain version ----
+    lanes = _exec_lanes_phase(P, PB, EL, ref, sweep, dev)
+    plain_ms_step = lanes["plain_ms_step"]
     record = None
     for label, w in _mixes(P):
+        before = EL.exec_lanes.launches
         samples, mask, edges, n_steps, scan_s = _main_path_tensors(
             PB, sweep, w, dev)
+        n_el = EL.exec_lanes.launches - before
+        if n_el != -(-n_steps // PB.BLOCK_STEPS):
+            raise AssertionError(f"{label}: execute launched exec_lanes "
+                                 f"{n_el} times for {n_steps} steps")
         want = ref.ref_latency_hist(samples, mask, edges)
         got = LH.latency_hist(samples, mask, edges)
         torch.cuda.synchronize()
@@ -3984,8 +4187,10 @@ def main() -> int:
               f"exact; latency_hist {ms:.4f} ms, plain {plain_ms:.2f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by}); "
               f"{LH.latency_hist.launches} launches so far; scan "
-              f"{scan_s:.1f} s = {scan_s / n_steps * 1e3:.3f} ms/step",
-              flush=True)
+              f"{scan_s:.3f} s = {scan_s / n_steps * 1e3:.4f} ms/step "
+              f"({n_el} exec_lanes launches; the plain loop "
+              f"{plain_ms_step[label]:.3f} ms/step at "
+              f"{EXEC_LANES_CUT_COMMANDS} commands)", flush=True)
         record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                       bound_ms=bound_ms, bound_by=bound_by)
         del samples, mask, edges, want, got
@@ -3994,14 +4199,21 @@ def main() -> int:
     # -- 4. the main path --------------------------------------------------
     alpha = P.calibrate_alpha()
     LH.latency_hist.launches = 0
+    EL.exec_lanes.launches = 0
     for label, w in _mixes(P):
         peak = sweep.peak_throughput(alpha, w)
         _, x_mva, r_mva = sweep.mva(alpha, n_clients_max=64, workload=w,
                                     device=dev)
         torch.cuda.reset_peak_memory_stats()
         before = LH.latency_hist.launches
-        res = sweep.execute(workload=w, device=dev, **EXECUTE)
+        before_el = EL.exec_lanes.launches
+        res, scan_dev_ms, _ = _step_run(PB, EL.exec_lanes, sweep.execute,
+                                        workload=w, device=dev, **EXECUTE)
         peak_mem = torch.cuda.max_memory_allocated()
+        n_el = EL.exec_lanes.launches - before_el
+        if n_el != -(-res.n_steps // PB.BLOCK_STEPS):
+            raise AssertionError(f"{label}: execute launched exec_lanes "
+                                 f"{n_el} times for {res.n_steps} steps")
         n = EXECUTE["n_commands"]
         if not (np.all(res.completed == n)
                 and np.all(res.hist.sum(axis=2) == n)):
@@ -4018,12 +4230,26 @@ def main() -> int:
         if not np.all(res.latency_p50 <= res.latency_p99):
             raise AssertionError(f"{label}: p50 above p99")
         t = res.timings
+        scan_bound_ms, _ = _bound_ms(kernel_costs.exec_lanes_cost(
+            len(res) * EXECUTE["seeds"], res.n_steps, EXECUTE["n_clients"],
+            len(P.STATION_ORDER) + 1,
+            -(-n // EXECUTE["n_clients"]), False))
         print(f"execute {label}: {len(res)} configs x {EXECUTE['seeds']} "
               f"seeds x {EXECUTE['n_clients']} clients x {n} commands; "
               f"n_steps {res.n_steps}; probe {t['probe']:.2f} s, scan "
-              f"{t['scan']:.2f} s ({t['scan'] / res.n_steps * 1e3:.3f} "
-              f"ms/step), hist+sums {t['hist'] * 1e3:.1f} ms; peak device "
-              f"memory {peak_mem / 2**30:.2f} GiB", flush=True)
+              f"{t['scan']:.3f} s ({t['scan'] / res.n_steps * 1e3:.4f} "
+              f"ms/step; exec_lanes {n_el} launches, {scan_dev_ms:.2f} ms on "
+              f"the card, {scan_dev_ms / res.n_steps * 1e3:.3f} us a step, "
+              f"bound {scan_bound_ms:.3f} ms (bytes: the serial chain, not "
+              f"the bytes, sets the time); the plain loop "
+              f"{plain_ms_step[label]:.3f} ms/step at "
+              f"{EXEC_LANES_CUT_COMMANDS} commands), hist+sums "
+              f"{t['hist'] * 1e3:.1f} ms; peak device memory "
+              f"{peak_mem / 2**30:.2f} GiB", flush=True)
+        if label == "90% reads":
+            lanes["record"].update(
+                scan_ms=scan_dev_ms, scan_steps=res.n_steps,
+                scan_bound_ms=scan_bound_ms, scan_s=t["scan"])
         for m, cfg in enumerate(res.configs):
             knobs = ",".join(f"{k}={v}" for k, v in sorted(cfg.items())
                              if k != "variant")
@@ -4034,6 +4260,9 @@ def main() -> int:
     launches = LH.latency_hist.launches
     if launches == 0:
         raise AssertionError("the main path launched no latency_hist kernel")
+    lanes["record"]["launches"] = EL.exec_lanes.launches
+    if EL.exec_lanes.launches == 0:
+        raise AssertionError("the main path launched no exec_lanes kernel")
 
     # -- 5. the card against the CPU ---------------------------------------
     small = P.compile_sweep(P.SweepSpec(n_proxy_leaders=(2, 4),
@@ -4125,7 +4354,11 @@ def main() -> int:
             dict(name="latency_hist", route="cuda",
                  source="src/repro_torch/kernels/csrc/latency_hist.cu",
                  replaces="src/repro/kernels/latency_hist.py:23",
-                 path="transient", library_ms=None, **transient)]
+                 path="transient", library_ms=None, **transient),
+            dict(name="exec_lanes", route="cuda",
+                 source="src/repro_torch/kernels/csrc/exec_lanes.cu",
+                 replaces="src/repro/core/batched_execution.py:137",
+                 path="execution", library_ms=None, **lanes["record"])]
     train_fa_rec["launches"] = train["launches"]["flash_attention"]
     bwd_rec["launches"] = train["launches"]["flash_attention_bwd"]
     served["training"] = dict(flash_attention=train_fa_rec,

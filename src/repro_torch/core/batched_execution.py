@@ -33,11 +33,14 @@ latency sample.  The samples are binned on the device by the hand-written
 CUDA kernel :func:`repro_torch.kernels.ops.latency_hist` with the transient
 plane's binning, so p50/p99 read identically across planes.
 
-The step loop is eager PyTorch: the (config x seed) lanes and the clients
-are explicit batch dimensions, all state lives on the device, every step
-runs in float32 op by op in the reference's order (so completions, drain
-counts and makespans match it exactly), and nothing synchronises with the
-host until the loop ends.  Unlike the reference, which returns immutable
+The step loop is the hand-written CUDA kernel
+:func:`repro_torch.kernels.ops.exec_lanes` on the card (one launch a block
+of steps, the step loop inside it) and its plain version, eager PyTorch,
+on the CPU: the (config x seed) lanes and the clients are explicit batch
+dimensions, all state lives on the device, every step runs in float32 in
+the reference's order (so completions, drain counts and makespans match
+it exactly), and nothing synchronises with the host until the loop ends.
+Unlike the reference, which returns immutable
 per-step outputs, the loop writes step ``i``'s completion mask and
 latencies in place into preallocated ``[L, n_steps, N]`` tensors, and the
 histogram and the float64 latency sums are taken on the device; only the
@@ -69,7 +72,7 @@ from .sharding import shard_weights, split_counts
 from .device import resolve_device
 from .sweep import config_variant
 from .transient import _quantile_from_hist, _routing
-from ..kernels.ops import latency_hist
+from ..kernels.ops import exec_lanes, latency_hist
 
 __all__ = [
     "BatchedExecutionResult", "BatchedParityReport", "LaneInputs",
@@ -202,19 +205,59 @@ def lane_inputs_from_numpy(d_w, d_r, entry, nxt, cls, budget, dt, seeds,
     )
 
 
+#: Steps a launch of the step kernel runs at most; the plain loop steps in
+#: the same blocks.  A launch-size constant only: no result depends on it.
+BLOCK_STEPS = 1024
+#: Steps whose service times the exponential mode draws at once when no
+#: draws are injected; part of the seeded stream's definition.  No block
+#: of steps crosses a multiple of it, so a multiple of ``BLOCK_STEPS``
+#: keeps a run at ``ceil(n_steps / BLOCK_STEPS)`` launches.
+DRAW_STEPS = 1024
+
+
+def _draw_source(inp: LaneInputs, n_steps: int, exponential: bool):
+    """The lanes' service draws: ``(draw0, chunk)``.  ``draw0`` [L, K]
+    starts the entry stations' work; ``chunk(c0, c1)`` gives steps
+    ``[c0, c1)``'s draws [L, c1 - c0, K] float32, None in the
+    deterministic mode (every draw 1.0).
+
+    Injected draws are sliced (a view, not a copy).  Without them the
+    exponential mode draws ``draw0``, then each chunk of ``DRAW_STEPS``
+    steps in turn, from a ``torch.Generator`` seeded from the lanes' seed
+    list, so one seed gives the same numbers to the kernel and to the
+    plain loop whatever the launch size."""
+    dev = inp.d_w.device
+    n_lanes, k = inp.d_w.shape
+    if not exponential:
+        return torch.ones((n_lanes, k), device=dev), lambda i0, i1: None
+    if inp.draws is not None:
+        if inp.draws.shape != (n_lanes, n_steps + 1, k):
+            raise ValueError(f"draws must be {(n_lanes, n_steps + 1, k)}: "
+                             f"{tuple(inp.draws.shape)}")
+        return inp.draws[:, 0], lambda i0, i1: inp.draws[:, i0 + 1:i1 + 1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(zlib.crc32(inp.seeds.astype(np.int64).tobytes()))
+
+    def draw(*shape):
+        return torch.empty(shape, device=dev).exponential_(generator=gen)
+
+    return draw(n_lanes, k), lambda i0, i1: draw(n_lanes, i1 - i0, k)
+
+
 def _execute_batch(inp: LaneInputs, n_clients: int, n_steps: int,
-                   exponential: bool
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                   exponential: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               torch.Tensor, torch.Tensor]:
     """Run every lane for ``n_steps`` steps.  Returns (fin[L, n_steps, N]
     bool, lat[L, n_steps, N] float32, done_w[L], done_r[L] int64,
     t_last[L] float32), all on the lanes' device and not synchronised.
 
-    Without injected draws the exponential mode draws from a
-    ``torch.Generator`` seeded from the lanes' seed list.
-
     The step is the reference's ``_one_exec_lane`` step with the same
-    float32 operations, arranged to launch few device ops per step:
+    float32 operations.  It runs in blocks of ``BLOCK_STEPS`` steps, split
+    where a chunk of ``DRAW_STEPS`` steps' draws ends, through
+    :func:`repro_torch.kernels.ops.exec_lanes`: one launch of the CUDA
+    kernel a block on the card, the plain loop
+    (:func:`repro_torch.kernels.ref.ref_exec_lanes`) on the CPU.  Around
+    it, arranged so that the step reads few tables:
 
     * station tensors carry one extra column ``k``, the slot parked
       clients sit at; it is never busy-complete (its rate is 0 and its
@@ -234,19 +277,7 @@ def _execute_batch(inp: LaneInputs, n_clients: int, n_steps: int,
     d_w, d_r, dt = inp.d_w, inp.d_r, inp.dt
     dev = d_w.device
     n_lanes, k = d_w.shape
-    gen = None
-    if not exponential:
-        draw0 = torch.ones((n_lanes, k), device=dev)
-    elif inp.draws is not None:
-        if inp.draws.shape != (n_lanes, n_steps + 1, k):
-            raise ValueError(f"draws must be {(n_lanes, n_steps + 1, k)}: "
-                             f"{tuple(inp.draws.shape)}")
-        draw0 = inp.draws[:, 0]
-    else:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(zlib.crc32(inp.seeds.astype(np.int64).tobytes()))
-        draw0 = torch.empty((n_lanes, k), device=dev).exponential_(
-            generator=gen)
+    draw0, draws = _draw_source(inp, n_steps, exponential)
     inf_col = torch.full((n_lanes, 1), float("inf"), device=dev)
 
     def rate_of(d):
@@ -255,86 +286,51 @@ def _execute_batch(inp: LaneInputs, n_clients: int, n_steps: int,
         r = torch.where(d > 0, dt[:, None] / torch.clamp_min(d, 1e-30), 1e30)
         return torch.cat([r, torch.zeros_like(inf_col)], dim=1)
 
-    rate_w, rate_r = rate_of(d_w), rate_of(d_r)                 # [L, K+1]
     no = torch.zeros((n_lanes, 1), dtype=torch.bool, device=dev)
     finishes_at = torch.cat([inp.nxt == k, no], dim=1)
-    arrive_at = torch.where(finishes_at, inp.entry[:, None],
-                            torch.cat([inp.nxt, inp.nxt[:, :1]], dim=1))
-    cls = torch.cat([inp.cls, torch.zeros_like(inp.cls[:, :, :1])], dim=2)
+    tables = dict(
+        rate_w=rate_of(d_w), rate_r=rate_of(d_r),               # [L, K+1]
+        finishes_at=finishes_at,
+        arrive_at=torch.where(finishes_at, inp.entry[:, None],
+                              torch.cat([inp.nxt, inp.nxt[:, :1]], dim=1)),
+        cls=torch.cat([inp.cls, torch.zeros_like(inp.cls[:, :, :1])], dim=2),
+        budget=inp.budget,
+        t_ends=(torch.arange(1, n_steps + 1, dtype=torch.float32, device=dev)
+                [:, None] * dt[None, :]))                       # [n_steps, L]
     entry = inp.entry[:, None]
 
     alive0 = inp.budget > 0                                      # [L, N]
-    stage = torch.where(alive0, entry, k)                        # k = parked
-    rank = torch.cumsum(alive0.long(), dim=1) - 1
-    enter_t = torch.zeros((n_lanes, n_clients), device=dev)
     op_i = torch.zeros((n_lanes, n_clients), dtype=torch.long, device=dev)
-    q = torch.zeros((n_lanes, k + 1), dtype=torch.long,
-                    device=dev).scatter_add_(
-        1, entry, alive0.long().sum(dim=1, keepdim=True))
-    work = torch.cat([torch.zeros((n_lanes, k), device=dev), inf_col],
-                     dim=1).scatter_(1, entry, draw0.gather(1, entry))
+    state = dict(
+        stage=torch.where(alive0, entry, k),                     # k = parked
+        rank=torch.cumsum(alive0.long(), dim=1) - 1,
+        enter_t=torch.zeros((n_lanes, n_clients), device=dev),
+        op_i=op_i,
+        q=torch.zeros((n_lanes, k + 1), dtype=torch.long,
+                      device=dev).scatter_add_(
+            1, entry, alive0.long().sum(dim=1, keepdim=True)),
+        work=torch.cat([torch.zeros((n_lanes, k), device=dev), inf_col],
+                       dim=1).scatter_(1, entry, draw0.gather(1, entry)))
 
-    # preallocated outputs, written one step row at a time in place
+    # preallocated outputs, written a block of step rows at a time in place
     fin_all = torch.empty((n_lanes, n_steps, n_clients), dtype=torch.bool,
                           device=dev)
     lat_all = torch.empty((n_lanes, n_steps, n_clients), device=dev)
-    t_ends = (torch.arange(1, n_steps + 1, dtype=torch.float32, device=dev)
-              [:, None] * dt[None, :])                          # [n_steps, L]
-    ones = torch.ones((n_lanes, n_clients), dtype=torch.long, device=dev)
-
-    for i in range(n_steps):
-        if not exponential:
-            draw_i = 1.0
-        elif gen is None:
-            draw_i = torch.cat([inp.draws[:, i + 1], inf_col], dim=1)
-        else:
-            draw_i = torch.cat([torch.empty((n_lanes, k), device=dev)
-                                .exponential_(generator=gen), inf_col], dim=1)
-        t_end = t_ends[i][:, None]                               # [L, 1]
-
-        cls_cur = cls.gather(2, op_i[:, :, None])[:, :, 0]       # [L, N]
-        # the head command's class picks each station's service demand
-        head = rank == 0
-        head_cls = torch.zeros_like(q).scatter_add_(
-            1, stage, torch.where(head, cls_cur, 0))
-        rate = torch.where(head_cls > 0, rate_w, rate_r)
-
-        busy = q > 0
-        work = torch.where(busy, work - rate, work)
-        complete = busy & (work <= 0.0)                          # [L, K+1]
-
-        dep_here = complete.gather(1, stage)                     # [L, N]
-        moving = dep_here & head
-        fin = fin_all[:, i]
-        torch.logical_and(moving, finishes_at.gather(1, stage), out=fin)
-        torch.sub(t_end, enter_t, out=lat_all[:, i])
-
-        op_i += fin
-        # next hop, or next op; a client whose budget drained parks
-        enters = moving & (~fin | (op_i < inp.budget))
-        dest = arrive_at.gather(1, stage)
-        q_dep = q - complete.long()
-        # a mover's new rank is its destination's queue length; any other
-        # client at a station that completed moves up one
-        rank = torch.where(moving, q_dep.gather(1, dest),
-                           rank - dep_here.long())
-        goes_to = torch.where(enters, dest, k)
-        stage = torch.where(moving, goes_to, stage)
-        enter_t = torch.where(fin, t_end, enter_t)
-        arrivals = torch.zeros_like(q).scatter_add_(1, goes_to, ones)
-        q = q_dep + arrivals
-        # new head enters service: carry the completion residual on a busy
-        # server, fresh draw on an idle one
-        fresh = torch.where(busy, complete & (q > 0), arrivals > 0)
-        work = torch.where(
-            fresh, draw_i + torch.where(complete, work, 0.0), work)
+    for c0 in range(0, n_steps, DRAW_STEPS):
+        c1 = min(c0 + DRAW_STEPS, n_steps)
+        chunk = draws(c0, c1)
+        for i0 in range(c0, c1, BLOCK_STEPS):
+            i1 = min(i0 + BLOCK_STEPS, c1)
+            exec_lanes(**tables, **state, fin_all=fin_all, lat_all=lat_all,
+                       draws=None if chunk is None
+                       else chunk[:, i0 - c0:i1 - c0], i0=i0, i1=i1)
 
     done_w = _class_done(inp.cls == 1, op_i)
     done_r = _class_done(inp.cls == 0, op_i)
     any_fin = fin_all.any(dim=2)                                 # [L, n_steps]
     last = n_steps - 1 - any_fin.flip(1).to(torch.uint8).argmax(dim=1)
     t_last = torch.where(any_fin.any(dim=1),
-                         t_ends.gather(0, last[None, :])[0], 0.0)
+                         tables["t_ends"].gather(0, last[None, :])[0], 0.0)
     return fin_all, lat_all, done_w, done_r, t_last
 
 

@@ -15,6 +15,9 @@
   wkv6            - the RWKV-6 WKV recurrence over a d x d state per
                     head, from a given state: rwkv6's time mix (CUDA
                     C++, ``csrc/wkv6.cu``)
+  exec_lanes      - the batched execution engine's closed-loop client
+                    step loop over every (config x seed) lane, a block of
+                    steps a launch (CUDA C++, ``csrc/exec_lanes.cu``)
 
 Each ships with a wrapper that launches the kernel on CUDA tensors and
 runs the plain version (``ref.py``) on CPU tensors; ``ops.py`` is the

@@ -12,10 +12,11 @@ are, the RG-LRU kernel any width and length, and the WKV kernel head dims
 from __future__ import annotations
 
 from .decode_attention import flash_decode
+from .exec_lanes import exec_lanes
 from .flash_attention import flash_attention
 from .latency_hist import latency_hist
 from .rglru_scan import rglru_scan
 from .wkv6 import wkv6
 
-__all__ = ["flash_attention", "flash_decode", "latency_hist", "rglru_scan",
-           "wkv6"]
+__all__ = ["exec_lanes", "flash_attention", "flash_decode", "latency_hist",
+           "rglru_scan", "wkv6"]

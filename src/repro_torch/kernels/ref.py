@@ -4,7 +4,7 @@ Small, obviously-correct implementations that follow the reference's own
 definitions.  The CPU path runs them, the tests hold them against the JAX
 package, and the card's kernels are held against them: the histogram bit
 for bit, attention and the RG-LRU and WKV recurrences within the float
-tolerance its test states.
+tolerance its test states; the execution lanes' step loop bit for bit.
 """
 from __future__ import annotations
 
@@ -126,3 +126,84 @@ def ref_wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y[:, t] = torch.einsum("bhk,bhkv->bhv", rf[:, t], s + uf * kv)
         s = torch.exp(lw[:, t])[..., None] * s + kv
     return y.to(r.dtype), s
+
+
+def ref_exec_lanes(rate_w: torch.Tensor, rate_r: torch.Tensor,
+                   finishes_at: torch.Tensor, arrive_at: torch.Tensor,
+                   cls: torch.Tensor, budget: torch.Tensor,
+                   t_ends: torch.Tensor, draws: Optional[torch.Tensor],
+                   stage: torch.Tensor, rank: torch.Tensor,
+                   enter_t: torch.Tensor, op_i: torch.Tensor,
+                   q: torch.Tensor, work: torch.Tensor,
+                   fin_all: torch.Tensor, lat_all: torch.Tensor,
+                   i0: int, i1: int) -> None:
+    """Steps ``[i0, i1)`` of the batched execution engine's closed-loop
+    client step loop over every lane (the reference's ``_one_exec_lane``
+    step, eager, in its float32 op order).
+
+    Per lane: ``rate_w`` / ``rate_r`` [L, K+1] float32 work drained a step
+    by a write / read at the head of each station (column K is where
+    parked clients sit: rate 0); ``finishes_at`` [L, K+1] bool and
+    ``arrive_at`` [L, K+1] int64 the tandem routing; ``cls`` [L, N,
+    n_ops + 1] int64 op classes per client (a zero column past the
+    longest stream); ``budget`` [L, N] int64; ``t_ends`` [n_steps, L]
+    float32, step i's end time; ``draws`` [L, i1 - i0, K] float32 service
+    draws, or None for the deterministic mode (every draw 1.0).
+
+    The state - ``stage``, ``rank``, ``op_i`` [L, N] int64, ``enter_t``
+    [L, N] float32, ``q`` [L, K+1] int64 and ``work`` [L, K+1] float32 -
+    is updated in place, and step i's completion mask and latencies are
+    written in place into ``fin_all[:, i]`` [L, n_steps, N] bool and
+    ``lat_all[:, i]`` float32."""
+    n_lanes, k1 = q.shape
+    k = k1 - 1
+    dev = q.device
+    inf_col = torch.full((n_lanes, 1), float("inf"), device=dev)
+    ones = torch.ones(stage.shape, dtype=torch.long, device=dev)
+    state = (stage, rank, enter_t, q, work)
+    for i in range(i0, i1):
+        if draws is None:
+            draw_i = 1.0
+        else:
+            draw_i = torch.cat([draws[:, i - i0], inf_col], dim=1)
+        t_end = t_ends[i][:, None]                               # [L, 1]
+
+        cls_cur = cls.gather(2, op_i[:, :, None])[:, :, 0]       # [L, N]
+        # the head command's class picks each station's service demand
+        head = rank == 0
+        head_cls = torch.zeros_like(q).scatter_add_(
+            1, stage, torch.where(head, cls_cur, 0))
+        rate = torch.where(head_cls > 0, rate_w, rate_r)
+
+        busy = q > 0
+        work = torch.where(busy, work - rate, work)
+        complete = busy & (work <= 0.0)                          # [L, K+1]
+
+        dep_here = complete.gather(1, stage)                     # [L, N]
+        moving = dep_here & head
+        fin = fin_all[:, i]
+        torch.logical_and(moving, finishes_at.gather(1, stage), out=fin)
+        torch.sub(t_end, enter_t, out=lat_all[:, i])
+
+        op_i += fin
+        # next hop, or next op; a client whose budget drained parks
+        enters = moving & (~fin | (op_i < budget))
+        dest = arrive_at.gather(1, stage)
+        q_dep = q - complete.long()
+        # a mover's new rank is its destination's queue length; any other
+        # client at a station that completed moves up one
+        rank = torch.where(moving, q_dep.gather(1, dest),
+                           rank - dep_here.long())
+        goes_to = torch.where(enters, dest, k)
+        stage = torch.where(moving, goes_to, stage)
+        enter_t = torch.where(fin, t_end, enter_t)
+        arrivals = torch.zeros_like(q).scatter_add_(1, goes_to, ones)
+        q = q_dep + arrivals
+        # new head enters service: carry the completion residual on a busy
+        # server, fresh draw on an idle one
+        fresh = torch.where(busy, complete & (q > 0), arrivals > 0)
+        work = torch.where(
+            fresh, draw_i + torch.where(complete, work, 0.0), work)
+    for into, now in zip(state, (stage, rank, enter_t, q, work)):
+        if now is not into:
+            into.copy_(now)

@@ -144,6 +144,30 @@ def latency_hist_cost(lanes: int, n: int, bins: int, n_valid: int,
     return ops, nbytes, "f32"
 
 
+def exec_lanes_cost(lanes: int, n_steps: int, n_clients: int,
+                    n_stations: int, n_ops: int, drawn: bool) -> Cost:
+    """``n_steps`` steps of the execution lanes' step loop, ``n_stations``
+    = K + 1 columns with the parked one, ``n_ops`` + 1 op classes a
+    client, in the least bytes the function needs: each step's completion
+    mask (one byte) and latency (four) written per client; the 0/1 class
+    table at one byte a class, the budgets, routing and state as int32 and
+    float32 (the reference's types), the rates and each lane's step length
+    ``dt`` (a step's end time is ``(i + 1) * dt``) read once, (when
+    ``drawn``) the float32 service draws read once, the state read and
+    written once.  Operations: the float32 arithmetic of a step, a
+    latency subtraction per client and per station the work's
+    subtraction, its comparison and the draw's addition."""
+    nbytes = (lanes * n_steps * n_clients * 5
+              + lanes * n_clients * (n_ops + 1)
+              + lanes * n_clients * 4
+              + lanes * n_stations * (4 + 4 + 1 + 4)
+              + lanes * 4
+              + (lanes * n_steps * (n_stations - 1) * 4 if drawn else 0)
+              + 2 * lanes * (n_clients * 4 * 4 + n_stations * (4 + 4)))
+    ops = lanes * n_steps * (n_clients + 3 * n_stations)
+    return ops, nbytes, "f32"
+
+
 def wkv6_bwd_cost(B: int, S: int, H: int, D: int, esize: int, has_s0: bool,
                   has_ds_last: bool, chunk: int) -> Cost:
     """The WKV backward: r, k, v and dy read and dr, dk and dv written in
