@@ -41,20 +41,28 @@ no result line):
    a 4-config x 2-seed grid;
 6. the transient path - the same 32-config grid through
    ``CompiledSweep.transient`` at 8 seeds x 64 clients x 4000 steps,
-   exponential service, with the leader crash ``autotune`` scripts by
-   default (``Event("leader", 0.4, 0.6, 1e9)``), for both mixes: every
-   lane's histogram mass equals its completions, the ``latency_hist``
-   kernel bins the lanes' latencies once per block of steps (launches
-   counted), each config's seed-mean throughput outside the crash is
-   within 10 % of its bottleneck-law peak and every lane's crash window
-   below it; then ``bottleneck_trace(budget=19)`` (the Fig. 29 staircase,
-   exactly), ``autotune(objective="p99_under_failover")`` on the card,
-   ``autotune_policy`` at ``benchmarks/autoscale.py``'s settings (the
-   numbers of ``BENCH_autoscale.json``, exactly), and the card against
-   the CPU on a 4-config x 2-seed crash grid, deterministic and
-   exponential (flows, completions, histograms, queue sums, throughput
-   and mean latency equal); the kernel against its plain version on a
-   block the path handed it, with its time and bound;
+   exponential service (the seeded generator's draws), with the leader
+   crash ``autotune`` scripts by default (``Event("leader", 0.4, 0.6,
+   1e9)``), for both mixes, its steps through the ``transient_lanes``
+   step kernel (one launch a block of ``BLOCK_STEPS`` steps, counted, its
+   device time summed by CUDA events): every lane's histogram mass equals
+   its completions, the ``latency_hist`` kernel bins the run's latencies
+   in one launch a mix (counted), each config's seed-mean throughput
+   outside the crash is within 10 % of its bottleneck-law peak and every
+   lane's crash window below it; the same lanes through the plain step
+   loop (``ref_transient_lanes``) on the card, bitwise equal (flows,
+   latencies, the final state, queue sums), with its ms a step; the
+   histogram against its plain version on the samples the path handed
+   it, and the step kernel's first block at the path's shape, both timed
+   beside their bounds; then ``bottleneck_trace(budget=19)`` (the Fig. 29
+   staircase, exactly), ``autotune(objective="p99_under_failover")`` on
+   the card, ``autotune_policy`` at ``benchmarks/autoscale.py``'s
+   settings (the numbers of ``BENCH_autoscale.json``, exactly), both
+   timed, the step kernel against the plain loop on a 4-config x 2-seed
+   crash grid with injected and with deterministic draws, bitwise, and
+   the card against the CPU on that grid, deterministic and exponential
+   (flows, completions, histograms, queue sums, throughput and mean
+   latency equal);
 7. the serving path - granite-3-2b at full width (40 layers, d_model
    2048, bf16, random weights from a seeded generator on the card) behind
    a compartmentalized ``ServingDeployment`` (3 replicas, 3 proxy leaders,
@@ -269,6 +277,9 @@ EXEC_STATE = ("stage", "rank", "enter_t", "op_i", "q", "work")
 #: ranks deployments under by default (demand x 1e9 over 40-60 % of the run)
 TRANSIENT = dict(n_clients=64, seeds=8, n_steps=4000)
 TRANSIENT_CRASH = ("leader", 0.4, 0.6, 1e9)
+#: the state the transient lanes' step loop updates in place, and its outputs
+TRANSIENT_STATE = ("stage", "rank", "enter_t", "q", "work", "qsum", "flows",
+                   "lat1")
 #: bottleneck_trace(budget=19) with the calibrated alpha, the paper's
 #: Fig. 29 staircase: (machines, cmd/s rounded, bottleneck) per rung
 FIG29 = [(3, 25_000, "leader"), (8, 46_296, "proxy"), (9, 69_444, "proxy"),
@@ -474,31 +485,33 @@ def _hist_bound_ms(samples, mask, edges, n_valid: int):
         lanes, n, edges.shape[1] - 1, n_valid, mask.element_size()))
 
 
-def _step_run(PB, steps, fn, *args, **kw):
-    """``fn(*args, **kw)`` with the execution engine's step function
-    (``batched_execution.exec_lanes``) replaced by ``steps``, each call
-    timed by CUDA events.  Returns (fn's result, the calls' device ms
-    summed, the last call's state tensors, which then hold the run's final
-    state; nothing else of the calls is kept, so no table or output lives
-    longer than the run would keep it)."""
+def _step_run(mod, steps, fn, *args, kernel="exec_lanes", keys=EXEC_STATE,
+              **kw):
+    """``fn(*args, **kw)`` with an engine's step function (``mod.<kernel>``:
+    ``batched_execution.exec_lanes`` by default, or
+    ``transient.transient_lanes``) replaced by ``steps``, each call timed
+    by CUDA events.  Returns (fn's result, the calls' device ms summed,
+    the last call's tensors named in ``keys``, which then hold the run's
+    final state; nothing else of the calls is kept, so no table or output
+    lives longer than the run would keep it)."""
     import torch
     events, last = [], {}
 
-    def timed(**a):
+    def timed(*p, **a):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        steps(**a)
+        steps(*p, **a)
         end.record()
         events.append((start, end))
-        last.update((key, a[key]) for key in EXEC_STATE)
+        last.update((key, a[key]) for key in keys)
 
-    real = PB.exec_lanes
-    PB.exec_lanes = timed
+    real = getattr(mod, kernel)
+    setattr(mod, kernel, timed)
     try:
         out = fn(*args, **kw)
     finally:
-        PB.exec_lanes = real
+        setattr(mod, kernel, real)
     torch.cuda.synchronize()
     return out, sum(a.elapsed_time(b) for a, b in events), last
 
@@ -1654,52 +1667,145 @@ def _model_cuda_vs_cpu(dev, arch: str) -> None:
           f"three served requests equal", flush=True)
 
 
-def _transient_grid(P, PT, LH, sweep, alpha, dev):
+def _transient_grid(P, PT, LH, TL, sweep, alpha, dev):
     """The transient path's counted run: both mixes through
-    ``CompiledSweep.transient`` with ``latency_hist`` launches counted from
-    0, and a copy of the second block the path handed the kernel (steps
-    1024-2047: past the warmup, the crash begins inside it)."""
+    ``CompiledSweep.transient`` with the ``latency_hist`` and
+    ``transient_lanes`` launches counted from 0, each step-kernel launch
+    timed by CUDA events.  Returns per mix (label, workload, result, peak
+    device memory, the step kernel's device ms, the lanes' final state and
+    outputs, the engine's arguments), the two launch counts, a copy of the
+    first mix's histogram inputs and the histogram calls' shapes."""
     import torch
-    kernel = PT.latency_hist
-    caught, calls = {}, []
+    kernel, batch = PT.latency_hist, PT._transient_batch
+    caught, calls, engine = {}, [], []
 
     def catch(samples, valid, edges):
-        if len(calls) == 1:
+        if not calls:
             caught.update(samples=samples.clone(), mask=valid.clone(),
                           edges=edges.clone())
         calls.append(tuple(samples.shape))
         return kernel(samples, valid, edges)
 
+    def catch_batch(*args, **kw):
+        engine.append((args, kw))
+        return batch(*args, **kw)
+
+    # a first launch loads the kernel's module; keep it out of the timings
+    P.simulate_transient(np.ones(3), n_clients=8, seeds=2, n_steps=16,
+                         device=dev)
     out = []
-    PT.latency_hist = catch
+    PT.latency_hist, PT._transient_batch = catch, catch_batch
     try:
         LH.latency_hist.launches = 0
+        TL.transient_lanes.launches = 0
         for label, w in _mixes(P):
             torch.cuda.reset_peak_memory_stats()
-            res = sweep.transient(alpha, workload=w,
-                                  events=[P.Event(*TRANSIENT_CRASH)],
-                                  device=dev, **TRANSIENT)
-            out.append((label, w, res, torch.cuda.max_memory_allocated()))
+            res, dev_ms, last = _step_run(
+                PT, TL.transient_lanes, sweep.transient, alpha, workload=w,
+                events=[P.Event(*TRANSIENT_CRASH)], device=dev,
+                kernel="transient_lanes", keys=TRANSIENT_STATE, **TRANSIENT)
+            out.append((label, w, res, torch.cuda.max_memory_allocated(),
+                        dev_ms, last, engine[-1]))
         launches = LH.latency_hist.launches
+        tl_launches = TL.transient_lanes.launches
     finally:
-        PT.latency_hist = kernel
-    return out, launches, caught, calls
+        PT.latency_hist, PT._transient_batch = kernel, batch
+    return out, launches, tl_launches, caught, calls
 
 
-def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
+def _transient_lanes_equal(got, want, what: str) -> float:
+    """got / want: ``_step_run``'s lanes (``TRANSIENT_STATE``) of a run
+    through the kernel and through the plain loop: raise unless the flows,
+    latencies, final state and queue sums are bitwise equal.  Returns the
+    largest |a - b| over the float tensors (equal infinities count 0)."""
+    import torch
+    err = 0.0
+    for key in TRANSIENT_STATE:
+        a, b = got[key], want[key]
+        if a.is_floating_point():
+            diff = torch.where(a == b, 0.0, (a.double() - b.double()).abs())
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: transient_lanes differs from its "
+                                 f"plain version in {key} (max |diff| "
+                                 f"{err})")
+    return err
+
+
+def _transient_results_equal(a, b, what: str) -> None:
+    for field in ("flows", "completed", "hist", "queue_sums", "throughput",
+                  "latency_mean", "latency_p99"):
+        if not np.array_equal(getattr(a, field), getattr(b, field)):
+            raise AssertionError(f"{what}: the results differ in {field}")
+
+
+def _failover_ranking(P, alpha, dev):
+    """``autotune(objective="p99_under_failover")`` at budget 19 on
+    ``dev``: (the result, its wall-clock seconds)."""
+    t0 = time.perf_counter()
+    tune = P.autotune(19, alpha, objective="p99_under_failover",
+                      transient_kwargs=dict(device=dev))
+    return tune, time.perf_counter() - t0
+
+
+def _autoscale_policy(P, alpha, dev):
+    """``autotune_policy`` at ``benchmarks/autoscale.py``'s settings on
+    ``dev``: (the result, ``BENCH_autoscale.json``'s numbers, the numbers
+    this run gives under the same keys, its wall-clock seconds)."""
+    want = json.loads((Path(__file__).resolve().parent
+                       / "BENCH_autoscale.json").read_text())
+    w1 = P.Workload(f_write=1.0)
+    model = P.model_for(dict(AUTOSCALE_CFG), w1)
+    d_w, _, servers = model.demand_slots()
+    k = len(P.STATION_ORDER)
+    base = np.asarray(d_w[:k], dtype=np.float64) / alpha
+    srv = np.asarray(servers[:k], dtype=np.int64)
+    rz = P.resizable_stations("compartmentalized", AUTOSCALE_CFG)
+    policies = tuple(P.AutoscalePolicy(
+        target_low=lo, target_high=hi, cooldown_windows=0,
+        min_counts=AUTOSCALE_FLOORS,
+        **({} if q is None else dict(queue_high=q)))
+        for lo, hi, q in AUTOSCALE_BANDS)
+    t0 = time.perf_counter()
+    pol = P.autotune_policy(
+        policies, base, srv,
+        P.diurnal_load(want["windows"], low=0.15, sharpness=2.0),
+        p99_slack=1.0, seeds=3, n_steps=4800,
+        resizable=[rz] * (len(policies) + 1), device=dev)
+    seconds = time.perf_counter() - t0
+    saved = 1.0 - pol.winner.machine_time / pol.static.machine_time
+    got = {"machine_time_autoscaled": round(pol.winner.machine_time, 4),
+           "machine_time_static": round(pol.static.machine_time, 4),
+           "machine_hours_saved_fraction": round(saved, 4),
+           "peak_p99_autoscaled_s": float(pol.winner.peak_p99),
+           "peak_p99_static_s": float(pol.static.peak_p99),
+           "trough_floor_machines": int(pol.winner.trace.machines.min()),
+           "resizes": len(pol.winner.trace.actions),
+           "winner_policy": pol.winner.policy.describe()}
+    return pol, want, got, seconds
+
+
+def _transient_phase(P, PT, LH, TL, ref, sweep, alpha, dev):
     """Phase 6: the transient token engine, autotune and autoscale on the
-    card.  Returns the ``latency_hist`` row of its path."""
+    card.  Returns the ``latency_hist`` and ``transient_lanes`` rows of its
+    path."""
     import torch
     t_phase = time.perf_counter()
-    runs, launches, caught, calls = _transient_grid(P, PT, LH, sweep, alpha,
-                                                    dev)
+    runs, launches, tl_launches, caught, calls = _transient_grid(
+        P, PT, LH, TL, sweep, alpha, dev)
     n_steps = TRANSIENT["n_steps"]
     per_mix = -(-n_steps // PT.BLOCK_STEPS)
-    if launches != len(runs) * per_mix or len(calls) != launches:
+    if launches != len(runs) or calls != [calls[0]] * len(runs) \
+            or calls[0][1] != n_steps:
         raise AssertionError(f"transient: {launches} latency_hist launches "
-                             f"({len(calls)} calls), expected "
-                             f"{len(runs) * per_mix}")
-    for label, w, res, peak_mem in runs:
+                             f"of shapes {calls}, expected one of "
+                             f"(L, {n_steps}) per mix")
+    if tl_launches != len(runs) * per_mix:
+        raise AssertionError(f"transient: {tl_launches} transient_lanes "
+                             f"launches, expected {len(runs) * per_mix}")
+    errs = []   # max |kernel - plain| of each comparison
+    plain_ms_step = {}
+    for label, w, res, peak_mem, dev_ms, last, engine in runs:
         base = sweep.demands(w) / alpha
         _, bounds = P.build_schedule(base, [P.Event(*TRANSIENT_CRASH)],
                                      n_steps)
@@ -1727,14 +1833,27 @@ def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
         if not np.all(ratio[:, :, 1] < 1.0):
             raise AssertionError(f"transient {label}: a lane did not dip "
                                  f"in the crash window")
+        # the same lanes through the plain loop on the card, bitwise
+        plain, _, plain_last = _step_run(
+            PT, ref.ref_transient_lanes, sweep.transient, alpha, workload=w,
+            events=[P.Event(*TRANSIENT_CRASH)], device=dev,
+            kernel="transient_lanes", keys=TRANSIENT_STATE, **TRANSIENT)
+        errs.append(_transient_lanes_equal(last, plain_last, label))
+        _transient_results_equal(res, plain, f"transient {label}, kernel "
+                                             f"and plain loop")
+        plain_ms_step[label] = plain.timings["scan"] / n_steps * 1e3
         scan = res.timings["scan"]
         print(f"transient {label}: {len(res.dt)} configs x "
               f"{TRANSIENT['seeds']} seeds x {TRANSIENT['n_clients']} "
               f"clients x {n_steps} steps, leader crash at 40-60 %; scan "
-              f"{scan:.2f} s = {scan / n_steps * 1e3:.3f} ms/step; "
-              f"{per_mix} latency_hist launches of {PT.BLOCK_STEPS} steps; "
-              f"peak device memory {peak_mem / 2**30:.3f} GiB; seed-mean "
-              f"window throughput / bottleneck law: before "
+              f"{scan:.4f} s = {scan / n_steps * 1e3:.4f} ms/step "
+              f"(transient_lanes {per_mix} launches, {dev_ms:.3f} ms on the "
+              f"card, {dev_ms / n_steps * 1e3:.3f} us a step; the plain loop "
+              f"{plain_ms_step[label]:.3f} ms/step, bitwise equal: flows, "
+              f"lat1, state, qsum); 1 latency_hist launch of "
+              f"{calls[0][0]} x {n_steps} samples; peak device memory "
+              f"{peak_mem / 2**30:.3f} GiB; seed-mean window throughput / "
+              f"bottleneck law: before "
               f"{mean[:, 0].min():.3f}-{mean[:, 0].max():.3f}, crash "
               f"{mean[:, 1].min():.3f}-{mean[:, 1].max():.3f}, after "
               f"{mean[:, 2].min():.3f}-{mean[:, 2].max():.3f}; lanes "
@@ -1742,8 +1861,9 @@ def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
               f"{ratio[:, :, [0, 2]].max():.3f}; p99 "
               f"{res.latency_p99.min():.4e}-{res.latency_p99.max():.4e} s",
               flush=True)
+        del plain, plain_last
 
-    # the kernel on a block the path handed it
+    # the histogram on the samples the path handed it
     samples, mask, edges = caught["samples"], caught["mask"], caught["edges"]
     want = ref.ref_latency_hist(samples, mask, edges)
     got = LH.latency_hist(samples, mask, edges)
@@ -1758,13 +1878,63 @@ def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
                         1, 2)
     bound_ms, bound_by = _hist_bound_ms(samples, mask, edges, n_valid)
     print(f"kernel transient: L={samples.shape[0]} N={samples.shape[1]} "
-          f"({PT.BLOCK_STEPS} steps x {TRANSIENT['n_clients']} clients), "
-          f"{n_valid} valid samples; exact; latency_hist {ms:.4f} ms a "
-          f"block, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by})", flush=True)
-    record = dict(launches=launches, max_abs_err=err, ms=ms,
-                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-    del samples, mask, edges, caught, runs
+          f"(one latency a step), {n_valid} valid samples; exact; "
+          f"latency_hist {ms:.4f} ms a call, plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
+    hist_record = dict(launches=launches, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by,
+                       shape=dict(lanes=samples.shape[0],
+                                  samples=samples.shape[1]))
+    del samples, mask, edges, caught
+
+    # the step kernel's first block at the main path's shape, timed
+    (inp,), engine = runs[-1][6]
+    n_clients = engine["n_clients"]
+    block = min(PT.BLOCK_STEPS, n_steps)
+    engine = dict(engine, n_steps=block)
+    first = [_step_run(PT, TL.transient_lanes, PT._transient_batch, inp,
+                       kernel="transient_lanes", keys=TRANSIENT_STATE,
+                       **engine) for _ in range(6)]
+    plain = [_step_run(PT, ref.ref_transient_lanes, PT._transient_batch, inp,
+                       kernel="transient_lanes", keys=TRANSIENT_STATE,
+                       **engine) for _ in range(2)]
+    errs.append(_transient_lanes_equal(first[-1][2], plain[-1][2],
+                                       "the main path's first block"))
+    n_windows, lanes, k = inp.demands_w.shape
+    seeds = inp.seeds.size
+    ms = float(np.median([r[1] for r in first[1:]]))
+    plain_ms = min(r[1] for r in plain)
+    # the same block in the deterministic mode, which loads no draws
+    det_ms = float(np.median([_step_run(
+        PT, TL.transient_lanes, PT._transient_batch, inp,
+        kernel="transient_lanes", keys=TRANSIENT_STATE,
+        **dict(engine, exponential=False))[1] for _ in range(6)][1:]))
+    bound_ms, bound_by = _bound_ms(kernel_costs.transient_lanes_cost(
+        lanes, block, n_clients, k, n_windows, seeds))
+    scan_bound_ms, _ = _bound_ms(kernel_costs.transient_lanes_cost(
+        lanes, n_steps, n_clients, k, n_windows, seeds))
+    scan_ms = [r[4] for r in runs]
+    print(f"kernel transient_lanes: the 90 % reads grid's first {block} "
+          f"steps (L={lanes} lanes x N={n_clients} clients x {k} stations x "
+          f"{n_windows} windows, {seeds} seeds of draws): bitwise equal; "
+          f"kernel {ms:.4f} ms ({ms / block * 1e3:.3f} us a step; "
+          f"deterministic, no draws loaded, {det_ms:.4f} ms), plain "
+          f"{plain_ms:.2f} ms, bound {bound_ms:.5f} ms ({bound_by}); the "
+          f"whole scan {' / '.join(f'{t:.3f}' for t in scan_ms)} ms on the "
+          f"card by mix, its bound {scan_bound_ms:.5f} ms; "
+          f"{tl_launches} launches on the path", flush=True)
+    lanes_record = dict(launches=tl_launches, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        deterministic_ms=det_ms,
+                        shape=dict(lanes=lanes, clients=n_clients,
+                                   stations=k, windows=n_windows,
+                                   steps=block),
+                        scan_ms=dict(zip([r[0] for r in runs], scan_ms)),
+                        scan_steps=n_steps, scan_bound_ms=scan_bound_ms,
+                        scan_s={r[0]: r[2].timings["scan"] for r in runs},
+                        plain_ms_per_step=plain_ms_step)
+    del first, plain, inp, runs
     torch.cuda.empty_cache()
 
     # autotune: the staircase, and the failover ranking on the card
@@ -1772,51 +1942,19 @@ def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
     stairs = [(t.machines, round(t.peak), t.bottleneck) for t in trace]
     if stairs != FIG29:
         raise AssertionError(f"Fig. 29 staircase differs: {stairs}")
-    t0 = time.perf_counter()
-    tune = P.autotune(19, alpha, objective="p99_under_failover",
-                      transient_kwargs=dict(device=dev))
+    tune, tune_s = _failover_ranking(P, alpha, dev)
     if not (np.isfinite(tune.best_p99) and tune.best_p99 > 0):
         raise AssertionError(f"autotune p99 {tune.best_p99}")
     c = tune.best_config
     print(f"autotune: Fig. 29 staircase exact "
           f"({' -> '.join(f'{p:,} @ {m} ({b})' for m, p, b in stairs)}); "
-          f"p99_under_failover on the card in "
-          f"{time.perf_counter() - t0:.2f} s picks proxies="
+          f"p99_under_failover on the card in {tune_s:.2f} s picks proxies="
           f"{c['n_proxy_leaders']} grid={c['grid_rows']}x{c['grid_cols']} "
           f"replicas={c['n_replicas']} on {tune.machines} machines, p99 "
           f"{tune.best_p99:.4e} s", flush=True)
 
     # autoscale: benchmarks/autoscale.py's policy search, to the bit
-    want = json.loads((Path(__file__).resolve().parent
-                       / "BENCH_autoscale.json").read_text())
-    w1 = P.Workload(f_write=1.0)
-    model = P.model_for(dict(AUTOSCALE_CFG), w1)
-    d_w, _, servers = model.demand_slots()
-    k = len(P.STATION_ORDER)
-    base = np.asarray(d_w[:k], dtype=np.float64) / alpha
-    srv = np.asarray(servers[:k], dtype=np.int64)
-    rz = P.resizable_stations("compartmentalized", AUTOSCALE_CFG)
-    policies = tuple(P.AutoscalePolicy(
-        target_low=lo, target_high=hi, cooldown_windows=0,
-        min_counts=AUTOSCALE_FLOORS,
-        **({} if q is None else dict(queue_high=q)))
-        for lo, hi, q in AUTOSCALE_BANDS)
-    t0 = time.perf_counter()
-    pol = P.autotune_policy(
-        policies, base, srv,
-        P.diurnal_load(want["windows"], low=0.15, sharpness=2.0),
-        p99_slack=1.0, seeds=3, n_steps=4800,
-        resizable=[rz] * (len(policies) + 1), device=dev)
-    as_s = time.perf_counter() - t0
-    saved = 1.0 - pol.winner.machine_time / pol.static.machine_time
-    got = {"machine_time_autoscaled": round(pol.winner.machine_time, 4),
-           "machine_time_static": round(pol.static.machine_time, 4),
-           "machine_hours_saved_fraction": round(saved, 4),
-           "peak_p99_autoscaled_s": float(pol.winner.peak_p99),
-           "peak_p99_static_s": float(pol.static.peak_p99),
-           "trough_floor_machines": int(pol.winner.trace.machines.min()),
-           "resizes": len(pol.winner.trace.actions),
-           "winner_policy": pol.winner.policy.describe()}
+    pol, want, got, as_s = _autoscale_policy(P, alpha, dev)
     bad = {key: (v, want[key]) for key, v in got.items() if v != want[key]}
     if bad or pol.winner.machine_time != 17.78125:
         raise AssertionError(f"autoscale differs from BENCH_autoscale.json:"
@@ -1831,10 +1969,33 @@ def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
           f"{got['trough_floor_machines']}, peak p99 "
           f"{got['peak_p99_autoscaled_s']!r} / {got['peak_p99_static_s']!r}"
           f" s", flush=True)
+    lanes_record.update(autotune_failover_s=tune_s, autotune_policy_s=as_s)
 
-    # the card against the CPU on a small crash grid
+    # a small crash grid: the kernel against the plain loop on the card
+    # (injected and deterministic draws), then the card against the CPU
     small = P.compile_sweep(P.SweepSpec(n_proxy_leaders=(2, 4),
                                         grids=((2, 2),), n_replicas=(2, 3)))
+    kw = dict(workload=P.MIXED_50_50, n_clients=16, seeds=2, n_steps=1200,
+              events=[P.Event(*TRANSIENT_CRASH)])
+    k_small = small.demands(P.MIXED_50_50).shape[1]
+    injected = np.random.default_rng(30).exponential(
+        size=(2, kw["n_steps"] + 1, k_small)).astype(np.float32)
+    for mode, extra in (("injected", dict(draws=injected)),
+                        ("deterministic", dict(exponential_service=False))):
+        on_card, _, lanes_k = _step_run(
+            PT, TL.transient_lanes, small.transient, alpha, device=dev,
+            kernel="transient_lanes", keys=TRANSIENT_STATE, **kw, **extra)
+        plain, _, lanes_p = _step_run(
+            PT, ref.ref_transient_lanes, small.transient, alpha, device=dev,
+            kernel="transient_lanes", keys=TRANSIENT_STATE, **kw, **extra)
+        errs.append(_transient_lanes_equal(lanes_k, lanes_p,
+                                           f"small crash grid, {mode}"))
+        _transient_results_equal(on_card, plain, f"small crash grid, {mode}"
+                                                 f", kernel and plain loop")
+    print(f"kernel check: transient_lanes == plain step loop bitwise (flows, "
+          f"lat1, state, qsum) on a 4-config x 2-seed x 16-client crash grid"
+          f", 1200 steps, injected and deterministic draws", flush=True)
+    lanes_record["max_abs_err"] = max(errs)
     for expo in (False, True):
         kw = dict(workload=P.MIXED_50_50, n_clients=16, seeds=2,
                   n_steps=1200, events=[P.Event(*TRANSIENT_CRASH)],
@@ -1851,7 +2012,7 @@ def _transient_phase(P, PT, LH, ref, sweep, alpha, dev):
           f"deterministic and exponential (flows, completions, histograms, "
           f"queue sums, throughput, p99 and mean latency equal); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return record
+    return hist_record, lanes_record
 
 
 #: The attention backward against autograd through the plain forward:
@@ -4052,6 +4213,7 @@ def main() -> int:
     from repro_torch.kernels import latency_hist as LH
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as RS
+    from repro_torch.kernels import transient_lanes as TL
     from repro_torch.kernels import wkv6 as WK
     dev = torch.device("cuda")
     # float32 products in full float32 on the card (no TF32), as on the CPU
@@ -4067,6 +4229,7 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     kernels = (("latency_hist.cu", LH.build), ("exec_lanes.cu", EL.build),
+               ("transient_lanes.cu", TL.build),
                ("flash_attention.cu", FA.build),
                ("flash_attention_bwd.cu", FA.build_bwd),
                ("decode_attention.cu", FD.build), ("rglru_scan.cu", RS.build),
@@ -4287,7 +4450,8 @@ def main() -> int:
           "1e-5); exponential service drains on the card")
 
     # -- 6. the transient path: token engine, autotune, autoscale ----------
-    transient = _transient_phase(P, PT, LH, ref, sweep, alpha, dev)
+    transient, transient_lanes = _transient_phase(P, PT, LH, TL, ref, sweep,
+                                                  alpha, dev)
 
     # -- 7.-9b. the serving paths --------------------------------------------
     served = {}
@@ -4358,7 +4522,11 @@ def main() -> int:
             dict(name="exec_lanes", route="cuda",
                  source="src/repro_torch/kernels/csrc/exec_lanes.cu",
                  replaces="src/repro/core/batched_execution.py:137",
-                 path="execution", library_ms=None, **lanes["record"])]
+                 path="execution", library_ms=None, **lanes["record"]),
+            dict(name="transient_lanes", route="cuda",
+                 source="src/repro_torch/kernels/csrc/transient_lanes.cu",
+                 replaces="src/repro/core/transient.py:482",
+                 path="transient", library_ms=None, **transient_lanes)]
     train_fa_rec["launches"] = train["launches"]["flash_attention"]
     bwd_rec["launches"] = train["launches"]["flash_attention_bwd"]
     served["training"] = dict(flash_attention=train_fa_rec,

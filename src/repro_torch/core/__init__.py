@@ -22,8 +22,9 @@ Performance plane:
   trace, autotune_variants across protocols, p99 under failover on the
   transient engine), and batched_execution.* - a whole (config x seed)
   grid of closed-loop clients in one batched device loop.  Both device
-  engines bin their latency samples with the CUDA ``latency_hist``
-  kernel.
+  engines step their lanes in hand-written CUDA kernels on the card
+  (``exec_lanes``, ``transient_lanes``) and bin their latency samples
+  with the CUDA ``latency_hist`` kernel.
 
 Autoscale plane: api.AutoscalePolicy drives autoscale.Controller /
 autoscale_grid, a closed loop on the transient engine's measured signals

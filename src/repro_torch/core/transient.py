@@ -28,16 +28,19 @@ station drains faster from the next step on.  Completion residuals carry
 into the next service, so a saturated server's long-run rate is exactly
 ``1/d_k`` with no discretization bias.
 
-The engine (:func:`_transient_batch`) is eager PyTorch: every step runs in
-float32 op by op in the reference's order, so flows, completions, queue
-sums and histograms equal the reference's bit for bit.  Latencies and
-completion masks are written per step into a block of steps on the
-device, and each full block is binned by one launch of the CUDA
-:func:`repro_torch.kernels.ops.latency_hist` kernel (its plain version
-for CPU tensors).  Service draws are common random numbers: every
-deployment under seed ``s`` sees the same stream, drawn on the host from
-a ``torch.Generator`` seeded with ``s`` (or injected, to replay the
-reference's own draws).
+The engine (:func:`_transient_batch`) runs the step loop through
+:func:`repro_torch.kernels.ops.transient_lanes`: on the card one launch
+of the CUDA kernel a block of ``BLOCK_STEPS`` steps, on the CPU the plain
+loop (:func:`repro_torch.kernels.ref.ref_transient_lanes`).  Both take
+every step in float32 in the reference's order, so flows, completions,
+queue sums and histograms equal the reference's bit for bit.  Each lane
+finishes at most one command a step; the step loop writes that
+command's latency a step, and the run's latencies are binned by one
+launch of the CUDA :func:`repro_torch.kernels.ops.latency_hist` kernel
+(its plain version for CPU tensors).  Service draws are common random
+numbers: every deployment under seed ``s`` sees the same stream, drawn on
+the host from a ``torch.Generator`` seeded with ``s`` (or injected, to
+replay the reference's own draws).
 
 Scripted events
 ---------------
@@ -74,7 +77,7 @@ from .analytical import (
 from .api import ShardingSpec, Workload, resolve_workload
 from .device import resolve_device
 from .simulator import demand_vector
-from ..kernels.ops import latency_hist
+from ..kernels.ops import latency_hist, transient_lanes
 
 #: Demand multiplier that effectively freezes a station (a crash: in-flight
 #: service stalls and resumes on recovery when the multiplier lifts).
@@ -505,9 +508,8 @@ def _quantile_from_hist(hist: np.ndarray, edges: np.ndarray, q: float
 # The batched step engine (one lane = one deployment x seed)
 # ---------------------------------------------------------------------------
 
-#: Steps whose latencies and completion masks are held on the device before
-#: one ``latency_hist`` launch bins them: [L, BLOCK_STEPS, N] float32 and
-#: bool, 84 MB at 256 lanes of 64 clients.
+#: Steps a launch of the step kernel runs at most; the plain loop steps in
+#: the same blocks.  A launch-size constant only: no result depends on it.
 BLOCK_STEPS = 1024
 
 
@@ -581,8 +583,9 @@ def _seed_draws(seeds: np.ndarray, n_steps: int, k: int) -> torch.Tensor:
 
 def _bin_block(lat: torch.Tensor, rec: torch.Tensor,
                edges: torch.Tensor) -> torch.Tensor:
-    """[L, n_bins] int32 counts of one block's recorded latencies.  lat/rec:
-    [L, B, N]; edges: [L, n_bins + 1] float32.  A sample lands in bin
+    """[L, n_bins] int32 counts of the recorded latencies.  lat/rec: [L,
+    ...] (each lane's samples, in any shape); edges: [L, n_bins + 1]
+    float32.  A sample lands in bin
     ``#{j : edges_j < lat} - 1``, clipped to the end bins (a NaN in bin 0):
     one launch of the ``latency_hist`` kernel on the card."""
     n_lanes = lat.shape[0]
@@ -600,22 +603,24 @@ def _transient_batch(inp: TransientInputs, n_clients: int, n_steps: int,
     float32).
 
     The step is the reference's ``_one_lane`` step with the same float32
-    operations, arranged to launch few device ops per step (about 30):
+    operations, run in blocks of ``BLOCK_STEPS`` steps through
+    :func:`repro_torch.kernels.ops.transient_lanes` (one launch of the
+    CUDA kernel a block on the card, the plain loop on the CPU).  Around
+    it:
 
     * the window of step ``i`` depends on ``i`` only, so it is looked up on
-      the host, and each window's service rate ``dt / max(d, 1e-30)`` (or
-      1e30 for a zero demand) is computed once, elementwise as the step
-      would;
-    * ``t_end = (i + 1) * dt`` comes from a precomputed [n_steps, L] table;
-    * each step's completion mask and latencies are written in place into
-      a block of ``BLOCK_STEPS`` steps; a full block is binned by one
-      ``latency_hist`` launch, and its per-step flows and latency sums are
-      taken there.  A lane finishes at most one command a step (only the
-      last active station finishes, one head at a time), so a step's
-      latency sum is exact in any order, and the running float32 sum is
-      taken on the host in step order, as the reference's scan does;
-    * ``done`` is the histogram's mass: every recorded sample lands in
-      exactly one bin.
+      the host ([n_steps] int32), and each window's service rate
+      ``dt / max(d, 1e-30)`` (or 1e30 for a zero demand) is computed once,
+      elementwise as the step would;
+    * a lane finishes at most one command a step (only the last active
+      station finishes, one head at a time): the step loop writes each
+      step's finish count and that command's latency, and a count above
+      one raises.  So a step's latency sum is exact, and the running
+      float32 sum is taken on the host in step order, as the reference's
+      scan does;
+    * the recorded latencies (finished, past the warmup) are binned by one
+      ``latency_hist`` launch, and ``done`` is the histogram's mass: every
+      recorded sample lands in exactly one bin.
 
     Nothing synchronises with the host until the loop ends."""
     d_w = inp.demands_w
@@ -624,7 +629,6 @@ def _transient_batch(inp: TransientInputs, n_clients: int, n_steps: int,
     s = inp.seeds.size
     m = n_lanes // s
     dt = inp.dt
-    block = max(1, min(BLOCK_STEPS, n_steps))
 
     if exponential:
         draws = inp.draws
@@ -633,8 +637,7 @@ def _transient_batch(inp: TransientInputs, n_clients: int, n_steps: int,
         elif tuple(draws.shape) != (s, n_steps + 1, k):
             raise ValueError(f"draws must be {(s, n_steps + 1, k)}: "
                              f"{tuple(draws.shape)}")
-        draws = draws.transpose(0, 1).contiguous()            # [T + 1, S, K]
-        draw0 = draws[0].repeat(m, 1)                         # [L, K]
+        draw0 = draws[:, 0].repeat(m, 1)                      # [L, K]
     else:
         draws = None
         draw0 = torch.ones((n_lanes, k), device=dev)
@@ -643,87 +646,46 @@ def _transient_batch(inp: TransientInputs, n_clients: int, n_steps: int,
     # instantly rather than stall (still one completion per step)
     rates = torch.where(d_w > 0, dt[None, :, None]
                         / torch.clamp_min(d_w, 1e-30), 1e30)  # [W, L, K]
-    window_of = (np.searchsorted(inp.step_bounds, np.arange(n_steps),
-                                 side="right") - 1).tolist()
-    t_ends = (torch.arange(1, n_steps + 1, dtype=torch.float32, device=dev)
-              [:, None] * dt[None, :])                        # [T, L]
+    window_of = torch.from_numpy(
+        np.searchsorted(inp.step_bounds, np.arange(n_steps), side="right")
+        .astype(np.int32) - 1).to(dev)                        # [T]
 
     finishes_at = inp.nxt == k                                # [L, K]
     arrive_at = torch.where(finishes_at, inp.entry[:, None], inp.nxt)
     entry = inp.entry[:, None]
-    stage = entry.expand(n_lanes, n_clients).contiguous()     # [L, N]
-    rank = torch.arange(n_clients, device=dev).expand(n_lanes, -1)
-    enter_t = torch.zeros((n_lanes, n_clients), device=dev)
-    q = torch.zeros((n_lanes, k), dtype=torch.long, device=dev).scatter_(
-        1, entry, n_clients)
-    work = torch.zeros((n_lanes, k), device=dev).scatter_(
-        1, entry, draw0.gather(1, entry))
-
-    hist = torch.zeros((n_lanes, n_bins), dtype=torch.long, device=dev)
-    qsum = torch.zeros((n_lanes, n_windows, k), device=dev)
+    state = dict(
+        stage=entry.repeat(1, n_clients),                     # [L, N]
+        rank=torch.arange(n_clients, device=dev).repeat(n_lanes, 1),
+        enter_t=torch.zeros((n_lanes, n_clients), device=dev),
+        q=torch.zeros((n_lanes, k), dtype=torch.long, device=dev).scatter_(
+            1, entry, n_clients),
+        work=torch.zeros((n_lanes, k), device=dev).scatter_(
+            1, entry, draw0.gather(1, entry)),
+        qsum=torch.zeros((n_lanes, n_windows, k), device=dev))
     flows = torch.empty((n_lanes, n_steps), dtype=torch.int32, device=dev)
-    step_lat = torch.empty((n_lanes, n_steps), device=dev)
-    fin_blk = torch.empty((n_lanes, block, n_clients), dtype=torch.bool,
-                          device=dev)
-    lat_blk = torch.empty((n_lanes, block, n_clients), device=dev)
+    lat1 = torch.empty((n_lanes, n_steps), device=dev)
+    for i0 in range(0, n_steps, BLOCK_STEPS):
+        transient_lanes(rates, window_of, dt, finishes_at, arrive_at, draws,
+                        **state, flows=flows, lat1=lat1, i0=i0,
+                        i1=min(i0 + BLOCK_STEPS, n_steps))
+
     recorded = torch.arange(n_steps, device=dev) >= warmup_steps
-
-    for i in range(n_steps):
-        w = window_of[i]
-        j = i % block
-        t_end = t_ends[i][:, None]                            # [L, 1]
-
-        busy = q > 0
-        work = torch.where(busy, work - rates[w], work)
-        complete = busy & (work <= 0.0)                       # [L, K]
-
-        dep_here = complete.gather(1, stage)                  # [L, N]
-        moving = dep_here & (rank == 0)
-        fin = fin_blk[:, j]
-        torch.logical_and(moving, finishes_at.gather(1, stage), out=fin)
-        torch.sub(t_end, enter_t, out=lat_blk[:, j])
-
-        dest = arrive_at.gather(1, stage)
-        done_here = complete.long()
-        q_dep = q - done_here
-        stage = torch.where(moving, dest, stage)
-        enter_t = torch.where(fin, t_end, enter_t)
-        # a mover's new rank is its destination's queue length; any other
-        # client at a station that completed moves up one (its rank is > 0)
-        rank = torch.where(moving, q_dep.gather(1, dest),
-                           rank - dep_here.long())
-        arrivals = torch.zeros_like(q).scatter_add_(1, arrive_at, done_here)
-        q = q_dep + arrivals
-        # per-window queue-depth integral (the autoscale controller's
-        # backlog signal), float32 as the reference's
-        qsum[:, w] += q
-        # new head enters service: carry the completion residual on a busy
-        # server (unbiased long-run rate), fresh draw on an idle one
-        fresh = torch.where(busy, complete & (q > 0), arrivals > 0)
-        nxt_work = torch.where(complete, work, 0.0)
-        if draws is None:
-            nxt_work += 1.0
-        else:
-            nxt_work.view(m, s, k).add_(draws[i + 1])
-        work = torch.where(fresh, nxt_work, work)
-
-        if j == block - 1 or i == n_steps - 1:
-            lo, nb = i - j, j + 1
-            fins, lats = fin_blk[:, :nb], lat_blk[:, :nb]
-            rec = fins & recorded[None, lo:lo + nb, None]
-            hist += _bin_block(lats, rec, inp.bin_edges)
-            flows[:, lo:lo + nb] = fins.sum(dim=2)
-            step_lat[:, lo:lo + nb] = torch.where(rec, lats, 0.0).sum(dim=2)
-
+    rec = (flows > 0) & recorded[None, :]
+    hist = _bin_block(lat1, rec, inp.bin_edges)
+    step_lat = torch.where(rec, lat1, 0.0)
+    flows_np = flows.cpu().numpy()
+    if n_steps and flows_np.max() > 1:
+        raise RuntimeError(f"a lane finished {flows_np.max()} commands in "
+                           f"one step: the step loop's state is corrupt")
     # the reference's float32 running sum, step by step in step order
     lat_sum = np.add.accumulate(step_lat.cpu().numpy(), axis=1,
                                 dtype=np.float32)[:, -1]
     hist_np = hist.cpu().numpy()
-    return (flows.cpu().numpy().reshape(m, s, n_steps),
+    return (flows_np.reshape(m, s, n_steps),
             hist_np.sum(axis=1).astype(np.int32).reshape(m, s),
             lat_sum.reshape(m, s),
             hist_np.astype(np.int32).reshape(m, s, n_bins),
-            qsum.cpu().numpy().reshape(m, s, n_windows, k))
+            state["qsum"].cpu().numpy().reshape(m, s, n_windows, k))
 
 
 # ---------------------------------------------------------------------------

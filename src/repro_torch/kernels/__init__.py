@@ -18,6 +18,9 @@
   exec_lanes      - the batched execution engine's closed-loop client
                     step loop over every (config x seed) lane, a block of
                     steps a launch (CUDA C++, ``csrc/exec_lanes.cu``)
+  transient_lanes - the transient engine's token-ring step loop over every
+                    (deployment x seed) lane, a block of steps a launch
+                    (CUDA C++, ``csrc/transient_lanes.cu``)
 
 Each ships with a wrapper that launches the kernel on CUDA tensors and
 runs the plain version (``ref.py``) on CPU tensors; ``ops.py`` is the

@@ -16,7 +16,8 @@ from .exec_lanes import exec_lanes
 from .flash_attention import flash_attention
 from .latency_hist import latency_hist
 from .rglru_scan import rglru_scan
+from .transient_lanes import transient_lanes
 from .wkv6 import wkv6
 
 __all__ = ["exec_lanes", "flash_attention", "flash_decode", "latency_hist",
-           "rglru_scan", "wkv6"]
+           "rglru_scan", "transient_lanes", "wkv6"]

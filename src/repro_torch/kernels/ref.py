@@ -4,7 +4,8 @@ Small, obviously-correct implementations that follow the reference's own
 definitions.  The CPU path runs them, the tests hold them against the JAX
 package, and the card's kernels are held against them: the histogram bit
 for bit, attention and the RG-LRU and WKV recurrences within the float
-tolerance its test states; the execution lanes' step loop bit for bit.
+tolerance its test states; the execution and transient lanes' step loops
+bit for bit.
 """
 from __future__ import annotations
 
@@ -204,6 +205,80 @@ def ref_exec_lanes(rate_w: torch.Tensor, rate_r: torch.Tensor,
         fresh = torch.where(busy, complete & (q > 0), arrivals > 0)
         work = torch.where(
             fresh, draw_i + torch.where(complete, work, 0.0), work)
+    for into, now in zip(state, (stage, rank, enter_t, q, work)):
+        if now is not into:
+            into.copy_(now)
+
+
+def ref_transient_lanes(rates: torch.Tensor, window_of: torch.Tensor,
+                        dt: torch.Tensor, finishes_at: torch.Tensor,
+                        arrive_at: torch.Tensor,
+                        draws: Optional[torch.Tensor], stage: torch.Tensor,
+                        rank: torch.Tensor, enter_t: torch.Tensor,
+                        q: torch.Tensor, work: torch.Tensor,
+                        qsum: torch.Tensor, flows: torch.Tensor,
+                        lat1: torch.Tensor, i0: int, i1: int) -> None:
+    """Steps ``[i0, i1)`` of the transient engine's token ring over every
+    lane (the reference's ``_one_lane`` step, eager, in its float32 op
+    order).
+
+    Per lane ``l`` (lane order ``m * S + s``): ``rates`` [W, L, K] float32
+    work a station drains a step in each window; ``window_of`` [T] int32
+    the window of each step; ``dt`` [L] float32 the step length (step i
+    ends at ``(i + 1) * dt``); ``finishes_at`` [L, K] bool and
+    ``arrive_at`` [L, K] int64 the tandem routing; ``draws`` [S, T + 1, K]
+    float32 service draws, lane ``l`` reading seed ``l % S`` and step i
+    row ``i + 1``, or None for the deterministic mode (every draw 1.0).
+
+    The state - ``stage``, ``rank`` [L, N] int64, ``enter_t`` [L, N]
+    float32, ``q`` [L, K] int64, ``work`` [L, K] float32 and the
+    per-window queue integral ``qsum`` [L, W, K] float32 - is updated in
+    place.  Step i writes ``flows[:, i]`` [L, T] int32, the lane's
+    finished commands, and ``lat1[:, i]`` [L, T] float32, the finisher's
+    ``t_end - enter_t`` (0.0 where none finished; a lane finishes at most
+    one command a step, so this is that command's latency)."""
+    n_lanes, k = q.shape
+    dev = q.device
+    windows = window_of.tolist()
+    t_ends = (torch.arange(i0 + 1, i1 + 1, dtype=torch.float32, device=dev)
+              [:, None] * dt[None, :])                          # [i1 - i0, L]
+    state = (stage, rank, enter_t, q, work)
+    for i in range(i0, i1):
+        w = windows[i]
+        t_end = t_ends[i - i0][:, None]                          # [L, 1]
+
+        busy = q > 0
+        work = torch.where(busy, work - rates[w], work)
+        complete = busy & (work <= 0.0)                          # [L, K]
+
+        dep_here = complete.gather(1, stage)                     # [L, N]
+        moving = dep_here & (rank == 0)
+        fin = moving & finishes_at.gather(1, stage)
+        flows[:, i] = fin.sum(dim=1)
+        lat1[:, i] = torch.where(fin, t_end - enter_t, 0.0).sum(dim=1)
+
+        dest = arrive_at.gather(1, stage)
+        done_here = complete.long()
+        q_dep = q - done_here
+        stage = torch.where(moving, dest, stage)
+        enter_t = torch.where(fin, t_end, enter_t)
+        # a mover's new rank is its destination's queue length; any other
+        # client at a station that completed moves up one (its rank is > 0)
+        rank = torch.where(moving, q_dep.gather(1, dest),
+                           rank - dep_here.long())
+        arrivals = torch.zeros_like(q).scatter_add_(1, arrive_at, done_here)
+        q = q_dep + arrivals
+        # per-window queue-depth integral, float32 as the reference's
+        qsum[:, w] += q
+        # new head enters service: carry the completion residual on a busy
+        # server (unbiased long-run rate), fresh draw on an idle one
+        fresh = torch.where(busy, complete & (q > 0), arrivals > 0)
+        nxt_work = torch.where(complete, work, 0.0)
+        if draws is None:
+            nxt_work += 1.0
+        else:
+            nxt_work.view(-1, draws.shape[0], k).add_(draws[:, i + 1])
+        work = torch.where(fresh, nxt_work, work)
     for into, now in zip(state, (stage, rank, enter_t, q, work)):
         if now is not into:
             into.copy_(now)

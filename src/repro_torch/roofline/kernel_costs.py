@@ -168,6 +168,35 @@ def exec_lanes_cost(lanes: int, n_steps: int, n_clients: int,
     return ops, nbytes, "f32"
 
 
+def transient_lanes_cost(lanes: int, n_steps: int, n_clients: int,
+                         n_stations: int, n_windows: int,
+                         n_seeds: int) -> Cost:
+    """``n_steps`` steps of the transient lanes' step loop over
+    ``n_stations`` columns and ``n_windows`` demand windows, in the least
+    bytes the function needs: each step's finish count (int32) and
+    latency (float32) written per lane; the window table a step and each
+    lane's step length ``dt`` (a step's end time is ``(i + 1) * dt``),
+    the window rates and the routing (a byte and an int32 a column) read
+    once; (with ``n_seeds`` seeds; 0 in the deterministic mode) each
+    seed's float32 service draws for the steps read once, whatever the
+    lanes sharing it; the state (int32 station and rank and float32 entry
+    time a client, int32 queue and float32 work a station) and the
+    per-window queue integrals read and written once.  Operations: the
+    float32 arithmetic of a step, the end time and the finisher's latency
+    a lane and per station the work's subtraction, its comparison, the
+    draw's addition and the queue integral's."""
+    nbytes = (lanes * n_steps * (4 + 4)
+              + n_steps * 4
+              + lanes * 4
+              + n_windows * lanes * n_stations * 4
+              + lanes * n_stations * (1 + 4)
+              + n_seeds * n_steps * n_stations * 4
+              + 2 * lanes * (n_clients * (4 + 4 + 4) + n_stations * (4 + 4))
+              + 2 * lanes * n_windows * n_stations * 4)
+    ops = lanes * n_steps * (2 + 4 * n_stations)
+    return ops, nbytes, "f32"
+
+
 def wkv6_bwd_cost(B: int, S: int, H: int, D: int, esize: int, has_s0: bool,
                   has_ds_last: bool, chunk: int) -> Cost:
     """The WKV backward: r, k, v and dy read and dr, dk and dv written in

@@ -24,6 +24,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.latency_hist\n"
         "import repro_torch.kernels.exec_lanes\n"
+        "import repro_torch.kernels.transient_lanes\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.decode_attention\n"
         "import repro_torch.kernels.rglru_scan, repro_torch.models.rglru\n"
