@@ -38,7 +38,15 @@ no result line):
    events, beside the scan's bound) and the histogram kernel must
    launch;
 5. the card against the CPU - the port on ``cuda`` and on ``cpu`` agree on
-   a 4-config x 2-seed grid;
+   a 4-config x 2-seed grid (the MVA surfaces bit for bit);
+5b. the steady-state solves - phase 4's grid through ``CompiledSweep.mva``
+   at ``SS_CLIENTS`` clients and sharded over ``SS_SHARDS`` shards (480
+   columns), and ``.fluid`` at ``SS_FLUID``, each one launch of its
+   kernel (``csrc/mva_scan.cu``, ``csrc/fluid_scan.cu``; counted from 0)
+   and bit for bit the CPU's; each kernel bit for bit its plain loop on
+   the card at those demands and in edge cases, 20 CUDA-graph replays
+   bitwise equal, its CUDA-event ms beside its bound and the plain
+   loop's, and each call's host wall beside the eager parent's;
 6. the transient path - the same 32-config grid through
    ``CompiledSweep.transient`` at 8 seeds x 64 clients x 4000 steps,
    exponential service (the seeded generator's draws), with the leader
@@ -280,6 +288,19 @@ TRANSIENT_CRASH = ("leader", 0.4, 0.6, 1e9)
 #: the state the transient lanes' step loop updates in place, and its outputs
 TRANSIENT_STATE = ("stage", "rank", "enter_t", "q", "work", "qsum", "flows",
                    "lat1")
+#: phase 5b, the steady-state solves on the Fig. 29 grid (write-only): MVA
+#: at these n_clients_max, once more sharded over SS_SHARDS shards ([M, S,
+#: K] flattened to [M, 480]), fluid at 64 clients x 2000 steps
+SS_CLIENTS = (64, 512)
+SS_SHARDS = 32
+SS_FLUID = dict(n_clients=64, n_steps=2000)
+#: the eager loops before these kernels: each call's host wall ms (two
+#: runs of scripts/steady_state_ab.py on an H100 80GB HBM3 at 700 W,
+#: PERF.md section 6) and its launches (kernels + copies)
+SS_PARENT = {"mva 64": ((6.481, 5.137), "515 + 4"),
+             "mva 512": ((51.104, 63.563), "4,099 + 4"),
+             "mva 512 sharded": ((53.311, 50.736), "4,099 + 4"),
+             "fluid": ((129.997, 179.313), "12,010 + 5")}
 #: bottleneck_trace(budget=19) with the calibrated alpha, the paper's
 #: Fig. 29 staircase: (machines, cmd/s rounded, bottleneck) per rung
 FIG29 = [(3, 25_000, "leader"), (8, 46_296, "proxy"), (9, 69_444, "proxy"),
@@ -2013,6 +2034,191 @@ def _transient_phase(P, PT, LH, TL, ref, sweep, alpha, dev):
           f"queue sums, throughput, p99 and mean latency equal); phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return hist_record, lanes_record
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit but for NaN's payload: the same shape, NaN where
+    the other is NaN, and every other value equal."""
+    import torch
+    if a.shape != b.shape:
+        return False
+    nan = torch.isnan(a)
+    return (torch.equal(nan, torch.isnan(b))
+            and torch.equal(a[~nan], b[~nan]))
+
+
+def _ss_edge_cases(MV, FL, ref, dev) -> int:
+    """Both steady-state kernels against their plain loops, both on the
+    card, bit for bit (NaN to NaN): n_max 1, K = 1, a zero-demand column,
+    a zero row at think 0 (x = N / 0 = inf, then NaN), think > 0, rows no
+    multiple of a block's 4, K = 33 (two columns a lane), K = 600 (past
+    the registers' 512: the global-memory walk), 1 and 2 fluid steps, a
+    zero-step fluid call."""
+    import torch
+    rng = np.random.default_rng(31)
+
+    def demands(m, k, zero_col=None, zero_row=None):
+        d = rng.uniform(1e-6, 1e-4, size=(m, k)).astype(np.float32)
+        if zero_col is not None:
+            d[:, zero_col] = 0.0
+        if zero_row is not None:
+            d[zero_row] = 0.0
+        return torch.from_numpy(d).to(dev)
+
+    cases = [  # (name, demands, think, n_max, fluid steps)
+        ("n_max 1", demands(32, 15), 0.0, 1, 1),
+        ("K 1", demands(7, 1), 0.0, 64, 2),
+        ("zero column", demands(32, 15, zero_col=3), 0.0, 64, 100),
+        ("zero row, think 0", demands(8, 15, zero_row=2), 0.0, 16, 16),
+        ("think 0.01", demands(32, 15), 0.01, 512, 64),
+        ("5 rows", demands(5, 15), 0.0, 33, 33),
+        ("K 33", demands(6, 33, zero_col=32), 0.0, 70, 70),
+        ("K 600", demands(9, 600, zero_col=599), 0.002, 100, 100),
+        ("zero steps", demands(3, 15), 0.0, 0, 0),
+    ]
+    for name, d, think, n_max, steps in cases:
+        b_m, b_f = MV.mva_scan.launches, FL.fluid_scan.launches
+        got = MV.mva_scan(d, think, n_max)
+        want = ref.ref_mva_scan(d, think, n_max)
+        fl_got = FL.fluid_scan(d, 64.0, 1.0 / 2000, steps)
+        fl_want = ref.ref_fluid_scan(d, 64.0, 1.0 / 2000, steps)
+        torch.cuda.synchronize()
+        launched = (MV.mva_scan.launches - b_m, FL.fluid_scan.launches - b_f)
+        if launched != (int(n_max > 0), int(steps > 0)):
+            raise AssertionError(f"steady-state edge case {name}: launches "
+                                 f"{launched}")
+        for what, a, b in (("X", got[0], want[0]), ("R", got[1], want[1]),
+                           ("done", fl_got[0], fl_want[0]),
+                           ("flows", fl_got[1], fl_want[1])):
+            if not _bits_equal(a, b):
+                raise AssertionError(f"steady-state edge case {name}: the "
+                                     f"kernel's {what} differs from its "
+                                     f"plain loop")
+    return len(cases)
+
+
+def _steady_state_phase(P, MV, FL, ref, sweep, alpha, dev) -> dict:
+    """Phase 5b: the steady-state solves on the Fig. 29 grid.  The main
+    path first, its launch counts from 0: ``CompiledSweep.mva`` at
+    ``SS_CLIENTS`` and sharded over ``SS_SHARDS`` shards, ``.fluid`` at
+    ``SS_FLUID``, each exactly one launch of its kernel, each bitwise equal
+    to the same call with ``device="cpu"``; then each kernel against its
+    plain loop on the card at the path's demands (bit for bit), the edge
+    cases, 20 CUDA-graph replays bitwise equal, and the times: each
+    kernel's CUDA-event ms beside its byte bound and the plain loop's ms,
+    and each whole call's host wall beside the eager parent's
+    (``SS_PARENT``).  Returns the ``kernels`` rows of both kernels."""
+    import torch
+    t_phase = time.perf_counter()
+    w = P.Workload(f_write=1.0)
+    shards = P.ShardingSpec(n_shards=SS_SHARDS)
+    calls = {f"mva {n}": (lambda d, n=n: sweep.mva(
+        alpha, n, workload=w, device=d)[1:]) for n in SS_CLIENTS}
+    calls["mva 512 sharded"] = lambda d: sweep.mva(
+        alpha, 512, workload=w, sharding=shards, device=d)[1:]
+    calls["fluid"] = lambda d: (sweep.fluid(
+        alpha, SS_FLUID["n_clients"], workload=w,
+        n_steps=SS_FLUID["n_steps"], device=d),)
+    # a first launch of each loads its module: keep it off the count
+    MV.mva_scan(torch.ones((1, 1), device=dev), 0.0, 1)
+    FL.fluid_scan(torch.ones((1, 1), device=dev), 1.0, 1.0, 1)
+    MV.mva_scan.launches = 0
+    FL.fluid_scan.launches = 0
+    outs, per_call = {}, {}
+    for name, call in calls.items():
+        b_m, b_f = MV.mva_scan.launches, FL.fluid_scan.launches
+        outs[name] = call(dev)
+        per_call[name] = (MV.mva_scan.launches - b_m,
+                          FL.fluid_scan.launches - b_f)
+    launches = {"mva_scan": MV.mva_scan.launches,
+                "fluid_scan": FL.fluid_scan.launches}
+    for name, call in calls.items():
+        want = (0, 1) if name == "fluid" else (1, 0)
+        if per_call[name] != want:
+            raise AssertionError(f"{name}: (mva_scan, fluid_scan) launches "
+                                 f"{per_call[name]}, not {want}")
+        for i, (a, b) in enumerate(zip(outs[name], call("cpu"))):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: output {i} on the card differs"
+                                     f" from the CPU's")
+            if not (np.all(np.isfinite(a)) and np.all(a > 0)):
+                raise AssertionError(f"{name}: non-finite or non-positive "
+                                     f"output {i}")
+    if launches["mva_scan"] == 0 or launches["fluid_scan"] == 0:
+        raise AssertionError(f"the steady-state path launched {launches}")
+    print(f"phase 5b: mva at n_clients_max {SS_CLIENTS} and {SS_SHARDS} "
+          f"shards x 15 = {SS_SHARDS * 15} columns, fluid at "
+          f"{SS_FLUID['n_clients']} clients x {SS_FLUID['n_steps']} steps: "
+          f"one launch a call ({launches}), the card == the CPU bit for bit",
+          flush=True)
+
+    # the kernels against their plain loops at the path's demands
+    d15 = torch.from_numpy(
+        (sweep.demands(w) / alpha).astype(np.float32)).to(dev)
+    d480 = torch.from_numpy((P.flatten_shards(
+        sweep.demands(w, sharding=shards)) / alpha).astype(np.float32)
+        ).to(dev)
+    dt = 1.0 / SS_FLUID["n_steps"]
+    shapes = {"mva 64": (MV.mva_scan, ref.ref_mva_scan, (d15, 0.0, 64)),
+              "mva 512": (MV.mva_scan, ref.ref_mva_scan, (d15, 0.0, 512)),
+              "mva 512 sharded": (MV.mva_scan, ref.ref_mva_scan,
+                                  (d480, 0.0, 512)),
+              "fluid": (FL.fluid_scan, ref.ref_fluid_scan,
+                        (d15, float(SS_FLUID["n_clients"]), dt,
+                         SS_FLUID["n_steps"]))}
+    errs = {}
+    for name, (kernel, plain, args) in shapes.items():
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if not all(_bits_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name}: the kernel differs from its "
+                                 f"plain loop on the card")
+        errs[name] = max(float((a - b).abs().max()) if a.numel() else 0.0
+                         for a, b in zip(got, want))
+    n_edge = _ss_edge_cases(MV, FL, ref, dev)
+    for name in ("mva 512", "mva 512 sharded", "fluid"):
+        kernel, _, args = shapes[name]
+        _graph_replays_equal(lambda: kernel(*args), f"{name} graph")
+    print(f"kernel check: mva_scan and fluid_scan == their plain loops on "
+          f"the card bit for bit at the path's demands (K 15 and "
+          f"{d480.shape[1]}) and in {n_edge} edge cases (n_max 1, K 1 / 33 "
+          f"/ 600, zero column, zero row at think 0, think 0.01, 5 rows, "
+          f"1-2 and 0 fluid steps); 20 graph replays bitwise equal",
+          flush=True)
+
+    rows = {}
+    for name, (kernel, plain, args) in shapes.items():
+        m, k = args[0].shape
+        if kernel is MV.mva_scan:
+            cost = kernel_costs.mva_scan_cost(m, args[2], k)
+        else:
+            cost = kernel_costs.fluid_scan_cost(m, args[3], k)
+        ms = _time_ms(lambda: kernel(*args), 3, 20)
+        plain_ms = _time_ms(lambda: plain(*args), 1, 2)
+        bound_ms, bound_by = _bound_ms(cost)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[name](dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        wall = float(np.median(walls))
+        parent, parent_launches = SS_PARENT[name]
+        print(f"kernel {name}: ({m}, {k}) {kernel.__name__} {ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by}; the kernel "
+              f"{ms / bound_ms:.0f}x: the serial chain), plain loop "
+              f"{plain_ms:.2f} ms; the whole call's host wall {wall:.3f} ms "
+              f"(median of 5; the eager parent {parent[0]:.3f} / "
+              f"{parent[1]:.3f} ms, {parent_launches} launches a call; now "
+              f"1 launch)", flush=True)
+        rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, wall_ms=wall,
+                          shape=[m, k])
+    print(f"phase 5b: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    mva = dict(rows["mva 512"], launches=launches["mva_scan"],
+               shapes={n: rows[n] for n in rows if n != "fluid"})
+    fluid = dict(rows["fluid"], launches=launches["fluid_scan"])
+    return {"mva_scan": mva, "fluid_scan": fluid}
 
 
 #: The attention backward against autograd through the plain forward:
@@ -4210,7 +4416,9 @@ def main() -> int:
     from repro_torch.kernels import decode_attention as FD
     from repro_torch.kernels import exec_lanes as EL
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fluid_scan as FL
     from repro_torch.kernels import latency_hist as LH
+    from repro_torch.kernels import mva_scan as MV
     from repro_torch.kernels import ref
     from repro_torch.kernels import rglru_scan as RS
     from repro_torch.kernels import transient_lanes as TL
@@ -4234,7 +4442,8 @@ def main() -> int:
                ("flash_attention_bwd.cu", FA.build_bwd),
                ("decode_attention.cu", FD.build), ("rglru_scan.cu", RS.build),
                ("rglru_scan_bwd.cu", RS.build_bwd), ("wkv6.cu", WK.build),
-               ("wkv6_bwd.cu", WK.build_bwd))
+               ("wkv6_bwd.cu", WK.build_bwd), ("mva_scan.cu", MV.build),
+               ("fluid_scan.cu", FL.build))
     with ThreadPoolExecutor(len(kernels)) as pool:
         logs = list(pool.map(lambda kv: kv[1](), kernels))
     print(f"build: {', '.join(k for k, _ in kernels)} in "
@@ -4441,13 +4650,17 @@ def main() -> int:
                                rtol=1e-9)
     for a, b in zip(small.mva(alpha, 64, device=dev)[1:],
                     small.mva(alpha, 64, device="cpu")[1:]):
-        np.testing.assert_allclose(a, b, rtol=1e-5)
+        if not np.array_equal(a, b):
+            raise AssertionError("cuda and cpu MVA surfaces differ")
     expo = small.execute(device=dev, exponential_service=True, **kw)
     if not np.all(expo.hist.sum(axis=2) == kw["n_commands"]):
         raise AssertionError("exponential-service lanes did not drain")
     print("cuda == cpu on a 4-config x 2-seed grid (hist, drains, "
-          "makespans, msgs/cmd exact; mean latency rtol 1e-9; MVA rtol "
-          "1e-5); exponential service drains on the card")
+          "makespans, msgs/cmd exact; mean latency rtol 1e-9; MVA bit for "
+          "bit); exponential service drains on the card")
+
+    # -- 5b. the steady-state solves: MVA and fluid --------------------------
+    steady = _steady_state_phase(P, MV, FL, ref, sweep, alpha, dev)
 
     # -- 6. the transient path: token engine, autotune, autoscale ----------
     transient, transient_lanes = _transient_phase(P, PT, LH, TL, ref, sweep,
@@ -4526,7 +4739,16 @@ def main() -> int:
             dict(name="transient_lanes", route="cuda",
                  source="src/repro_torch/kernels/csrc/transient_lanes.cu",
                  replaces="src/repro/core/transient.py:482",
-                 path="transient", library_ms=None, **transient_lanes)]
+                 path="transient", library_ms=None, **transient_lanes),
+            dict(name="mva_scan", route="cuda",
+                 source="src/repro_torch/kernels/csrc/mva_scan.cu",
+                 replaces="src/repro/core/simulator.py:38",
+                 path="steady state", library_ms=None, **steady["mva_scan"]),
+            dict(name="fluid_scan", route="cuda",
+                 source="src/repro_torch/kernels/csrc/fluid_scan.cu",
+                 replaces="src/repro/core/simulator.py:115",
+                 path="steady state", library_ms=None,
+                 **steady["fluid_scan"])]
     train_fa_rec["launches"] = train["launches"]["flash_attention"]
     bwd_rec["launches"] = train["launches"]["flash_attention_bwd"]
     served["training"] = dict(flash_attention=train_fa_rec,

@@ -4,20 +4,23 @@ Two engines, both deterministic:
 
 * :func:`mva_curve` - exact Mean Value Analysis of the closed queueing
   network induced by a deployment's demand table (N closed-loop clients, one
-  outstanding command each - exactly the paper's benchmark setup).  An eager
-  loop over the client count, batched over deployments, so one call sweeps
-  a whole latency-throughput figure (paper Fig. 28).
+  outstanding command each - exactly the paper's benchmark setup).  One
+  kernel launch over the client count, batched over deployments, so one
+  call sweeps a whole latency-throughput figure (paper Fig. 28).
 
 * :func:`fluid_throughput` - a slot-stepped fluid simulation of the same
   network (service-rate-limited token buckets per station).  Independent
   dynamics from MVA; used as a cross-check.
 
-Both device engines run in float32, op by op in the reference's order, so
-they agree with the JAX package (which never enables x64) to float32
-rounding.  Service demands come from :mod:`repro_torch.core.analytical`;
-time units are ``1/alpha`` (one message's processing time).  Every entry
-point that touches a device takes ``device=None``, which means ``cuda``:
-without a card it raises unless the caller passes ``device="cpu"``.
+Both device engines run in float32, each step in the reference's order,
+so they agree with the JAX package (which never enables x64) to float32
+rounding; on the card each is one launch of a hand-written kernel
+(``kernels/csrc/mva_scan.cu``, ``kernels/csrc/fluid_scan.cu``), equal bit
+for bit to its plain loop, which the CPU runs.  Service demands come from
+:mod:`repro_torch.core.analytical`; time units are ``1/alpha`` (one
+message's processing time).  Every entry point that touches a device
+takes ``device=None``, which means ``cuda``: without a card it raises
+unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels import ops
 from .analytical import DeploymentModel
 from .device import resolve_device
 
@@ -35,28 +39,23 @@ def demand_vector(model: DeploymentModel, f_write: float = 1.0) -> np.ndarray:
     return np.array([s.demand(f_write) for s in model.stations], dtype=np.float64)
 
 
-def _mva_scan_batch(demands: torch.Tensor, think: torch.Tensor, n_max: int
+def _device_demands(demands: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The [M, K] demand matrix rounded to float32 on the host (as the
+    reference's float32 arrays hold it) and copied to ``dev`` once."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(demands, dtype=np.float64), dtype=np.float32)).to(dev)
+
+
+def _mva_scan_batch(demands: torch.Tensor, think: float, n_max: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact single-class MVA over a [M, K] float32 demand matrix, one
-    eager loop over n = 1..n_max batched over the M deployments.
+    """Exact single-class MVA over a [M, K] float32 demand matrix for
+    N = 1..n_max: ``ops.mva_scan``, one launch of the hand-written kernel
+    on the card and its plain loop on the CPU, bit for bit the same.
 
     Zero-demand columns are inert (they add nothing to residence time), so
     heterogeneous deployments padded to a common K evaluate exactly as their
     unpadded selves.  Returns (X[M, n_max], R[M, n_max]) float32."""
-    m = demands.shape[0]
-    xs = torch.empty((m, n_max), dtype=demands.dtype, device=demands.device)
-    rs = torch.empty_like(xs)
-    q = torch.zeros_like(demands)
-    ns = torch.arange(1, n_max + 1, dtype=demands.dtype,
-                      device=demands.device)
-    for j in range(n_max):
-        r_k = demands * (1.0 + q)          # residence time per station
-        r = r_k.sum(dim=1)
-        x = ns[j] / (think + r)            # closed-loop throughput
-        q = x[:, None] * r_k               # Little's law per station
-        xs[:, j] = x
-        rs[:, j] = r
-    return xs, rs
+    return ops.mva_scan(demands, think, n_max)
 
 
 def mva_curve(model: DeploymentModel, alpha: float, n_clients_max: int = 512,
@@ -73,14 +72,12 @@ def mva_curves_from_demands(demands: np.ndarray, n_clients_max: int = 512,
                             think: float = 0.0, device=None
                             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Batched MVA straight from a [M, K] demand matrix (units: seconds per
-    command per station, i.e. already divided by alpha).  One device loop
-    regardless of M - the engine the sweep drives with thousands of
+    command per station, i.e. already divided by alpha).  One kernel
+    launch regardless of M - the engine the sweep drives with thousands of
     compiled configs at once.  Returns (clients, X[M, N], R[M, N])."""
     dev = resolve_device(device)
-    d = torch.as_tensor(np.asarray(demands, dtype=np.float64),
-                        device=dev).to(torch.float32)
-    think_t = torch.tensor(think, dtype=torch.float32, device=dev)
-    xs, rs = _mva_scan_batch(d, think_t, n_clients_max)
+    xs, rs = _mva_scan_batch(_device_demands(demands, dev), think,
+                             n_clients_max)
     return (np.arange(1, n_clients_max + 1), xs.cpu().numpy(),
             rs.cpu().numpy())
 
@@ -98,7 +95,7 @@ def mva_curves_batch(models: Sequence[DeploymentModel], alpha: float,
                      device=None
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Batched MVA over several deployments (padded to a common station
-    count), one device loop.  Returns (clients, X[m, N], R[m, N])."""
+    count), one kernel launch.  Returns (clients, X[m, N], R[m, N])."""
     return mva_curves_from_demands(_padded_demands(models, alpha, f_write),
                                    n_clients_max, device=device)
 
@@ -108,11 +105,11 @@ def mva_curves_batch(models: Sequence[DeploymentModel], alpha: float,
 # ---------------------------------------------------------------------------
 
 
-def _fluid_scan_batch(demands: torch.Tensor, n_clients: torch.Tensor,
-                      dt: torch.Tensor, n_steps: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pipeline fluid model over a [M, K] float32 demand matrix, one eager
-    loop over the steps batched over M.
+def _fluid_scan_batch(demands: torch.Tensor, n_clients: float, dt: float,
+                      n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pipeline fluid model over a [M, K] float32 demand matrix:
+    ``ops.fluid_scan``, one launch of the hand-written kernel on the card
+    and its plain loop on the CPU, bit for bit the same.
 
     State: q[M, K] work queued at each station (in commands), plus a pool
     of clients with one outstanding command each.  Commands flow client ->
@@ -120,27 +117,7 @@ def _fluid_scan_batch(demands: torch.Tensor, n_clients: torch.Tensor,
     1/demand_k per unit time (aggregate, demand already per-server).
     Zero-demand stations serve at infinite rate, so canonical-slot padding
     is inert.  Returns (done[M], flows[M, n_steps])."""
-    m, k = demands.shape
-    # per-station service rate in commands per unit time
-    rate = torch.where(demands > 0,
-                       1.0 / torch.clamp_min(demands, 1e-12),
-                       torch.tensor(float("inf"), dtype=demands.dtype,
-                                    device=demands.device))
-    budget = rate * dt
-    q = torch.zeros_like(demands)
-    q[:, 0] = n_clients
-    done = torch.zeros((m,), dtype=demands.dtype, device=demands.device)
-    flows = torch.empty((m, n_steps), dtype=demands.dtype,
-                        device=demands.device)
-    for i in range(n_steps):
-        served = torch.minimum(q, budget)
-        q = q - served
-        # completions at last station return to the client pool and re-enter
-        # station 0 instantly (closed loop, zero think time)
-        q = q + torch.roll(served, 1, dims=1)
-        done = done + served[:, -1]
-        flows[:, i] = served[:, -1]
-    return done, flows
+    return ops.fluid_scan(demands, n_clients, dt, n_steps)
 
 
 def fluid_throughput(model: DeploymentModel, alpha: float, n_clients: int,
@@ -156,15 +133,12 @@ def fluid_throughput_from_demands(demands: np.ndarray, n_clients: int,
                                   sim_time: float = 1.0, n_steps: int = 2000,
                                   device=None) -> np.ndarray:
     """Batched fluid throughput (cmds/s) straight from a [M, K] demand
-    matrix (seconds per command per station), one device loop.
+    matrix (seconds per command per station), one kernel launch.
     Returns X[M], measured over the second half (post-transient)."""
     dev = resolve_device(device)
     dt = sim_time / n_steps
-    d = torch.as_tensor(np.asarray(demands, dtype=np.float64),
-                        device=dev).to(torch.float32)
-    _, flows = _fluid_scan_batch(
-        d, torch.tensor(float(n_clients), dtype=torch.float32, device=dev),
-        torch.tensor(dt, dtype=torch.float32, device=dev), n_steps)
+    _, flows = _fluid_scan_batch(_device_demands(demands, dev),
+                                 float(n_clients), dt, n_steps)
     half = n_steps // 2
     return flows.cpu().numpy()[:, half:].sum(axis=1) / (dt * (n_steps - half))
 
@@ -174,7 +148,7 @@ def fluid_throughput_batch(models: Sequence[DeploymentModel], alpha: float,
                            sim_time: float = 1.0, n_steps: int = 2000,
                            device=None) -> np.ndarray:
     """Steady-state fluid throughput (cmds/s) of several deployments in one
-    device loop.  Returns X[M]."""
+    kernel launch.  Returns X[M]."""
     return fluid_throughput_from_demands(
         _padded_demands(models, alpha, f_write), n_clients, sim_time, n_steps,
         device=device)

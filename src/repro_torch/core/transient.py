@@ -677,9 +677,12 @@ def _transient_batch(inp: TransientInputs, n_clients: int, n_steps: int,
     if n_steps and flows_np.max() > 1:
         raise RuntimeError(f"a lane finished {flows_np.max()} commands in "
                            f"one step: the step loop's state is corrupt")
-    # the reference's float32 running sum, step by step in step order
-    lat_sum = np.add.accumulate(step_lat.cpu().numpy(), axis=1,
-                                dtype=np.float32)[:, -1]
+    # the reference's float32 running sum, step by step in step order (a
+    # zero-length scan leaves it at its float32 zero)
+    lat_sum = np.zeros((n_lanes,), dtype=np.float32)
+    if n_steps:
+        lat_sum = np.add.accumulate(step_lat.cpu().numpy(), axis=1,
+                                    dtype=np.float32)[:, -1]
     hist_np = hist.cpu().numpy()
     return (flows_np.reshape(m, s, n_steps),
             hist_np.sum(axis=1).astype(np.int32).reshape(m, s),

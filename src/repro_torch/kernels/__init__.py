@@ -21,6 +21,12 @@
   transient_lanes - the transient engine's token-ring step loop over every
                     (deployment x seed) lane, a block of steps a launch
                     (CUDA C++, ``csrc/transient_lanes.cu``)
+  mva_scan        - exact MVA over every row of a demand matrix for N =
+                    1..n_max clients, one warp a row, one launch (CUDA
+                    C++, ``csrc/mva_scan.cu``)
+  fluid_scan      - the fluid pipeline's step loop over every row of a
+                    demand matrix, one warp a row, one launch (CUDA C++,
+                    ``csrc/fluid_scan.cu``)
 
 Each ships with a wrapper that launches the kernel on CUDA tensors and
 runs the plain version (``ref.py``) on CPU tensors; ``ops.py`` is the

@@ -10,6 +10,7 @@ imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -17,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -63,6 +64,55 @@ def build_library(source: str) -> Tuple[ctypes.CDLL, str]:
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)  # atomic: a concurrent build sees a whole file
     return ctypes.CDLL(str(so)), (log.read_text() if log.exists() else "")
+
+
+def load_library(source: str, symbols: Dict[str, Sequence]
+                 ) -> Tuple[ctypes.CDLL, str]:
+    """:func:`build_library` of ``csrc/<source>``, each C entry point in
+    ``symbols`` (name -> its ``ctypes`` argument types) typed, its result
+    the launch's CUDA error as a C ``int``.  Returns the library and the
+    build's ``-Xptxas -v`` report."""
+    lib, log = build_library(source)
+    for name, argtypes in symbols.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib, log
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of card ``device`` (a
+    ``torch.device`` or an index; ``cuda`` alone is the current card),
+    read once a card."""
+    import torch
+    index = device.index if isinstance(device, torch.device) else device
+    return _sm_count(torch.cuda.current_device() if index is None
+                     else index)
+
+
+class ZeroedCounters:
+    """Zeroed int32 counters a kernel uses and leaves zeroed, kept per
+    device: ``counters(device, n)`` returns at least ``n`` of them (at
+    least ``minimum``).  A grown buffer keeps the old ones alive, since a
+    captured CUDA graph may still point at them."""
+
+    def __init__(self, minimum: int):
+        self.minimum = minimum
+        self._bufs: Dict[object, list] = {}
+
+    def __call__(self, device, n: int):
+        import torch
+        bufs = self._bufs.setdefault(device, [])
+        if not bufs or bufs[-1].numel() < n:
+            bufs.append(torch.zeros(max(n, self.minimum), dtype=torch.int32,
+                                    device=device))
+        return bufs[-1]
 
 
 def _kernel_name(mangled: str) -> str:

@@ -25,15 +25,14 @@ version :func:`repro_torch.kernels.ref.ref_decode`.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..roofline import kernel_costs
-from ._build import build_library
+from ._build import ZeroedCounters, load_library, sm_count
 from .flash_attention import aligned_rows
 from .ref import ref_decode
 
@@ -47,25 +46,21 @@ MAX_GROUP = 16     # query heads per kv head: the bfloat16 kernel's M rows
 
 _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
-#: device -> the bfloat16 kernel's zeroed int32 arrival counters, one per
-#: (b, kv head); a grown buffer keeps the old ones alive, since a captured
-#: CUDA graph may still point at them
-_arrivals: Dict[torch.device, List[torch.Tensor]] = {}
+#: the bfloat16 kernel's zeroed int32 arrival counters, one per (b, kv
+#: head), per device
+_arrival_counters = ZeroedCounters(1024)
 
 
 def build() -> str:
     """Compile ``csrc/decode_attention.cu`` (once per source and flags) and
     load it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
     global _lib, _build_log
-    if _lib is not None:
-        return _build_log
-    lib, _build_log = build_library("decode_attention.cu")
-    fn = lib.flash_decode_launch
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
+    if _lib is None:
+        _lib, _build_log = load_library("decode_attention.cu", {
+            "flash_decode_launch": [ctypes.c_int, ctypes.c_int]
+                + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+                + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
+        })
     return _build_log
 
 
@@ -81,21 +76,6 @@ def split_plan(batch: int, n_kv_heads: int, s_max: int,
                                  -(-n_tiles // MAX_SPLITS)))
     split_len = per_split * TILE
     return -(-s_max // split_len), split_len
-
-
-def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 counters on ``device`` (the kernel
-    leaves them zeroed)."""
-    bufs = _arrivals.setdefault(device, [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 1024), dtype=torch.int32,
-                                device=device))
-    return bufs[-1]
-
-
-@functools.lru_cache(maxsize=None)
-def _n_sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -145,7 +125,7 @@ def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if out.numel() == 0:
         return out
     build()
-    n_splits, split_len = split_plan(B, H_kv, S_max, _n_sms(q.device))
+    n_splits, split_len = split_plan(B, H_kv, S_max, sm_count(q.device))
     row = -(-(group * D + 2 * group) // 4) * 4  # a split's floats
     ws = torch.empty(B * H_kv * n_splits * row, dtype=torch.float32,
                      device=q.device)

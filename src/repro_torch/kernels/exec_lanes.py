@@ -27,7 +27,7 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..roofline import kernel_costs
-from ._build import build_library
+from ._build import load_library
 from .ref import ref_exec_lanes
 
 #: K + 1 station columns the kernel's shared tables hold
@@ -46,17 +46,13 @@ def build() -> str:
     it.  Returns ``nvcc``'s ``-Xptxas -v`` report (registers, shared
     memory, spills) of the build that produced the library."""
     global _lib, _build_log
-    if _lib is not None:
-        return _build_log
-    lib, _build_log = build_library("exec_lanes.cu")
-    fn = lib.exec_lanes_launch
-    fn.argtypes = ([ctypes.c_void_p] * 8
-                   + [ctypes.c_longlong] * 2
-                   + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 4 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
+    if _lib is None:
+        _lib, _build_log = load_library("exec_lanes.cu", {
+            "exec_lanes_launch": [ctypes.c_void_p] * 8
+                + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 8
+                + [ctypes.c_int] * 4 + [ctypes.c_longlong]
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        })
     return _build_log
 
 

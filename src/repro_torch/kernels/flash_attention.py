@@ -48,7 +48,7 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..roofline import kernel_costs
-from ._build import build_library
+from ._build import load_library, sm_count
 from .ref import ref_attention
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -82,15 +82,12 @@ def build() -> str:
     """Compile ``csrc/flash_attention.cu`` (once per source and flags) and
     load it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
     global _lib, _build_log
-    if _lib is not None:
-        return _build_log
-    lib, _build_log = build_library("flash_attention.cu")
-    fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
+    if _lib is None:
+        _lib, _build_log = load_library("flash_attention.cu", {
+            "flash_attention_launch": [ctypes.c_int, ctypes.c_int]
+                + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
+        })
     return _build_log
 
 
@@ -98,20 +95,15 @@ def build_bwd() -> str:
     """Compile ``csrc/flash_attention_bwd.cu`` (once per source and flags)
     and load it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
     global _bwd_lib, _bwd_build_log
-    if _bwd_lib is not None:
-        return _bwd_build_log
-    lib, _bwd_build_log = build_library("flash_attention_bwd.cu")
-    fn = lib.flash_attention_bwd_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    fn = lib.flash_attention_bwd_wgmma_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 13
-                   + [ctypes.c_int] * 7
-                   + [ctypes.c_float] + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    _bwd_lib = lib
+    if _bwd_lib is None:
+        _bwd_lib, _bwd_build_log = load_library("flash_attention_bwd.cu", {
+            "flash_attention_bwd_launch": [ctypes.c_int]
+                + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                + [ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p],
+            "flash_attention_bwd_wgmma_launch": [ctypes.c_int]
+                + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
+                + [ctypes.c_float] + [ctypes.c_void_p] * 3,
+        })
     return _bwd_build_log
 
 
@@ -410,11 +402,6 @@ def _device_walks(plan: BwdPlan, index: int) -> torch.Tensor:
                         device=torch.device("cuda", index))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch_bwd_wgmma(q, k, v, out, lse, dout, dq, dk, dv, causal: bool,
                       window: Optional[int]) -> None:
     """The bfloat16 ``wgmma`` path (head dims 64, 128 and 256)."""
@@ -423,7 +410,7 @@ def _launch_bwd_wgmma(q, k, v, out, lse, dout, dq, dk, dv, causal: bool,
     with torch.cuda.device(q.device):
         index = torch.cuda.current_device()
         plan = bwd_plan(B, H, k.shape[1], S, k.shape[2], D, causal, window,
-                        _sm_count(index))
+                        sm_count(index))
         walks = _device_walks(plan, index)
         scratch = torch.empty(2 * B * H * plan.s_pad, dtype=torch.float32,
                               device=q.device)

@@ -31,7 +31,7 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..roofline import kernel_costs
-from ._build import build_library
+from ._build import load_library, sm_count
 from .ref import ref_latency_hist
 
 _THREADS = 256
@@ -47,16 +47,14 @@ def build() -> str:
     load it.  Returns ``nvcc``'s ``-Xptxas -v`` report (registers, shared
     memory, spills) of the build that produced the library."""
     global _lib, _build_log
-    if _lib is not None:
-        return _build_log
-    lib, _build_log = build_library("latency_hist.cu")
-    fn = lib.latency_hist_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _lib = lib
+    if _lib is None:
+        _lib, _build_log = load_library("latency_hist.cu", {
+            "latency_hist_launch": [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+        })
     return _build_log
 
 
@@ -97,8 +95,7 @@ def _launch(samples: torch.Tensor, valid: torch.Tensor,
     # chunks of ~16 16-byte mask vectors per thread (a multiple of 16
     # entries), split further until there are enough blocks to fill the
     # card (8 resident per SM)
-    sms = torch.cuda.get_device_properties(
-        samples.device).multi_processor_count
+    sms = sm_count(samples.device)
     n_chunks = max(-(-n // _CHUNK),
                    min(-(-8 * sms // n_lanes), -(-n // (16 * _THREADS))))
     per_chunk = -(-n // n_chunks)

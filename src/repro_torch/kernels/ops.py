@@ -14,10 +14,13 @@ from __future__ import annotations
 from .decode_attention import flash_decode
 from .exec_lanes import exec_lanes
 from .flash_attention import flash_attention
+from .fluid_scan import fluid_scan
 from .latency_hist import latency_hist
+from .mva_scan import mva_scan
 from .rglru_scan import rglru_scan
 from .transient_lanes import transient_lanes
 from .wkv6 import wkv6
 
-__all__ = ["exec_lanes", "flash_attention", "flash_decode", "latency_hist",
-           "rglru_scan", "transient_lanes", "wkv6"]
+__all__ = ["exec_lanes", "flash_attention", "flash_decode", "fluid_scan",
+           "latency_hist", "mva_scan", "rglru_scan", "transient_lanes",
+           "wkv6"]

@@ -5,12 +5,12 @@ definitions.  The CPU path runs them, the tests hold them against the JAX
 package, and the card's kernels are held against them: the histogram bit
 for bit, attention and the RG-LRU and WKV recurrences within the float
 tolerance its test states; the execution and transient lanes' step loops
-bit for bit.
+and the MVA and fluid solves bit for bit.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -282,3 +282,70 @@ def ref_transient_lanes(rates: torch.Tensor, window_of: torch.Tensor,
     for into, now in zip(state, (stage, rank, enter_t, q, work)):
         if now is not into:
             into.copy_(now)
+
+
+def ref_mva_scan(demands: torch.Tensor, think: float, n_max: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact single-class MVA over each row of a (M, K) float32 demand
+    matrix, N = 1..n_max: r_k = d_k (1 + q_k), r = sum_k r_k, x = N /
+    (think + r), q_k = x r_k.  Returns (X, R), each (M, n_max) float32.
+
+    The row sum runs in the kernel's order (``csrc/mva_scan.cu``): the
+    columns, padded with zeros to a multiple of 32 (exact: a zero demand
+    gives r_k = +0), summed 32 at a time into 32 partial sums in column
+    order, then an xor butterfly over the partials at offsets 16, 8, 4, 2,
+    1.  Each op is one float32 rounding, as in the kernel."""
+    m, k = demands.shape
+    dev = demands.device
+    k32 = -(-k // 32) * 32
+    d = torch.zeros((m, k32), dtype=torch.float32, device=dev)
+    d[:, :k] = demands
+    q = torch.zeros_like(d)
+    think_t = torch.tensor(think, dtype=torch.float32, device=dev)
+    ns = torch.arange(1, n_max + 1, dtype=torch.float32, device=dev)
+    lanes = torch.arange(32, device=dev)
+    partners = [lanes ^ off for off in (16, 8, 4, 2, 1)]
+    xs = torch.empty((m, n_max), dtype=torch.float32, device=dev)
+    rs = torch.empty_like(xs)
+    for j in range(n_max):
+        r_k = d * (1.0 + q)                 # residence time per station
+        p = torch.zeros((m, 32), dtype=torch.float32, device=dev)
+        for lo in range(0, k32, 32):
+            p = p + r_k[:, lo:lo + 32]
+        for partner in partners:
+            p = p + p[:, partner]
+        r = p[:, 0]
+        x = torch.div(ns[j], think_t + r)   # closed-loop throughput
+        q = x[:, None] * r_k                # Little's law per station
+        xs[:, j] = x
+        rs[:, j] = r
+    return xs, rs
+
+
+def ref_fluid_scan(demands: torch.Tensor, n_clients: float, dt: float,
+                   n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fluid pipeline over each row of a (M, K) float32 demand matrix,
+    K >= 1: each station drains at rate 1 / max(d_k, 1e-12) (+inf where
+    d_k is 0, so a zero-demand column serves its whole queue) for ``dt``
+    a step; q starts as [n_clients, 0, ...]; each step serves
+    min(q_k, budget_k), takes it off station k and hands it to station
+    k + 1 (the last station's to station 0, closed loop, zero think time),
+    and counts the last station's as done.  Returns (done (M,), flows (M,
+    n_steps)) float32, flows[:, i] the last station's service in step i."""
+    m, k = demands.shape
+    dev = demands.device
+    rate = torch.where(demands > 0,
+                       torch.reciprocal(torch.clamp_min(demands, 1e-12)),
+                       torch.tensor(float("inf"), device=dev))
+    budget = rate * torch.tensor(dt, dtype=torch.float32, device=dev)
+    q = torch.zeros_like(demands)
+    q[:, 0] = n_clients
+    done = torch.zeros((m,), dtype=torch.float32, device=dev)
+    flows = torch.empty((m, n_steps), dtype=torch.float32, device=dev)
+    for i in range(n_steps):
+        served = torch.minimum(q, budget)
+        q = q - served
+        q = q + torch.roll(served, 1, dims=1)
+        done = done + served[:, -1]
+        flows[:, i] = served[:, -1]
+    return done, flows

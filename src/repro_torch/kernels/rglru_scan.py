@@ -30,14 +30,13 @@ launches.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import Dict, List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..roofline import kernel_costs
-from ._build import build_library
+from ._build import ZeroedCounters, load_library, sm_count
 from .ref import ref_rglru
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -51,24 +50,19 @@ _lib: Optional[ctypes.CDLL] = None
 _build_log = ""
 _bwd_lib: Optional[ctypes.CDLL] = None
 _bwd_build_log = ""
-#: device -> the kernel's zeroed int32 ticket, counter and flags; a grown
-#: buffer keeps the old ones alive, since a captured CUDA graph may still
-#: point at them
-_counters: Dict[torch.device, List[torch.Tensor]] = {}
+#: the kernel's zeroed int32 ticket, counter and flags, per device
+_counter_buffer = ZeroedCounters(4096)
 
 
 def build() -> str:
     """Compile ``csrc/rglru_scan.cu`` (once per source and flags) and load
     it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
     global _lib, _build_log
-    if _lib is not None:
-        return _build_log
-    lib, _build_log = build_library("rglru_scan.cu")
-    fn = lib.rglru_scan_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-    _lib = lib
+    if _lib is None:
+        _lib, _build_log = load_library("rglru_scan.cu", {
+            "rglru_scan_launch": [ctypes.c_int] + [ctypes.c_void_p] * 6
+                + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2,
+        })
     return _build_log
 
 
@@ -76,14 +70,11 @@ def build_bwd() -> str:
     """Compile ``csrc/rglru_scan_bwd.cu`` (once per source and flags) and
     load it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
     global _bwd_lib, _bwd_build_log
-    if _bwd_lib is not None:
-        return _bwd_build_log
-    lib, _bwd_build_log = build_library("rglru_scan_bwd.cu")
-    fn = lib.rglru_scan_bwd_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
-    fn.restype = ctypes.c_int
-    _bwd_lib = lib
+    if _bwd_lib is None:
+        _bwd_lib, _bwd_build_log = load_library("rglru_scan_bwd.cu", {
+            "rglru_scan_bwd_launch": [ctypes.c_int] + [ctypes.c_void_p] * 9
+                + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2,
+        })
     return _bwd_build_log
 
 
@@ -106,21 +97,6 @@ def chunk_plan(batch: int, seq: int, width: int, n_sms: int
     if -(-seq // chunk) > MAX_CHUNKS:
         chunk = min(MAX_CHUNK, 32 * -(-seq // (32 * MAX_CHUNKS)))
     return -(-seq // chunk), chunk
-
-
-def _counter_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed int32 counters on ``device`` (the kernel
-    leaves them zeroed)."""
-    bufs = _counters.setdefault(device, [])
-    if not bufs or bufs[-1].numel() < n:
-        bufs.append(torch.zeros(max(n, 4096), dtype=torch.int32,
-                                device=device))
-    return bufs[-1]
-
-
-@functools.lru_cache(maxsize=None)
-def _n_sms(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(x: torch.Tensor, a: torch.Tensor,
@@ -157,7 +133,7 @@ def _launch(x: torch.Tensor, a: torch.Tensor,
     if out.numel() == 0:
         return out
     build()
-    n_chunks, chunk = chunk_plan(B, S, D, _n_sms(x.device))
+    n_chunks, chunk = chunk_plan(B, S, D, sm_count(x.device))
     ws = counters = None
     if S > 1:
         ws = torch.empty(2 * B * n_chunks * D, dtype=torch.float32,
@@ -209,7 +185,7 @@ def _launch_bwd(dh: torch.Tensor, a: torch.Tensor, h: torch.Tensor,
     if dx.numel() == 0:
         return dx, da, dh0
     build_bwd()
-    n_chunks, chunk = chunk_plan(B, S, D, _n_sms(a.device))
+    n_chunks, chunk = chunk_plan(B, S, D, sm_count(a.device))
     ws = torch.empty(2 * B * n_chunks * D, dtype=torch.float32,
                      device=a.device)
     counters = _counter_buffer(a.device, 2 + B * -(-D // CHANNELS) * n_chunks)

@@ -28,7 +28,7 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..roofline import kernel_costs
-from ._build import build_library
+from ._build import load_library
 from .exec_lanes import launch_plan
 from .ref import ref_transient_lanes
 
@@ -45,16 +45,13 @@ def build() -> str:
     load it.  Returns ``nvcc``'s ``-Xptxas -v`` report (registers, shared
     memory, spills) of the build that produced the library."""
     global _lib, _build_log
-    if _lib is not None:
-        return _build_log
-    lib, _build_log = build_library("transient_lanes.cu")
-    fn = lib.transient_lanes_launch
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 4 + [ctypes.c_longlong]
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    _lib = lib
+    if _lib is None:
+        _lib, _build_log = load_library("transient_lanes.cu", {
+            "transient_lanes_launch": [ctypes.c_void_p] * 6
+                + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+                + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        })
     return _build_log
 
 

@@ -44,7 +44,7 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..roofline import kernel_costs
-from ._build import build_library
+from ._build import load_library
 from .flash_attention import aligned_rows
 from .ref import ref_wkv6
 
@@ -77,15 +77,11 @@ def build() -> str:
     """Compile ``csrc/wkv6.cu`` (once per source and flags) and load it.
     Returns ``nvcc``'s ``-Xptxas -v`` report."""
     global _lib, _build_log
-    if _lib is not None:
-        return _build_log
-    lib, _build_log = build_library("wkv6.cu")
-    fn = lib.wkv6_launch
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    _lib = lib
+    if _lib is None:
+        _lib, _build_log = load_library("wkv6.cu", {
+            "wkv6_launch": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+        })
     return _build_log
 
 
@@ -93,14 +89,11 @@ def build_bwd() -> str:
     """Compile ``csrc/wkv6_bwd.cu`` (once per source and flags) and load
     it.  Returns ``nvcc``'s ``-Xptxas -v`` report."""
     global _bwd_lib, _bwd_build_log
-    if _bwd_lib is not None:
-        return _bwd_build_log
-    lib, _bwd_build_log = build_library("wkv6_bwd.cu")
-    fn = lib.wkv6_bwd_launch
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 15 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    _bwd_lib = lib
+    if _bwd_lib is None:
+        _bwd_lib, _bwd_build_log = load_library("wkv6_bwd.cu", {
+            "wkv6_bwd_launch": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 15
+                + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+        })
     return _bwd_build_log
 
 

@@ -197,6 +197,28 @@ def transient_lanes_cost(lanes: int, n_steps: int, n_clients: int,
     return ops, nbytes, "f32"
 
 
+
+def mva_scan_cost(rows: int, n_max: int, k: int) -> Cost:
+    """``n_max`` steps of the MVA recursion over ``rows`` rows of ``k``
+    station columns, in the least bytes the function needs: the float32
+    demands read once, X and R (float32, a row and step) written once.
+    Operations: per row and step, per column the queue's addition, the
+    residence time's product, its addition to the sum and the new queue's
+    product, and the step's addition of the think time and division."""
+    return rows * n_max * (4 * k + 2), 4 * rows * k + 8 * rows * n_max, "f32"
+
+
+def fluid_scan_cost(rows: int, n_steps: int, k: int) -> Cost:
+    """``n_steps`` steps of the fluid pipeline over ``rows`` rows of ``k``
+    station columns, in the least bytes the function needs: the float32
+    demands read once, the flows (float32, a row and step) and each row's
+    done written once.  Operations: per column the budget's division and
+    product once, and per step the service's minimum, its subtraction and
+    the inflow's addition, and a row's done addition."""
+    ops = rows * (2 * k + n_steps * (3 * k + 1))
+    return ops, 4 * rows * k + 4 * rows * (n_steps + 1), "f32"
+
+
 def wkv6_bwd_cost(B: int, S: int, H: int, D: int, esize: int, has_s0: bool,
                   has_ds_last: bool, chunk: int) -> Cost:
     """The WKV backward: r, k, v and dy read and dr, dk and dv written in

@@ -25,6 +25,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
         "import repro_torch.kernels.ops, repro_torch.kernels.latency_hist\n"
         "import repro_torch.kernels.exec_lanes\n"
         "import repro_torch.kernels.transient_lanes\n"
+        "import repro_torch.kernels.mva_scan, repro_torch.kernels.fluid_scan\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.decode_attention\n"
         "import repro_torch.kernels.rglru_scan, repro_torch.models.rglru\n"

@@ -219,6 +219,34 @@ def test_cpu_transient_launches_nothing():
     assert TL.transient_lanes.launches == before == 0
 
 
+@pytest.mark.parametrize("exponential", [False, True])
+def test_zero_steps_equal_the_reference(exponential):
+    """A run of no steps: the reference's zero-length scan leaves each
+    lane's float32 latency sum at zero; every field of both packages'
+    results is equal, NaN to NaN (the throughput over no measured time)."""
+    jax = pytest.importorskip("jax")
+    import dataclasses
+    from repro.core import transient as RT
+    d = np.array([[0.001, 0.002, 0.0005]])
+    want = RT.simulate_transient(d, n_steps=0, seeds=2,
+                                 exponential_service=exponential)
+    draws = None
+    if exponential:  # the reference's own, [S, n_steps + 1, K]
+        draws = np.stack([np.asarray(jax.random.exponential(
+            jax.random.fold_in(jax.random.key(0), s), (1, 3)))
+            for s in range(2)])
+    got = P.simulate_transient(d, n_steps=0, seeds=2,
+                               exponential_service=exponential, draws=draws,
+                               device="cpu")
+    assert got.flows.shape == (1, 2, 0)
+    assert np.isnan(got.throughput).all()
+    for field in dataclasses.fields(want):
+        if field.name != "timings":
+            np.testing.assert_array_equal(getattr(got, field.name),
+                                          getattr(want, field.name),
+                                          err_msg=field.name)
+
+
 def test_more_than_one_finish_a_step_raises():
     name = "crash-and-zero-demand"
     d, bounds, dt, entry, nxt, edges, *_ = _inputs(name)
