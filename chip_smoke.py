@@ -20,23 +20,27 @@ no result line):
    full-size tensors, with its times and bound (each execute there runs
    the step kernel: its launches and scan time, beside the plain loop's
    ms a step from 3b);
-3b. the execution lanes' step kernel - ``exec_lanes`` against the plain
+3b. the execution lanes' step kernels - ``exec_lanes`` against the plain
    step loop (``ref_exec_lanes``), both on the card, bitwise (completion
    masks, latencies, the state after the run, drain counts, makespans):
    phase 4's grid at both mixes with its commands cut to
    ``EXEC_LANES_CUT_COMMANDS`` (reduced: commands; every step of both,
-   with the plain loop's ms a step), phase 5's grid with injected and
-   with generator draws, and the first block of steps of phase 4's own
-   90 %-read lanes, where both are timed beside the block's bound;
+   with the plain loop's ms a step) and phase 5's grid with injected and
+   with generator draws, all through the warp kernel (each launch's
+   kernel counted), phase 5's grid at ``WIDE_CLIENTS`` clients a lane
+   through the block kernel, and the first block of steps of phase 4's
+   own 90 %-read lanes, where the warp kernel, the block kernel (the
+   design it replaced) and the plain loop are timed beside the block's
+   bound;
 4. the execution path - ``compile_sweep`` of the 32-config
    compartmentalized MultiPaxos grid (f = 1, 2x2 acceptor grid; the
    deployment family of the paper's ablation, arXiv 2012.15762 section 8,
    Fig. 29), its bottleneck law and MVA on the card, and ``.execute`` at
    2048 commands x 8 seeds x 64 clients for the paper's two headline
    mixes; every lane must drain, the step kernel must launch once a
-   block of ``BLOCK_STEPS`` steps (its device time summed by CUDA
-   events, beside the scan's bound) and the histogram kernel must
-   launch;
+   block of ``BLOCK_STEPS`` steps, each launch the warp kernel (its
+   device time summed by CUDA events, beside the scan's bound) and the
+   histogram kernel must launch;
 5. the card against the CPU - the port on ``cuda`` and on ``cpu`` agree on
    a 4-config x 2-seed grid (the MVA surfaces bit for bit);
 5b. the steady-state solves - phase 4's grid through ``CompiledSweep.mva``
@@ -52,22 +56,26 @@ no result line):
    exponential service (the seeded generator's draws), with the leader
    crash ``autotune`` scripts by default (``Event("leader", 0.4, 0.6,
    1e9)``), for both mixes, its steps through the ``transient_lanes``
-   step kernel (one launch a block of ``BLOCK_STEPS`` steps, counted, its
-   device time summed by CUDA events): every lane's histogram mass equals
-   its completions, the ``latency_hist`` kernel bins the run's latencies
-   in one launch a mix (counted), each config's seed-mean throughput
-   outside the crash is within 10 % of its bottleneck-law peak and every
-   lane's crash window below it; the same lanes through the plain step
+   warp kernel (one launch a block of ``BLOCK_STEPS`` steps, counted by
+   kernel, its device time summed by CUDA events): every lane's histogram
+   mass equals its completions, the ``latency_hist`` kernel bins the run's
+   latencies in one launch a mix (counted), each config's seed-mean
+   throughput outside the crash is within 10 % of its bottleneck-law peak
+   and every lane's crash window below it; the same lanes through the
+   plain step
    loop (``ref_transient_lanes``) on the card, bitwise equal (flows,
    latencies, the final state, queue sums), with its ms a step; the
    histogram against its plain version on the samples the path handed
    it, and the step kernel's first block at the path's shape, both timed
-   beside their bounds; then ``bottleneck_trace(budget=19)`` (the Fig. 29
+   beside their bounds (and the block kernel on the same lanes beside the
+   warp kernel); then ``bottleneck_trace(budget=19)`` (the Fig. 29
    staircase, exactly), ``autotune(objective="p99_under_failover")`` on
    the card, ``autotune_policy`` at ``benchmarks/autoscale.py``'s
    settings (the numbers of ``BENCH_autoscale.json``, exactly), both
-   timed, the step kernel against the plain loop on a 4-config x 2-seed
-   crash grid with injected and with deterministic draws, bitwise, and
+   timed, both step kernels against the plain loop on a 4-config x
+   2-seed crash grid (16 clients a lane: the warp kernel; ``WIDE_CLIENTS``:
+   the block kernel) with injected and with deterministic draws, bitwise,
+   and
    the card against the CPU on that grid, deterministic and exponential
    (flows, completions, histograms, queue sums, throughput and mean
    latency equal);
@@ -281,6 +289,10 @@ EXECUTE = dict(n_commands=2048, seeds=8, n_clients=64, probe_n=96)
 EXEC_LANES_CUT_COMMANDS = 256
 #: the state the execution lanes' step loop updates in place
 EXEC_STATE = ("stage", "rank", "enter_t", "op_i", "q", "work")
+#: clients a lane past the step kernels' warp kernel (128): phases 3b and 6
+#: run such lanes through the block kernel (3b for WIDE_STEPS steps)
+WIDE_CLIENTS = 200
+WIDE_STEPS = 1024
 #: The transient phase: the grid's lanes, and the leader crash ``autotune``
 #: ranks deployments under by default (demand x 1e9 over 40-60 % of the run)
 TRANSIENT = dict(n_clients=64, seeds=8, n_steps=4000)
@@ -506,21 +518,35 @@ def _hist_bound_ms(samples, mask, edges, n_valid: int):
         lanes, n, edges.shape[1] - 1, n_valid, mask.element_size()))
 
 
+#: cycles of the sleep a step-kernel call is queued behind when timed alone
+#: (about 1 ms: longer than the wrapper's Python before its launch)
+STEP_LEAD_CYCLES = 2_000_000
+#: how the step kernels' ``ms`` and ``block_kernel_ms`` are timed (their
+#: ``kernels`` rows say so: the wrapper's host time is outside the window)
+STEP_TIMED = ("CUDA events around each launch, queued behind a sleep on "
+              "the card, median of 5")
+
+
 def _step_run(mod, steps, fn, *args, kernel="exec_lanes", keys=EXEC_STATE,
-              **kw):
+              lead=False, **kw):
     """``fn(*args, **kw)`` with an engine's step function (``mod.<kernel>``:
     ``batched_execution.exec_lanes`` by default, or
     ``transient.transient_lanes``) replaced by ``steps``, each call timed
-    by CUDA events.  Returns (fn's result, the calls' device ms summed,
-    the last call's tensors named in ``keys``, which then hold the run's
-    final state; nothing else of the calls is kept, so no table or output
-    lives longer than the run would keep it)."""
+    by CUDA events.  With ``lead`` each call's events and launch are queued
+    behind a sleep on the card, so the host's work before the launch is
+    outside the window (the run's own wall clock then includes the
+    sleeps).  Returns (fn's result, the calls' device ms summed, the last
+    call's tensors named in ``keys``, which then hold the run's final
+    state; nothing else of the calls is kept, so no table or output lives
+    longer than the run would keep it)."""
     import torch
     events, last = [], {}
 
     def timed(*p, **a):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if lead:
+            torch.cuda._sleep(STEP_LEAD_CYCLES)
         start.record()
         steps(*p, **a)
         end.record()
@@ -535,6 +561,27 @@ def _step_run(mod, steps, fn, *args, kernel="exec_lanes", keys=EXEC_STATE,
         setattr(mod, kernel, real)
     torch.cuda.synchronize()
     return out, sum(a.elapsed_time(b) for a, b in events), last
+
+
+def _block_plan(EL):
+    """A launch plan with the step kernels' ``plan`` signature that takes
+    the block kernel (one block a lane) for every lane: the design the warp
+    kernel replaced at the main path's lanes, run beside it."""
+    def plan(n_lanes, n_clients, n_columns, n_sms=132):
+        threads, cpt = EL.launch_plan(max(n_clients, 1), n_columns)
+        return EL.LaunchPlan("block", n_lanes, threads, cpt, 1)
+    return plan
+
+
+def _with_plan(mod, plan, fn, *args, **kw):
+    """``fn(*args, **kw)`` with ``mod.plan`` (a step kernel's launch plan)
+    replaced by ``plan``."""
+    real = mod.plan
+    mod.plan = plan
+    try:
+        return fn(*args, **kw)
+    finally:
+        mod.plan = real
 
 
 def _lanes_equal(got, want, what: str) -> float:
@@ -560,22 +607,25 @@ def _lanes_equal(got, want, what: str) -> float:
 
 
 def _exec_lanes_phase(P, PB, EL, ref, sweep, dev) -> dict:
-    """Phase 3b: the execution lanes' step kernel against the plain step
+    """Phase 3b: the execution lanes' step kernels against the plain step
     loop, both on the card, bitwise: the Fig. 29 grid (32 configs x 8
     seeds x 64 clients) at both mixes with its commands cut to
     ``EXEC_LANES_CUT_COMMANDS`` (every step of both), phase 5's small grid
-    with injected and with generator draws, and the first block of steps
-    of the main path's own 90 %-read lanes (2048 commands), where both are
-    timed beside the block's bound.  Returns the ``kernels`` row's numbers
-    and the plain loop's ms a step at the cut size by mix."""
+    with injected and with generator draws (these take the warp kernel),
+    the small grid at ``WIDE_CLIENTS`` clients a lane (the block kernel),
+    and the first block of steps of the main path's own 90 %-read lanes
+    (2048 commands), where the warp kernel, the block kernel and the plain
+    loop are timed beside the block's bound.  Returns the ``kernels`` row's
+    numbers and the plain loop's ms a step at the cut size by mix."""
     import torch
     t_phase = time.perf_counter()
     n_clients = EXECUTE["n_clients"]
     seeds = np.arange(EXECUTE["seeds"], dtype=np.int32)
     errs = []   # max |kernel - plain| of each comparison
 
-    def both(inp, n_clients, n_steps, exponential, what):
+    def both(inp, n_clients, n_steps, exponential, what, kernel="warp"):
         before = EL.exec_lanes.launches
+        by_kernel = EL.exec_lanes.by_kernel[kernel]
         t0 = time.perf_counter()
         got = _step_run(PB, EL.exec_lanes, PB._execute_batch, inp,
                         n_clients, n_steps, exponential)
@@ -584,6 +634,9 @@ def _exec_lanes_phase(P, PB, EL, ref, sweep, dev) -> dict:
         if launches != -(-n_steps // PB.BLOCK_STEPS):
             raise AssertionError(f"{what}: {launches} exec_lanes launches "
                                  f"for {n_steps} steps")
+        if EL.exec_lanes.by_kernel[kernel] - by_kernel != launches:
+            raise AssertionError(f"{what}: the launches did not all take "
+                                 f"the {kernel} kernel")
         t0 = time.perf_counter()
         want = _step_run(PB, ref.ref_exec_lanes, PB._execute_batch, inp,
                          n_clients, n_steps, exponential)
@@ -608,8 +661,9 @@ def _exec_lanes_phase(P, PB, EL, ref, sweep, dev) -> dict:
             raise AssertionError(f"{label}: a cut lane did not drain")
         n = low.n_steps
         plain_ms_step[label] = plain_s / n * 1e3
-        print(f"kernel check: exec_lanes == plain step loop bitwise (fin, "
-              f"lat, state, done, t_last), {label}, the Fig. 29 grid "
+        print(f"kernel check: exec_lanes (warp kernel) == plain step loop "
+              f"bitwise (fin, lat, state, done, t_last), {label}, the Fig. "
+              f"29 grid "
               f"({len(low.lane_n)} configs x {seeds.size} seeds x "
               f"{n_clients} clients) with {EXEC_LANES_CUT_COMMANDS} commands "
               f"(reduced: commands, from {EXECUTE['n_commands']}), {n} steps: "
@@ -622,7 +676,8 @@ def _exec_lanes_phase(P, PB, EL, ref, sweep, dev) -> dict:
                                         grids=((2, 2),), n_replicas=(2, 3)))
     small_seeds = np.arange(2, dtype=np.int32)
     for mode in ("injected", "generator"):
-        low = PB._lower_configs(small.configs, P.MIXED_50_50, n_commands=64,
+        low = PB._lower_configs(small.configs, P.MIXED_50_50,
+                                n_commands=64,
                                 seeds_arr=small_seeds, n_clients=8,
                                 exponential_service=True)
         draws = None
@@ -639,11 +694,35 @@ def _exec_lanes_phase(P, PB, EL, ref, sweep, dev) -> dict:
         if not np.all(done == low.lane_n[:, None]):
             raise AssertionError(f"small grid, {mode} draws: a lane did not "
                                  f"drain")
-        print(f"kernel check: exec_lanes == plain step loop bitwise, phase "
-              f"5's grid ({len(low.lane_n)} configs x 2 seeds x 8 clients, "
-              f"64 commands), exponential service, {mode} draws, "
-              f"{low.n_steps} steps in {launches} launches; every lane "
-              f"drained", flush=True)
+        print(f"kernel check: exec_lanes (warp kernel) == plain step loop "
+              f"bitwise, phase 5's grid ({len(low.lane_n)} configs x 2 seeds "
+              f"x 8 clients, 64 commands), "
+              f"exponential service, {mode} "
+              f"draws, {low.n_steps} steps in {launches} launches; every "
+              f"lane drained", flush=True)
+    # lanes too wide for a warp: the block kernel, over WIDE_STEPS steps
+    for mode in ("deterministic", "injected"):
+        low = PB._lower_configs(small.configs, P.MIXED_50_50,
+                                n_commands=WIDE_CLIENTS + 56,
+                                seeds_arr=small_seeds,
+                                n_clients=WIDE_CLIENTS,
+                                exponential_service=mode == "injected")
+        n_steps = min(low.n_steps, WIDE_STEPS)
+        draws = None
+        if mode == "injected":
+            draws = np.random.default_rng(32).exponential(
+                size=(len(low.dt), small_seeds.size, n_steps + 1,
+                      low.d_w.shape[1])).astype(np.float32)
+        inp = P.lane_inputs_from_numpy(low.d_w, low.d_r, low.entry, low.nxt,
+                                       low.cls, low.budget, low.dt,
+                                       low.seeds, draws, device=dev)
+        _, _, _, launches = both(inp, WIDE_CLIENTS, n_steps,
+                                 mode == "injected", f"wide lanes, {mode}",
+                                 kernel="block")
+        print(f"kernel check: exec_lanes (block kernel) == plain step loop "
+              f"bitwise, phase 5's grid at {WIDE_CLIENTS} clients a lane "
+              f"({WIDE_CLIENTS + 56} commands), {mode}, the first {n_steps} "
+              f"of {low.n_steps} steps in {launches} launches", flush=True)
 
     # the first block of the main path's own 90 %-read lanes, timed
     low = PB._lower_configs(sweep.configs, P.Workload.read_mix(0.9),
@@ -652,15 +731,25 @@ def _exec_lanes_phase(P, PB, EL, ref, sweep, dev) -> dict:
                             probe_n=EXECUTE["probe_n"])
     inp = PB._lane_inputs(low, dev)
     block = min(PB.BLOCK_STEPS, low.n_steps)
+    warp = EL.exec_lanes.by_kernel["warp"]
     runs = [_step_run(PB, EL.exec_lanes, PB._execute_batch, inp, n_clients,
-                      block, False) for _ in range(6)]
+                      block, False, lead=True) for _ in range(6)]
+    if EL.exec_lanes.by_kernel["warp"] - warp != 6:
+        raise AssertionError("the main path's lanes did not take the warp "
+                             "kernel")
+    blocks = [_with_plan(EL, _block_plan(EL), _step_run, PB, EL.exec_lanes,
+                         PB._execute_batch, inp, n_clients, block, False,
+                         lead=True) for _ in range(6)]
     plain = [_step_run(PB, ref.ref_exec_lanes, PB._execute_batch, inp,
                        n_clients, block, False) for _ in range(2)]
     errs.append(_lanes_equal(runs[-1], plain[-1],
                              "the main path's first block"))
+    errs.append(_lanes_equal(blocks[-1], plain[-1], "the main path's first "
+                                                    "block, block kernel"))
     lanes, k1 = inp.d_w.shape[0], inp.d_w.shape[1] + 1
     n_ops = inp.cls.shape[2]
     ms = float(np.median([r[1] for r in runs[1:]]))
+    block_ms = float(np.median([r[1] for r in blocks[1:]]))
     plain_ms = min(r[1] for r in plain)
     bound_ms, bound_by = _bound_ms(kernel_costs.exec_lanes_cost(
         lanes, block, n_clients, k1, n_ops, False))
@@ -668,15 +757,20 @@ def _exec_lanes_phase(P, PB, EL, ref, sweep, dev) -> dict:
         lanes, low.n_steps, n_clients, k1, n_ops, False))
     print(f"kernel exec_lanes: the 90 % reads execute's first {block} steps "
           f"(L={lanes} lanes x N={n_clients} clients x {k1} station "
-          f"columns, of {low.n_steps} steps): bitwise equal; kernel "
-          f"{ms:.4f} ms ({ms / block * 1e3:.3f} us a step), plain "
-          f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms ({bound_by}); the "
-          f"whole scan's bound {scan_bound_ms:.3f} ms; phase "
+          f"columns, of {low.n_steps} steps): bitwise equal; warp kernel "
+          f"{ms:.4f} ms ({ms / block * 1e3:.3f} us a step), the block "
+          f"kernel on the same lanes {block_ms:.4f} ms "
+          f"({block_ms / block * 1e3:.3f} us a step; warp / block "
+          f"{ms / block_ms:.3f}), plain {plain_ms:.2f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}); the whole scan's bound "
+          f"{scan_bound_ms:.3f} ms; phase "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    del runs, plain, inp, low
+    del runs, blocks, plain, inp, low
     torch.cuda.empty_cache()
     return dict(record=dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                             bound_ms=bound_ms, bound_by=bound_by,
+                            kernel="warp", block_kernel_ms=block_ms,
+                            timed=STEP_TIMED,
                             shape=dict(lanes=lanes, clients=n_clients,
                                        columns=k1, steps=block),
                             plain_ms_per_step_cut=plain_ms_step),
@@ -1719,6 +1813,7 @@ def _transient_grid(P, PT, LH, TL, sweep, alpha, dev):
     try:
         LH.latency_hist.launches = 0
         TL.transient_lanes.launches = 0
+        warp = TL.transient_lanes.by_kernel["warp"]
         for label, w in _mixes(P):
             torch.cuda.reset_peak_memory_stats()
             res, dev_ms, last = _step_run(
@@ -1729,6 +1824,9 @@ def _transient_grid(P, PT, LH, TL, sweep, alpha, dev):
                         dev_ms, last, engine[-1]))
         launches = LH.latency_hist.launches
         tl_launches = TL.transient_lanes.launches
+        if TL.transient_lanes.by_kernel["warp"] - warp != tl_launches:
+            raise AssertionError("transient: the main path's lanes did not "
+                                 "all take the warp kernel")
     finally:
         PT.latency_hist, PT._transient_batch = kernel, batch
     return out, launches, tl_launches, caught, calls
@@ -1868,8 +1966,9 @@ def _transient_phase(P, PT, LH, TL, ref, sweep, alpha, dev):
               f"{TRANSIENT['seeds']} seeds x {TRANSIENT['n_clients']} "
               f"clients x {n_steps} steps, leader crash at 40-60 %; scan "
               f"{scan:.4f} s = {scan / n_steps * 1e3:.4f} ms/step "
-              f"(transient_lanes {per_mix} launches, {dev_ms:.3f} ms on the "
-              f"card, {dev_ms / n_steps * 1e3:.3f} us a step; the plain loop "
+              f"(transient_lanes {per_mix} launches of the warp kernel, "
+              f"{dev_ms:.3f} ms on the card, "
+              f"{dev_ms / n_steps * 1e3:.3f} us a step; the plain loop "
               f"{plain_ms_step[label]:.3f} ms/step, bitwise equal: flows, "
               f"lat1, state, qsum); 1 latency_hist launch of "
               f"{calls[0][0]} x {n_steps} samples; peak device memory "
@@ -1916,20 +2015,28 @@ def _transient_phase(P, PT, LH, TL, ref, sweep, alpha, dev):
     engine = dict(engine, n_steps=block)
     first = [_step_run(PT, TL.transient_lanes, PT._transient_batch, inp,
                        kernel="transient_lanes", keys=TRANSIENT_STATE,
-                       **engine) for _ in range(6)]
+                       lead=True, **engine) for _ in range(6)]
+    blocks = [_with_plan(TL, _block_plan(TL), _step_run, PT,
+                         TL.transient_lanes, PT._transient_batch, inp,
+                         kernel="transient_lanes", keys=TRANSIENT_STATE,
+                         lead=True, **engine) for _ in range(6)]
     plain = [_step_run(PT, ref.ref_transient_lanes, PT._transient_batch, inp,
                        kernel="transient_lanes", keys=TRANSIENT_STATE,
                        **engine) for _ in range(2)]
     errs.append(_transient_lanes_equal(first[-1][2], plain[-1][2],
                                        "the main path's first block"))
+    errs.append(_transient_lanes_equal(blocks[-1][2], plain[-1][2],
+                                       "the main path's first block, block "
+                                       "kernel"))
     n_windows, lanes, k = inp.demands_w.shape
     seeds = inp.seeds.size
     ms = float(np.median([r[1] for r in first[1:]]))
+    block_ms = float(np.median([r[1] for r in blocks[1:]]))
     plain_ms = min(r[1] for r in plain)
     # the same block in the deterministic mode, which loads no draws
     det_ms = float(np.median([_step_run(
         PT, TL.transient_lanes, PT._transient_batch, inp,
-        kernel="transient_lanes", keys=TRANSIENT_STATE,
+        kernel="transient_lanes", keys=TRANSIENT_STATE, lead=True,
         **dict(engine, exponential=False))[1] for _ in range(6)][1:]))
     bound_ms, bound_by = _bound_ms(kernel_costs.transient_lanes_cost(
         lanes, block, n_clients, k, n_windows, seeds))
@@ -1939,15 +2046,19 @@ def _transient_phase(P, PT, LH, TL, ref, sweep, alpha, dev):
     print(f"kernel transient_lanes: the 90 % reads grid's first {block} "
           f"steps (L={lanes} lanes x N={n_clients} clients x {k} stations x "
           f"{n_windows} windows, {seeds} seeds of draws): bitwise equal; "
-          f"kernel {ms:.4f} ms ({ms / block * 1e3:.3f} us a step; "
-          f"deterministic, no draws loaded, {det_ms:.4f} ms), plain "
+          f"warp kernel {ms:.4f} ms ({ms / block * 1e3:.3f} us a step; "
+          f"deterministic, no draws loaded, {det_ms:.4f} ms), the block "
+          f"kernel on the same lanes {block_ms:.4f} ms "
+          f"({block_ms / block * 1e3:.3f} us a step; warp / block "
+          f"{ms / block_ms:.3f}), plain "
           f"{plain_ms:.2f} ms, bound {bound_ms:.5f} ms ({bound_by}); the "
           f"whole scan {' / '.join(f'{t:.3f}' for t in scan_ms)} ms on the "
           f"card by mix, its bound {scan_bound_ms:.5f} ms; "
           f"{tl_launches} launches on the path", flush=True)
     lanes_record = dict(launches=tl_launches, ms=ms, plain_ms=plain_ms,
                         bound_ms=bound_ms, bound_by=bound_by,
-                        deterministic_ms=det_ms,
+                        deterministic_ms=det_ms, kernel="warp",
+                        block_kernel_ms=block_ms, timed=STEP_TIMED,
                         shape=dict(lanes=lanes, clients=n_clients,
                                    stations=k, windows=n_windows,
                                    steps=block),
@@ -1955,7 +2066,7 @@ def _transient_phase(P, PT, LH, TL, ref, sweep, alpha, dev):
                         scan_steps=n_steps, scan_bound_ms=scan_bound_ms,
                         scan_s={r[0]: r[2].timings["scan"] for r in runs},
                         plain_ms_per_step=plain_ms_step)
-    del first, plain, inp, runs
+    del first, blocks, plain, inp, runs
     torch.cuda.empty_cache()
 
     # autotune: the staircase, and the failover ranking on the card
@@ -1993,29 +2104,40 @@ def _transient_phase(P, PT, LH, TL, ref, sweep, alpha, dev):
     lanes_record.update(autotune_failover_s=tune_s, autotune_policy_s=as_s)
 
     # a small crash grid: the kernel against the plain loop on the card
-    # (injected and deterministic draws), then the card against the CPU
+    # (injected and deterministic draws; 16 clients a lane take the warp
+    # kernel, WIDE_CLIENTS the block kernel), then the card against the CPU
     small = P.compile_sweep(P.SweepSpec(n_proxy_leaders=(2, 4),
                                         grids=((2, 2),), n_replicas=(2, 3)))
-    kw = dict(workload=P.MIXED_50_50, n_clients=16, seeds=2, n_steps=1200,
-              events=[P.Event(*TRANSIENT_CRASH)])
     k_small = small.demands(P.MIXED_50_50).shape[1]
     injected = np.random.default_rng(30).exponential(
-        size=(2, kw["n_steps"] + 1, k_small)).astype(np.float32)
-    for mode, extra in (("injected", dict(draws=injected)),
-                        ("deterministic", dict(exponential_service=False))):
-        on_card, _, lanes_k = _step_run(
-            PT, TL.transient_lanes, small.transient, alpha, device=dev,
-            kernel="transient_lanes", keys=TRANSIENT_STATE, **kw, **extra)
-        plain, _, lanes_p = _step_run(
-            PT, ref.ref_transient_lanes, small.transient, alpha, device=dev,
-            kernel="transient_lanes", keys=TRANSIENT_STATE, **kw, **extra)
-        errs.append(_transient_lanes_equal(lanes_k, lanes_p,
-                                           f"small crash grid, {mode}"))
-        _transient_results_equal(on_card, plain, f"small crash grid, {mode}"
-                                                 f", kernel and plain loop")
-    print(f"kernel check: transient_lanes == plain step loop bitwise (flows, "
-          f"lat1, state, qsum) on a 4-config x 2-seed x 16-client crash grid"
-          f", 1200 steps, injected and deterministic draws", flush=True)
+        size=(2, 1200 + 1, k_small)).astype(np.float32)
+    for n_clients, kernel in ((16, "warp"), (WIDE_CLIENTS, "block")):
+        kw = dict(workload=P.MIXED_50_50, n_clients=n_clients, seeds=2,
+                  n_steps=1200, events=[P.Event(*TRANSIENT_CRASH)])
+        for mode, extra in (("injected", dict(draws=injected)),
+                            ("deterministic",
+                             dict(exponential_service=False))):
+            before = TL.transient_lanes.by_kernel[kernel]
+            launches = TL.transient_lanes.launches
+            on_card, _, lanes_k = _step_run(
+                PT, TL.transient_lanes, small.transient, alpha, device=dev,
+                kernel="transient_lanes", keys=TRANSIENT_STATE, **kw, **extra)
+            if TL.transient_lanes.by_kernel[kernel] - before \
+                    != TL.transient_lanes.launches - launches:
+                raise AssertionError(f"small crash grid, {n_clients} "
+                                     f"clients: not the {kernel} kernel")
+            plain, _, lanes_p = _step_run(
+                PT, ref.ref_transient_lanes, small.transient, alpha,
+                device=dev, kernel="transient_lanes", keys=TRANSIENT_STATE,
+                **kw, **extra)
+            what = f"small crash grid, {n_clients} clients, {mode}"
+            errs.append(_transient_lanes_equal(lanes_k, lanes_p, what))
+            _transient_results_equal(on_card, plain,
+                                     f"{what}, kernel and plain loop")
+        print(f"kernel check: transient_lanes ({kernel} kernel) == plain "
+              f"step loop bitwise (flows, lat1, state, qsum) on a 4-config x "
+              f"2-seed x {n_clients}-client crash grid, 1200 steps, injected "
+              f"and deterministic draws", flush=True)
     lanes_record["max_abs_err"] = max(errs)
     for expo in (False, True):
         kw = dict(workload=P.MIXED_50_50, n_clients=16, seeds=2,
@@ -4579,6 +4701,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         before = LH.latency_hist.launches
         before_el = EL.exec_lanes.launches
+        warp_el = EL.exec_lanes.by_kernel["warp"]
         res, scan_dev_ms, _ = _step_run(PB, EL.exec_lanes, sweep.execute,
                                         workload=w, device=dev, **EXECUTE)
         peak_mem = torch.cuda.max_memory_allocated()
@@ -4586,6 +4709,9 @@ def main() -> int:
         if n_el != -(-res.n_steps // PB.BLOCK_STEPS):
             raise AssertionError(f"{label}: execute launched exec_lanes "
                                  f"{n_el} times for {res.n_steps} steps")
+        if EL.exec_lanes.by_kernel["warp"] - warp_el != n_el:
+            raise AssertionError(f"{label}: execute's lanes did not all "
+                                 f"take the warp kernel")
         n = EXECUTE["n_commands"]
         if not (np.all(res.completed == n)
                 and np.all(res.hist.sum(axis=2) == n)):
@@ -4610,14 +4736,17 @@ def main() -> int:
               f"seeds x {EXECUTE['n_clients']} clients x {n} commands; "
               f"n_steps {res.n_steps}; probe {t['probe']:.2f} s, scan "
               f"{t['scan']:.3f} s ({t['scan'] / res.n_steps * 1e3:.4f} "
-              f"ms/step; exec_lanes {n_el} launches, {scan_dev_ms:.2f} ms on "
-              f"the card, {scan_dev_ms / res.n_steps * 1e3:.3f} us a step, "
+              f"ms/step; exec_lanes {n_el} launches of the warp kernel, "
+              f"{scan_dev_ms:.2f} ms on the card, "
+              f"{scan_dev_ms / res.n_steps * 1e3:.3f} us a step, "
               f"bound {scan_bound_ms:.3f} ms (bytes: the serial chain, not "
               f"the bytes, sets the time); the plain loop "
               f"{plain_ms_step[label]:.3f} ms/step at "
               f"{EXEC_LANES_CUT_COMMANDS} commands), hist+sums "
               f"{t['hist'] * 1e3:.1f} ms; peak device memory "
               f"{peak_mem / 2**30:.2f} GiB", flush=True)
+        lanes["record"].setdefault("scan_ms_by_mix", {})[label] = \
+            scan_dev_ms
         if label == "90% reads":
             lanes["record"].update(
                 scan_ms=scan_dev_ms, scan_steps=res.n_steps,

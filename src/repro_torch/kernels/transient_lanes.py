@@ -7,17 +7,22 @@ piecewise-constant demand windows, finished heads move on, a command that
 leaves the last station is a latency sample.  The reference runs it as one
 jitted ``lax.scan`` (``src/repro/core/transient.py:482`` ``_one_lane``,
 vmapped over the lanes by ``_transient_batch``, ``:565``); it replaces no
-Pallas kernel.  The CUDA source is ``csrc/transient_lanes.cu``: one block a
-lane, one thread a client, the step loop inside the kernel, so a run of
-``n_steps`` steps is ``ceil(n_steps / block)`` launches instead of some 31
-eager ops a step.  Its time is the step's serial chain (two barriers a
-step), not bytes; see the source's note.  It equals
+Pallas kernel.  The CUDA source is ``csrc/transient_lanes.cu``, the step
+loop inside the kernel, so a run of ``n_steps`` steps is ``ceil(n_steps /
+block)`` launches instead of some 31 eager ops a step.  It holds two
+kernels, and :func:`plan` picks one by the lane's shape: one warp a lane
+(up to 128 clients and 32 stations; the main path's lanes), with no
+barrier wider than the warp in a step, and one block a lane (one thread a
+client, two block barriers a step) for any wider lane.  Their time is the
+step's serial chain, not bytes; see the source's note.  Both equal
 :func:`repro_torch.kernels.ref.ref_transient_lanes` bit for bit.
 
 The library is compiled on first use with ``nvcc`` for ``sm_90a`` into
 ``build/`` beside this file and loaded with ``ctypes``.  CUDA tensors go to
 the kernel (or the call raises); CPU tensors go to the plain version.
-``transient_lanes.launches`` counts kernel launches, and only those.
+``transient_lanes.launches`` counts kernel launches, and only those;
+``transient_lanes.by_kernel`` splits them by kernel (``"warp"``,
+``"block"``).
 """
 from __future__ import annotations
 
@@ -28,8 +33,9 @@ import torch
 from torch._subclasses.fake_tensor import is_fake
 
 from ..roofline import kernel_costs
-from ._build import load_library
-from .exec_lanes import launch_plan
+from . import exec_lanes
+from ._build import load_library, sm_count
+from .exec_lanes import LaunchPlan, launch_plan  # noqa: F401 (re-exported)
 from .ref import ref_transient_lanes
 
 #: station columns a lane the kernel takes: one thread a station, at most
@@ -46,13 +52,24 @@ def build() -> str:
     memory, spills) of the build that produced the library."""
     global _lib, _build_log
     if _lib is None:
+        args = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2
+                + [ctypes.c_int] + [ctypes.c_void_p] * 8
+                + [ctypes.c_int] * 4 + [ctypes.c_longlong]
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         _lib, _build_log = load_library("transient_lanes.cu", {
-            "transient_lanes_launch": [ctypes.c_void_p] * 6
-                + [ctypes.c_longlong] * 2 + [ctypes.c_int]
-                + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
-                + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-        })
+            "transient_lanes_launch": args,
+            "transient_lanes_warp_launch": args})
     return _build_log
+
+
+def plan(n_lanes: int, n_clients: int, n_stations: int,
+         n_sms: int = 132) -> LaunchPlan:
+    """The launch of ``n_lanes`` lanes of ``n_clients`` clients over
+    ``n_stations`` stations on a card of ``n_sms`` SMs: the warp kernel
+    where a lane's clients fit one warp at up to four a thread and its
+    stations one a thread, else the block kernel (one thread a station;
+    :func:`repro_torch.kernels.exec_lanes.launch_plan`)."""
+    return exec_lanes.plan(n_lanes, max(n_clients, 1), n_stations, n_sms)
 
 
 def _check(rates, window_of, dt, finishes_at, arrive_at, draws, stage, rank,
@@ -132,7 +149,12 @@ def _launch(rates, window_of, dt, finishes_at, arrive_at, draws, stage, rank,
     if n_lanes == 0 or i0 == i1:
         return
     build()
-    threads, cpt = launch_plan(max(n_clients, 1), k)
+    how = plan(n_lanes, n_clients, k, sm_count(q.device))
+    if how.kernel == "warp":
+        launch, per_block = (_lib.transient_lanes_warp_launch,
+                             how.lanes_per_block)
+    else:
+        launch, per_block = _lib.transient_lanes_launch, how.threads
     draw_ptr, draw_seed, draw_step, n_seeds = 0, 0, 0, 1
     if draws is not None:
         draw_ptr = draws.data_ptr()
@@ -140,18 +162,20 @@ def _launch(rates, window_of, dt, finishes_at, arrive_at, draws, stage, rank,
         n_seeds = draws.shape[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib.transient_lanes_launch(
+        err = launch(
             rates.data_ptr(), window_of.data_ptr(), dt.data_ptr(),
             finishes_at.data_ptr(), arrive_at.data_ptr(), draw_ptr,
             draw_seed, draw_step, n_seeds, stage.data_ptr(),
             rank.data_ptr(), enter_t.data_ptr(), q.data_ptr(),
             work.data_ptr(), qsum.data_ptr(), flows.data_ptr(),
             lat1.data_ptr(), n_lanes, n_clients, k, rates.shape[0],
-            flows.shape[1], i0, i1, threads, cpt, stream)
+            flows.shape[1], i0, i1, per_block, how.clients_per_thread,
+            stream)
     if err != 0:
         raise RuntimeError(f"transient_lanes kernel launch failed: CUDA "
                            f"error {err}")
     transient_lanes.launches += 1
+    transient_lanes.by_kernel[how.kernel] += 1
 
 
 def transient_lanes(rates: torch.Tensor, window_of: torch.Tensor,
@@ -166,10 +190,10 @@ def transient_lanes(rates: torch.Tensor, window_of: torch.Tensor,
     the outputs written in place; the arguments are
     :func:`repro_torch.kernels.ref.ref_transient_lanes`'s.
 
-    CUDA tensors run the hand-written kernel (one launch); CPU tensors run
-    the plain version.  Any other device raises.  Fake tensors (the dry
-    run) add the kernel's operations and bytes to
-    ``roofline.kernel_costs.COUNTS`` and change nothing."""
+    CUDA tensors run a hand-written kernel (one launch; :func:`plan`
+    picks which); CPU tensors run the plain version.  Any other device
+    raises.  Fake tensors (the dry run) add the kernel's operations and
+    bytes to ``roofline.kernel_costs.COUNTS`` and change nothing."""
     args = (rates, window_of, dt, finishes_at, arrive_at, draws, stage, rank,
             enter_t, q, work, qsum, flows, lat1, i0, i1)
     _check(*args)
@@ -191,3 +215,4 @@ def transient_lanes(rates: torch.Tensor, window_of: torch.Tensor,
 
 
 transient_lanes.launches = 0
+transient_lanes.by_kernel = {"warp": 0, "block": 0}

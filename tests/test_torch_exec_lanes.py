@@ -5,11 +5,14 @@ wrapper, and on a card (``-m gpu``) the CUDA kernel against the plain loop.
 reference's scan bit for bit; here the engine's blocks of steps must equal
 one block in every draw mode, the generator mode's chunks of draws must
 repeat for a seed, and
-the wrapper must refuse what the kernel does not take.  On a card the
-kernel (``csrc/exec_lanes.cu``) must equal the plain loop run on the card
-bit for bit - completion masks, latencies, the state after the run, drain
-counts and makespans - deterministic, with injected and with generator
-draws, and CUDA-graph replays must repeat bitwise.  The card's machine has
+the wrapper must refuse what the kernel does not take; the launch plan
+must give the main path's lanes the warp kernel and cover every client and
+column.  On a card both kernels (``csrc/exec_lanes.cu``: one warp a lane up
+to 128 clients and 32 columns, one block a lane past either, cases on both
+sides of each border) must equal the plain loop run on the card bit for
+bit - completion masks, latencies, the state after the run, drain counts
+and makespans - deterministic, with injected and with generator draws, and
+CUDA-graph replays must repeat bitwise.  The card's machine has
 no JAX, and this file imports none: there run ``python -m pytest
 --noconftest -m gpu tests/test_torch_exec_lanes.py``.
 """
@@ -29,9 +32,9 @@ K = 15
 
 
 def _lanes(n_clients, n_commands, seed, *, active=None, zero_read=False,
-           draws=False, max_steps=None, device="cpu"):
+           draws=False, max_steps=None, k=K, device="cpu"):
     """Synthetic lane inputs: 2 configs x 2 seeds of ``n_clients`` clients
-    over K stations, ``n_commands`` ops a lane split round-robin (fewer
+    over ``k`` stations, ``n_commands`` ops a lane split round-robin (fewer
     commands than clients leaves clients with a zero budget), write
     classes drawn per seed.  ``active`` picks the stations on the path
     (default: a random half, the first always); ``zero_read`` gives the
@@ -42,11 +45,11 @@ def _lanes(n_clients, n_commands, seed, *, active=None, zero_read=False,
     rng = np.random.default_rng(seed)
     m, s = 2, 2
     if active is None:
-        active = rng.uniform(size=(m, K)) < 0.5
+        active = rng.uniform(size=(m, k)) < 0.5
         active[:, 0] = True
-    active = np.broadcast_to(active, (m, K)).copy()
-    d_w = np.where(active, rng.uniform(0.5, 2.0, (m, K)), 0.0)
-    d_r = np.where(active, rng.uniform(0.2, 1.0, (m, K)), 0.0)
+    active = np.broadcast_to(active, (m, k)).copy()
+    d_w = np.where(active, rng.uniform(0.5, 2.0, (m, k)), 0.0)
+    d_r = np.where(active, rng.uniform(0.2, 1.0, (m, k)), 0.0)
     if zero_read:
         for i in range(m):
             d_r[i, np.nonzero(active[i])[0][:2]] = 0.0
@@ -66,7 +69,7 @@ def _lanes(n_clients, n_commands, seed, *, active=None, zero_read=False,
              + (n_commands + n_clients) * active.sum(axis=1))
     bound = int(np.ceil((4.0 if draws else 1.3) * steps.max())) + 8
     n_steps = min(bound, max_steps or bound)
-    lane_draws = (rng.exponential(size=(m, s, n_steps + 1, K))
+    lane_draws = (rng.exponential(size=(m, s, n_steps + 1, k))
                   if draws == "injected" else None)
     inp = P.lane_inputs_from_numpy(d_w, d_r, entry, nxt, cls, budget, dt,
                                    np.arange(s, dtype=np.int32) + seed,
@@ -235,6 +238,58 @@ def test_launch_plan_covers_every_client_and_station():
         assert (cpt <= 4) == (n <= EL.REGISTER_CLIENTS)
 
 
+@pytest.mark.parametrize("n_sms", [132, 16])
+def test_plan_takes_the_warp_kernel_where_a_lane_fits_a_warp(n_sms):
+    # the main path's Fig. 29 lanes: 256 of 64 clients over 16 columns
+    main = EL.plan(256, 64, K + 1, n_sms)
+    assert main.kernel == "warp" and main.clients_per_thread == 2
+    assert main.lanes_per_block == (2 if n_sms == 132 else 4)
+    for n_lanes in (1, 3, 4, 130, 256, 1000):
+        for n in (1, 31, 32, 33, 64, 65, 100, 128, 129, 1500, 5000):
+            for cols in (2, 16, 31, 32, 33, 64):
+                how = EL.plan(n_lanes, n, cols, n_sms)
+                warp = n <= EL.WARP_CLIENTS and cols <= EL.WARP_COLUMNS
+                assert how.kernel == ("warp" if warp else "block")
+                if not warp:
+                    assert (how.threads, how.clients_per_thread) \
+                        == EL.launch_plan(n, cols)
+                    assert how.blocks == n_lanes
+                    assert how.lanes_per_block == 1
+                    continue
+                lpb, cpt = how.lanes_per_block, how.clients_per_thread
+                # every client and column of every lane has its thread
+                assert cpt in (1, 2, 4) and 32 * cpt >= n
+                assert cpt == 1 or 16 * cpt < n
+                assert cols <= 32 and how.threads == 32 * lpb
+                assert how.blocks * lpb >= n_lanes
+                assert (how.blocks - 1) * lpb < n_lanes
+                # the fewest lanes a block whose blocks fit one an SM
+                assert lpb in (1, 2, 4)
+                assert how.blocks <= n_sms or lpb == EL.WARP_LANES_PER_BLOCK
+                assert lpb == 1 or -(-n_lanes // (lpb // 2)) > n_sms
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 2), (1, 1025), (1, 45_825),
+                                   (1, 117_249),
+                                   ((1 << 24) - 4095, (1 << 24) + 1)],
+                         ids=["1", "1024", "45824", "117248", "2**24"])
+def test_end_times_are_the_step_count_times_dt(lo, hi):
+    # the warp kernel computes step i's end time as __fmul_rn((float)(i +
+    # 1), dt) with dt the table's first row, where the block kernel and the
+    # plain loop read t_ends, the engine's float32 arange(1, n_steps + 1) *
+    # dt: the two are one rounding of an exact step count times dt, equal
+    # for every step count the paths use (up to 2 ** 24)
+    dt = torch.tensor([1e-5, 3.3e-6, 0.1, 7.0, 1.0 / 3.0],
+                      dtype=torch.float32)
+    t_ends = (torch.arange(lo, hi, dtype=torch.float32)[:, None]
+              * dt[None, :])
+    steps = np.arange(lo, hi, dtype=np.float64)
+    assert np.array_equal(steps.astype(np.float32).astype(np.float64), steps)
+    want = steps.astype(np.float32)[:, None] * dt.numpy()[None, :]
+    assert want.dtype == np.float32
+    np.testing.assert_array_equal(t_ends.numpy(), want)
+
+
 def test_fake_tensors_count_the_kernel_and_change_nothing():
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -277,6 +332,12 @@ GPU_CASES = {
     "zero-demand-reads": dict(n_clients=8, n_commands=24, zero_read=True),
     "n1500": dict(n_clients=1500, n_commands=1600),
     "n5000-global-state": dict(n_clients=5000, n_commands=5200),
+    # the warp kernel's borders: 128 clients / 32 columns take it, 129
+    # clients / 33 columns the block kernel
+    "n128-warp": dict(n_clients=128, n_commands=160),
+    "n129-block": dict(n_clients=129, n_commands=160),
+    "cols32-warp": dict(n_clients=40, n_commands=60, k=31),
+    "cols33-block": dict(n_clients=40, n_commands=60, k=32),
 }
 #: steps a gpu case runs at most (the plain loop on the card takes a few
 #: hundred microseconds a step); a case whose drain bound is below it must
@@ -302,9 +363,13 @@ def test_cuda_kernel_matches_plain_loop_bit_for_bit(case, mode):
     expo = mode != "deterministic"
     block = 97   # n_steps is no multiple of it
     before = EL.exec_lanes.launches
+    kernel = EL.plan(4, n, kw.get("k", K) + 1).kernel
+    by_kernel = EL.exec_lanes.by_kernel[kernel]
     got = _run(inp, n, n_steps, expo, block, EL.exec_lanes)
     torch.cuda.synchronize()
     assert EL.exec_lanes.launches - before == _launches(n_steps, block)
+    assert EL.exec_lanes.by_kernel[kernel] - by_kernel \
+        == _launches(n_steps, block)
     want = _run(inp, n, n_steps, expo, block, ref.ref_exec_lanes)
     torch.cuda.synchronize()
     _assert_runs_equal(want, got, f"{case}, {mode}")
@@ -322,9 +387,12 @@ def test_cuda_execute_runs_the_kernel_and_equals_the_cpu():
     sweep = P.compile_sweep(P.SweepSpec(n_proxy_leaders=(2, 4),
                                         grids=((2, 2),), n_replicas=(2, 3)))
     before = EL.exec_lanes.launches
+    warp = EL.exec_lanes.by_kernel["warp"]
     on_gpu = sweep.execute(device="cuda", **kw)
     assert EL.exec_lanes.launches - before == -(-on_gpu.n_steps
                                                 // PB.BLOCK_STEPS)
+    assert EL.exec_lanes.by_kernel["warp"] - warp \
+        == EL.exec_lanes.launches - before
     on_cpu = sweep.execute(device="cpu", **kw)
     for field in ("hist", "completed", "throughput", "station_msgs"):
         np.testing.assert_array_equal(getattr(on_gpu, field),
@@ -332,9 +400,10 @@ def test_cuda_execute_runs_the_kernel_and_equals_the_cpu():
 
 
 @pytest.mark.gpu
-def test_cuda_graph_replays_are_bitwise_equal():
+@pytest.mark.parametrize("n_clients", [64, 200], ids=["warp", "block"])
+def test_cuda_graph_replays_are_bitwise_equal(n_clients):
     _cuda()
-    inp, n_steps, _ = _lanes(64, 64, seed=4, draws="injected",
+    inp, n_steps, _ = _lanes(n_clients, n_clients, seed=4, draws="injected",
                              max_steps=GPU_MAX_STEPS, device="cuda")
     start = {}
 
@@ -344,7 +413,7 @@ def test_cuda_graph_replays_are_bitwise_equal():
                           if torch.is_tensor(v)})
         EL.exec_lanes(**kw)
 
-    want, _ = _run(inp, 64, n_steps, True, 128, snapshot)
+    want, _ = _run(inp, n_clients, n_steps, True, 128, snapshot)
     tables = {key: start[key] for key in ("rate_w", "rate_r", "finishes_at",
                                           "arrive_at", "cls", "budget",
                                           "t_ends")}

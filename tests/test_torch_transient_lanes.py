@@ -7,13 +7,16 @@ On the CPU the port's ``_transient_batch`` runs the plain loop
 the reference's jitted scan bit for bit - flows, completions, float32
 latency sums, histograms and queue sums - deterministic and with the
 reference's own draws injected, over a crash window, a zero-demand window,
-equal step bounds, a single-station deployment, 30 and 120 station columns
-(2 and 8 shards) and 1, 1025 and 4100 clients.  The wrapper must refuse
-what the kernel does not take.  On a card the kernel
-(``csrc/transient_lanes.cu``) must equal the plain loop run on the card bit
-for bit - flows, latencies, the state after the run and the queue sums -
-deterministic, with injected and with generator draws, and CUDA-graph
-replays must repeat bitwise.  The card's machine has no JAX: this file
+equal step bounds, a single-station deployment, 30, 32, 33 and 120 station
+columns (2 and 8 shards) and 1, 128, 129, 1025 and 4100 clients.  The
+wrapper must refuse what the kernel does not take; the launch plan must
+give the main path's lanes the warp kernel and cover every client and
+station.  On a card both kernels (``csrc/transient_lanes.cu``: one warp a
+lane up to 128 clients and 32 stations, one block a lane past either) must
+equal the plain loop run on the card bit for bit - flows, latencies, the
+state after the run and the queue sums - deterministic, with injected and
+with generator draws, and CUDA-graph replays must repeat bitwise.  The
+card's machine has no JAX: this file
 imports it only inside the CPU cases, and there runs ``python -m pytest
 --noconftest -m gpu tests/test_torch_transient_lanes.py``.
 """
@@ -63,6 +66,14 @@ def _demands(name, n_steps):
         row[:, STATION_INDEX["leader"]] = [1e-5, 2e-5]
         return P.build_schedule(row, [P.Event("leader", 0.5, 0.7, 3.0)],
                                 n_steps)
+    if name in ("k32", "k33"):
+        # the warp kernel's border: 32 stations take it, 33 do not
+        k = int(name[1:])
+        rng = np.random.default_rng(k)
+        row = np.where(rng.uniform(size=(2, k)) < 0.6,
+                       rng.uniform(1e-5, 3e-5, (2, k)), 0.0)
+        row[:, 0] = 2e-5
+        return P.build_schedule(row, [P.Event(0, 0.4, 0.6, 3.0)], n_steps)
     if name.startswith("shards-"):
         spec = P.ShardingSpec(n_shards=int(name.split("-")[1]))
         flat = P.flatten_shards(sweep.demands(P.WRITE_ONLY, sharding=spec))
@@ -83,6 +94,10 @@ CASES = {
     "n1": (1, 200),
     "n1025": (1025, 60),
     "n4100": (4100, 40),
+    "n128": (128, 80),
+    "n129": (129, 80),
+    "k32": (12, 200),
+    "k33": (12, 200),
 }
 
 
@@ -337,6 +352,53 @@ def test_launch_plan_covers_every_client_and_station():
             assert (cpt <= 4) == (n <= 4096)
 
 
+@pytest.mark.parametrize("n_sms", [132, 16])
+def test_plan_takes_the_warp_kernel_where_a_lane_fits_a_warp(n_sms):
+    # the main path's Fig. 29 lanes: 256 of 64 clients over 15 stations
+    main = TL.plan(256, 64, 15, n_sms)
+    assert main.kernel == "warp" and main.clients_per_thread == 2
+    for n_lanes in (1, 3, 4, 130, 256, 1000):
+        for n in (0, 1, 32, 33, 64, 65, 128, 129, 1025, 5000):
+            for k in (1, 15, 30, 32, 33, 120, TL.MAX_STATIONS):
+                how = TL.plan(n_lanes, n, k, n_sms)
+                warp = n <= 128 and k <= 32
+                assert how.kernel == ("warp" if warp else "block")
+                if not warp:
+                    assert (how.threads, how.clients_per_thread) \
+                        == TL.launch_plan(n, k)
+                    assert how.blocks == n_lanes
+                    continue
+                lpb, cpt = how.lanes_per_block, how.clients_per_thread
+                # every client and station of every lane has its thread
+                assert cpt in (1, 2, 4) and 32 * cpt >= n and k <= 32
+                assert cpt == 1 or 16 * cpt < n
+                assert how.threads == 32 * lpb and lpb in (1, 2, 4)
+                assert how.blocks * lpb >= n_lanes
+                assert (how.blocks - 1) * lpb < n_lanes
+                assert how.blocks <= n_sms or lpb == 4
+                assert lpb == 1 or -(-n_lanes // (lpb // 2)) > n_sms
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 4001), (1, 2501),
+                                   ((1 << 24) - 4095, (1 << 24) + 1)],
+                         ids=["4000", "2500", "2**24"])
+def test_kernel_end_time_equals_the_plain_loops(lo, hi):
+    # the kernels compute step i's end time as __fmul_rn((float)(i + 1),
+    # dt): one rounding of an exact step count times dt; the plain loop's
+    # float32 arange(i0 + 1, i1 + 1) * dt is the same for every step count
+    # up to 2 ** 24
+    _, _, dt, *_ = _inputs("crash-and-zero-demand")
+    dt = torch.tensor(np.concatenate([dt, [1e-5, 3.3e-6, 1.0 / 3.0]]),
+                      dtype=torch.float32)
+    plain = (torch.arange(lo, hi, dtype=torch.float32)[:, None]
+             * dt[None, :])
+    steps = np.arange(lo, hi, dtype=np.float64)
+    assert np.array_equal(steps.astype(np.float32).astype(np.float64), steps)
+    kernel = steps.astype(np.float32)[:, None] * dt.numpy()[None, :]
+    assert kernel.dtype == np.float32
+    np.testing.assert_array_equal(plain.numpy(), kernel)
+
+
 def test_fake_tensors_count_the_kernel_and_change_nothing():
     from torch._subclasses.fake_tensor import FakeTensorMode
 
@@ -400,9 +462,14 @@ def test_cuda_kernel_matches_plain_loop_bit_for_bit(name, mode):
     n_steps = CASES[name][1]
     block = 97   # no multiple of it is a window bound or n_steps
     before = TL.transient_lanes.launches
+    kernel = TL.plan(inp.dt.shape[0], CASES[name][0],
+                     inp.demands_w.shape[2]).kernel
+    by_kernel = TL.transient_lanes.by_kernel[kernel]
     got = _run(inp, name, expo, block, TL.transient_lanes)
     torch.cuda.synchronize()
     assert TL.transient_lanes.launches - before == -(-n_steps // block)
+    assert TL.transient_lanes.by_kernel[kernel] - by_kernel \
+        == -(-n_steps // block)
     want = _run(inp, name, expo, block, ref.ref_transient_lanes)
     torch.cuda.synchronize()
     _assert_runs_equal(want, got, f"{name}, {mode}")
@@ -417,9 +484,12 @@ def test_cuda_transient_runs_the_kernel_and_equals_the_cpu():
     kw = dict(workload=P.MIXED_50_50, n_clients=16, seeds=2, n_steps=2500,
               events=[P.Event("leader", 0.4, 0.6, P.CRASH)])
     before, hist_before = TL.transient_lanes.launches, LH.latency_hist.launches
+    warp = TL.transient_lanes.by_kernel["warp"]
     on_gpu = sweep.transient(ALPHA, device="cuda", **kw)
     assert TL.transient_lanes.launches - before == -(-2500
                                                      // PT.BLOCK_STEPS)
+    assert TL.transient_lanes.by_kernel["warp"] - warp \
+        == TL.transient_lanes.launches - before
     assert LH.latency_hist.launches - hist_before == 1
     on_cpu = sweep.transient(ALPHA, device="cpu", **kw)
     for field in ("flows", "completed", "hist", "queue_sums", "throughput",
@@ -429,9 +499,10 @@ def test_cuda_transient_runs_the_kernel_and_equals_the_cpu():
 
 
 @pytest.mark.gpu
-def test_cuda_graph_replays_are_bitwise_equal():
+@pytest.mark.parametrize("name", ["crash-and-zero-demand", "n1025"],
+                         ids=["warp", "block"])
+def test_cuda_graph_replays_are_bitwise_equal(name):
     _cuda()
-    name = "crash-and-zero-demand"
     n_steps = CASES[name][1]
     inp = _card_inputs(name, "injected")
     start = {}
