@@ -17,7 +17,9 @@ no result line):
    group-10 decode and the RG-LRU scan from a zero and from a given
    starting state, within ``SCAN_TOL``, too, and the WKV recurrence
    within ``WKV_TOL``), then the histogram on the execution path's own
-   full-size tensors, with its times and bound (each execute there runs
+   full-size tensors, one device kernel a call (a profiler window), its
+   plan (its route and chunks), timed alone (queued behind a sleep) beside
+   the call's host wall and its bound (each execute there runs
    the step kernel: its launches and scan time, beside the plain loop's
    ms a step from 3b);
 3b. the execution lanes' step kernels - ``exec_lanes`` against the plain
@@ -49,7 +51,8 @@ no result line):
    kernel (``csrc/mva_scan.cu``, ``csrc/fluid_scan.cu``; counted from 0)
    and bit for bit the CPU's; each kernel bit for bit its plain loop on
    the card at those demands and in edge cases, 20 CUDA-graph replays
-   bitwise equal, its CUDA-event ms beside its bound and the plain
+   bitwise equal, each kernel alone (queued behind a sleep; the MVA's
+   row-sum plan and cycles a step) beside its bound and the plain
    loop's, and each call's host wall beside the eager parent's;
 6. the transient path - the same 32-config grid through
    ``CompiledSweep.transient`` at 8 seeds x 64 clients x 4000 steps,
@@ -66,7 +69,8 @@ no result line):
    loop (``ref_transient_lanes``) on the card, bitwise equal (flows,
    latencies, the final state, queue sums), with its ms a step; the
    histogram against its plain version on the samples the path handed
-   it, and the step kernel's first block at the path's shape, both timed
+   it (one device kernel a call), and the step kernel's first block at
+   the path's shape, both timed alone
    beside their bounds (and the block kernel on the same lanes beside the
    warp kernel); then ``bottleneck_trace(budget=19)`` (the Fig. 29
    staircase, exactly), ``autotune(objective="p99_under_failover")`` on
@@ -439,6 +443,15 @@ def _nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _sm_clock_hz() -> float:
+    """The card's SM clock now, as ``nvidia-smi`` reads it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(out.stdout.split()[0]) * 1e6
+
+
 def _time_ms(fn, warmup: int, reps: int) -> float:
     import torch
     for _ in range(warmup):
@@ -525,6 +538,93 @@ STEP_LEAD_CYCLES = 2_000_000
 #: ``kernels`` rows say so: the wrapper's host time is outside the window)
 STEP_TIMED = ("CUDA events around each launch, queued behind a sleep on "
               "the card, median of 5")
+
+
+def _alone_ms(fn, reps: int = 5) -> float:
+    """``fn``'s device time alone (``STEP_TIMED``): CUDA events around one
+    call queued behind a sleep on the card, so that the wrapper's host
+    work before its launches is outside the window; the median of
+    ``reps`` after a warm call."""
+    import torch
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(STEP_LEAD_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _host_wall_ms(fn, reps: int = 5) -> float:
+    """The host wall of one whole call of ``fn`` to a synchronize, median
+    of ``reps``."""
+    import torch
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(walls))
+
+
+def _device_kernels(fn) -> list:
+    """The device kernels (no copies) a ``torch.profiler`` window over one
+    call of ``fn`` holds, by name."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA
+            and "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower()]
+
+
+def _hist_record(LH, ref, samples, mask, edges, what: str) -> dict:
+    """The histogram on one call's tensors: bit for bit its plain version,
+    exactly one device kernel a call (a profiler window: no fill before
+    it), timed alone beside the call's host wall, its bound and the plain
+    version's time.  Returns its ``kernels`` row's figures."""
+    import torch
+    want = ref.ref_latency_hist(samples, mask, edges)
+    got = LH.latency_hist(samples, mask, edges)
+    torch.cuda.synchronize()
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if err != 0 or not torch.equal(got, want):
+        raise AssertionError(f"{what}: latency_hist differs from its plain "
+                             f"version (max {err})")
+    del got, want
+
+    def call():
+        return LH.latency_hist(samples, mask, edges)
+
+    before = LH.latency_hist.launches
+    kernels = _device_kernels(call)
+    # the profiler may see no device event at all (then the counter and
+    # the gpu test on garbage memory stand for it), never more than one
+    if LH.latency_hist.launches - before != 1 or len(kernels) > 1:
+        raise AssertionError(f"{what}: one latency_hist call launched "
+                             f"{LH.latency_hist.launches - before} times "
+                             f"and ran the device kernels {kernels}")
+    n_valid = int(mask.sum())
+    plan = LH.launch_plan(samples)
+    bound_ms, bound_by = _hist_bound_ms(samples, mask, edges, n_valid)
+    return dict(max_abs_err=err, ms=_alone_ms(call), wall_ms=_host_wall_ms(
+                    call), plain_ms=_time_ms(lambda: ref.ref_latency_hist(
+                        samples, mask, edges), 1, 2),
+                bound_ms=bound_ms, bound_by=bound_by, n_valid=n_valid,
+                plan=plan._asdict(), kernel=(kernels[0].split("(")[0]
+                                             if kernels else "not seen"),
+                timed=STEP_TIMED)
 
 
 def _step_run(mod, steps, fn, *args, kernel="exec_lanes", keys=EXEC_STATE,
@@ -1985,25 +2085,15 @@ def _transient_phase(P, PT, LH, TL, ref, sweep, alpha, dev):
 
     # the histogram on the samples the path handed it
     samples, mask, edges = caught["samples"], caught["mask"], caught["edges"]
-    want = ref.ref_latency_hist(samples, mask, edges)
-    got = LH.latency_hist(samples, mask, edges)
-    torch.cuda.synchronize()
-    err = int((got.long() - want.long()).abs().max())
-    if err != 0:
-        raise AssertionError(f"transient latency_hist differs from its "
-                             f"plain version (max {err})")
-    n_valid = int(mask.sum())
-    ms = _time_ms(lambda: LH.latency_hist(samples, mask, edges), 3, 20)
-    plain_ms = _time_ms(lambda: ref.ref_latency_hist(samples, mask, edges),
-                        1, 2)
-    bound_ms, bound_by = _hist_bound_ms(samples, mask, edges, n_valid)
+    rec = _hist_record(LH, ref, samples, mask, edges, "transient")
     print(f"kernel transient: L={samples.shape[0]} N={samples.shape[1]} "
-          f"(one latency a step), {n_valid} valid samples; exact; "
-          f"latency_hist {ms:.4f} ms a call, plain {plain_ms:.2f} ms, bound "
-          f"{bound_ms:.4f} ms ({bound_by})", flush=True)
-    hist_record = dict(launches=launches, max_abs_err=err, ms=ms,
-                       plain_ms=plain_ms, bound_ms=bound_ms,
-                       bound_by=bound_by,
+          f"(one latency a step), {rec.pop('n_valid')} valid samples; "
+          f"exact, one device kernel a call ({rec['kernel']}, plan "
+          f"{rec['plan']}); latency_hist {rec['ms']:.4f} ms alone, the "
+          f"call's host wall {rec['wall_ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.2f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})", flush=True)
+    hist_record = dict(launches=launches, **rec,
                        shape=dict(lanes=samples.shape[0],
                                   samples=samples.shape[1]))
     del samples, mask, edges, caught
@@ -2227,9 +2317,9 @@ def _steady_state_phase(P, MV, FL, ref, sweep, alpha, dev) -> dict:
     to the same call with ``device="cpu"``; then each kernel against its
     plain loop on the card at the path's demands (bit for bit), the edge
     cases, 20 CUDA-graph replays bitwise equal, and the times: each
-    kernel's CUDA-event ms beside its byte bound and the plain loop's ms,
-    and each whole call's host wall beside the eager parent's
-    (``SS_PARENT``).  Returns the ``kernels`` rows of both kernels."""
+    kernel alone (queued behind a sleep) beside its byte bound and the
+    plain loop's ms, and each whole call's host wall beside the eager
+    parent's (``SS_PARENT``).  Returns the ``kernels`` rows of both kernels."""
     import torch
     t_phase = time.perf_counter()
     w = P.Workload(f_write=1.0)
@@ -2309,15 +2399,18 @@ def _steady_state_phase(P, MV, FL, ref, sweep, alpha, dev) -> dict:
           flush=True)
 
     rows = {}
+    sm_hz = _sm_clock_hz()
     for name, (kernel, plain, args) in shapes.items():
         m, k = args[0].shape
         if kernel is MV.mva_scan:
             cost = kernel_costs.mva_scan_cost(m, args[2], k)
         else:
             cost = kernel_costs.fluid_scan_cost(m, args[3], k)
-        ms = _time_ms(lambda: kernel(*args), 3, 20)
+        ms = _alone_ms(lambda: kernel(*args))
         plain_ms = _time_ms(lambda: plain(*args), 1, 2)
         bound_ms, bound_by = _bound_ms(cost)
+        steps = args[2] if kernel is MV.mva_scan else args[3]
+        plan = MV.plan(k)._asdict() if kernel is MV.mva_scan else None
         walls = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -2326,7 +2419,9 @@ def _steady_state_phase(P, MV, FL, ref, sweep, alpha, dev) -> dict:
             walls.append((time.perf_counter() - t0) * 1e3)
         wall = float(np.median(walls))
         parent, parent_launches = SS_PARENT[name]
-        print(f"kernel {name}: ({m}, {k}) {kernel.__name__} {ms:.4f} ms, "
+        print(f"kernel {name}: ({m}, {k}) {kernel.__name__} {ms:.4f} ms "
+              f"alone ({ms * 1e-3 * sm_hz / steps:.1f} cycles a step at "
+              f"{sm_hz / 1e6:.0f} MHz; plan {plan}), "
               f"bound {bound_ms:.6f} ms ({bound_by}; the kernel "
               f"{ms / bound_ms:.0f}x: the serial chain), plain loop "
               f"{plain_ms:.2f} ms; the whole call's host wall {wall:.3f} ms "
@@ -2335,7 +2430,10 @@ def _steady_state_phase(P, MV, FL, ref, sweep, alpha, dev) -> dict:
               f"1 launch)", flush=True)
         rows[name] = dict(max_abs_err=errs[name], ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by, wall_ms=wall,
-                          shape=[m, k])
+                          shape=[m, k], timed=STEP_TIMED,
+                          cycles_a_step=ms * 1e-3 * sm_hz / steps)
+        if plan is not None:
+            rows[name]["plan"] = plan
     print(f"phase 5b: {time.perf_counter() - t_phase:.1f} s", flush=True)
     mva = dict(rows["mva 512"], launches=launches["mva_scan"],
                shapes={n: rows[n] for n in rows if n != "fluid"})
@@ -4655,7 +4753,7 @@ def main() -> int:
     # -- 3b. the execution lanes' step kernel against its plain version ----
     lanes = _exec_lanes_phase(P, PB, EL, ref, sweep, dev)
     plain_ms_step = lanes["plain_ms_step"]
-    record = None
+    record, by_mix = None, {}
     for label, w in _mixes(P):
         before = EL.exec_lanes.launches
         samples, mask, edges, n_steps, scan_s = _main_path_tensors(
@@ -4664,31 +4762,26 @@ def main() -> int:
         if n_el != -(-n_steps // PB.BLOCK_STEPS):
             raise AssertionError(f"{label}: execute launched exec_lanes "
                                  f"{n_el} times for {n_steps} steps")
-        want = ref.ref_latency_hist(samples, mask, edges)
-        got = LH.latency_hist(samples, mask, edges)
-        torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        if err != 0 or not torch.equal(got, want):
-            raise AssertionError(f"{label}: full-size latency_hist differs "
-                                 f"from its plain version (max {err})")
-        n_valid = int(mask.sum())
-        ms = _time_ms(lambda: LH.latency_hist(samples, mask, edges), 3, 20)
-        plain_ms = _time_ms(
-            lambda: ref.ref_latency_hist(samples, mask, edges), 1, 2)
-        bound_ms, bound_by = _hist_bound_ms(samples, mask, edges, n_valid)
+        record = _hist_record(LH, ref, samples, mask, edges,
+                              f"{label}, full size")
         print(f"kernel {label}: L={samples.shape[0]} N={samples.shape[1]} "
-              f"(n_steps {n_steps} x 64 clients), {n_valid} valid samples; "
-              f"exact; latency_hist {ms:.4f} ms, plain {plain_ms:.2f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by}); "
+              f"(n_steps {n_steps} x 64 clients), {record['n_valid']} valid "
+              f"samples; exact, one device kernel a call "
+              f"({record['kernel']}, plan {record['plan']}); latency_hist "
+              f"{record['ms']:.4f} ms alone, the call's host wall "
+              f"{record['wall_ms']:.4f} ms, plain {record['plain_ms']:.2f} "
+              f"ms, bound {record['bound_ms']:.4f} ms ({record['bound_by']};"
+              f" {record['bound_ms'] / record['ms']:.3f} of it); "
               f"{LH.latency_hist.launches} launches so far; scan "
               f"{scan_s:.3f} s = {scan_s / n_steps * 1e3:.4f} ms/step "
               f"({n_el} exec_lanes launches; the plain loop "
               f"{plain_ms_step[label]:.3f} ms/step at "
               f"{EXEC_LANES_CUT_COMMANDS} commands)", flush=True)
-        record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                      bound_ms=bound_ms, bound_by=bound_by)
-        del samples, mask, edges, want, got
+        record = {k: v for k, v in record.items() if k != "n_valid"}
+        by_mix[label] = {k: record[k] for k in ("ms", "wall_ms", "bound_ms")}
+        del samples, mask, edges
         torch.cuda.empty_cache()
+    record["by_mix"] = by_mix
 
     # -- 4. the main path --------------------------------------------------
     alpha = P.calibrate_alpha()

@@ -18,6 +18,14 @@ run in turns baseline, current, current, baseline, and the outputs of the
 two trees must agree (bit for bit where both run the same code; within
 float32 rtol 1e-5 otherwise) or the script exits non-zero.  Prints one
 line per call and tree and a JSON object of every figure last.
+
+Each turn also times the ``mva_scan`` launch alone at the grid's demands,
+(32, 15) at n 64 and 512 and the sharded (32, 480) at n 512: CUDA events
+around one ``ops.mva_scan`` call queued behind a sleep on the card, so the
+wrapper's host work is outside the window (``chip_smoke._alone_ms``,
+median of ``ALONE_REPS``),
+with the tree's row-sum plan (``mva_scan.plan``, where it has one) and
+the cycles a step at the SM clock ``nvidia-smi`` reads after the timing.
 """
 from __future__ import annotations
 
@@ -35,6 +43,11 @@ CALLS = (("mva", 64, 1), ("mva", 512, 1), ("mva", 64, 32),
          ("mva", 512, 32), ("fluid", 64, 1))
 FLUID_STEPS = 2000
 REPS = 5
+#: the mva_scan launch timed alone: (name, shards, n_max)
+ALONE = (("mva_scan (32, 15) n 64", 1, 64),
+         ("mva_scan (32, 15) n 512", 1, 512),
+         ("mva_scan (32, 480) n 512", 32, 512))
+ALONE_REPS = 9
 
 
 def _label(solve: str, n: int, shards: int) -> str:
@@ -108,8 +121,46 @@ def _child(tree: Path, grid: dict, out: Path) -> None:
             kernels=kernels, copies=copies, ops=Count.n)
         for i, a in enumerate(outs):
             arrays[f"{label}/{i}"] = np.asarray(a)
+    figures["alone"] = _mva_alone(sweep, alpha, w, arrays)
     np.savez(out.with_suffix(".npz"), **arrays)
     out.with_suffix(".json").write_text(json.dumps(figures))
+
+
+def _mva_alone(sweep, alpha, w, arrays: dict) -> dict:
+    """The ``mva_scan`` launch alone at ``ALONE``'s shapes, each call
+    queued behind a sleep on the card; its outputs go into ``arrays``."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core as P
+    from repro_torch.kernels import mva_scan as MV
+    sys.path.insert(1, str(ROOT))
+    from chip_smoke import _alone_ms
+    dev = torch.device("cuda")
+    plan = getattr(MV, "plan", None)
+    figures = {}
+    for name, shards, n_max in ALONE:
+        sharding = P.ShardingSpec(n_shards=shards) if shards > 1 else None
+        d = sweep.demands(w, sharding=sharding)
+        if shards > 1:
+            d = P.flatten_shards(d)
+        d = torch.from_numpy((d / alpha).astype(np.float32)).to(dev)
+        outs = MV.mva_scan(d, 0.0, n_max)
+        for i, a in enumerate(outs):
+            arrays[f"{name}/{i}"] = a.cpu().numpy()
+        ms = _alone_ms(lambda: MV.mva_scan(d, 0.0, n_max), ALONE_REPS)
+        mhz = float(_smi_field("clocks.sm").split()[0])
+        figures[name] = dict(
+            shape=list(d.shape), n_max=n_max, ms=ms,
+            sm_mhz=mhz, cycles_a_step=ms * 1e-3 * mhz * 1e6 / n_max,
+            plan=repr(plan(d.shape[1])) if plan else None)
+    return figures
+
+
+def _smi_field(field: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
 
 
 def _run_tree(tree: Path, grid: dict, out: Path) -> dict:
@@ -161,7 +212,15 @@ def main() -> int:
         out = scratch / f"{i}_{turn}"
         figs = _run_tree(trees[turn], grid, out)
         runs[turn].append(figs)
+        for label, f in figs.pop("alone").items():
+            print(f"{turn:8s} {label}: kernel alone {f['ms']:.4f} ms "
+                  f"(median of {ALONE_REPS}, queued behind a sleep), "
+                  f"{f['cycles_a_step']:.1f} cycles a step at "
+                  f"{f['sm_mhz']:.0f} MHz; plan {f['plan']}", flush=True)
+            figs[f"alone: {label}"] = f
         for label, f in figs.items():
+            if label.startswith("alone: "):
+                continue
             print(f"{turn:8s} {label}: host wall {f['wall_ms']:.3f} ms "
                   f"(median of {REPS}), device busy {f['device_ms']:.3f} ms,"
                   f" {f['kernels']} kernel launches + {f['copies']} copies, "
@@ -175,6 +234,16 @@ def main() -> int:
                 np.testing.assert_allclose(b, a, rtol=1e-5, err_msg=key)
                 print(f"  {key}: within rtol 1e-5, not bitwise (max rel "
                       f"{float(np.nanmax(np.abs(b - a) / np.abs(a))):.3e})")
+    for name, _, _ in ALONE:
+        key = f"alone: {name}"
+        best = {turn: min(r[key]["ms"] for r in runs[turn])
+                for turn in runs if runs[turn]}
+        line = f"{name}: kernel alone, best of two: current " \
+               f"{best['current']:.4f} ms"
+        if "baseline" in best:
+            line += (f", baseline {best['baseline']:.4f} ms (current / "
+                     f"baseline {best['current'] / best['baseline']:.3f})")
+        print(line, flush=True)
     print(f"after: {_smi()}", flush=True)
     print(json.dumps({"nvidia_smi": _smi(), "runs": runs}))
     return 0

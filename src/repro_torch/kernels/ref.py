@@ -290,31 +290,43 @@ def ref_mva_scan(demands: torch.Tensor, think: float, n_max: int
     matrix, N = 1..n_max: r_k = d_k (1 + q_k), r = sum_k r_k, x = N /
     (think + r), q_k = x r_k.  Returns (X, R), each (M, n_max) float32.
 
-    The row sum runs in the kernel's order (``csrc/mva_scan.cu``): the
-    columns, padded with zeros to a multiple of 32 (exact: a zero demand
-    gives r_k = +0), summed 32 at a time into 32 partial sums in column
-    order, then an xor butterfly over the partials at offsets 16, 8, 4, 2,
-    1.  Each op is one float32 rounding, as in the kernel."""
+    The row sum runs in the kernel's order (``csrc/mva_scan.cu``), a
+    function of K alone (:func:`repro_torch.kernels.mva_scan.plan`): up to
+    512 columns, the strided pairwise tree over the row padded with zeros
+    (exact: a zero demand gives r_k = +0) to the power of two at or above
+    K, each level adding the upper half onto the lower; past 512 columns,
+    the row padded to a multiple of 32 and summed 32 at a time into 32
+    partial sums in column order, then an xor butterfly over the partials
+    at offsets 16, 8, 4, 2, 1.  Each op is one float32 rounding, as in the
+    kernel."""
+    from .mva_scan import plan
     m, k = demands.shape
     dev = demands.device
-    k32 = -(-k // 32) * 32
-    d = torch.zeros((m, k32), dtype=torch.float32, device=dev)
+    p = plan(k)
+    cols = p.lanes * p.width if p.width else -(-k // 32) * 32
+    d = torch.zeros((m, cols), dtype=torch.float32, device=dev)
     d[:, :k] = demands
     q = torch.zeros_like(d)
     think_t = torch.tensor(think, dtype=torch.float32, device=dev)
     ns = torch.arange(1, n_max + 1, dtype=torch.float32, device=dev)
-    lanes = torch.arange(32, device=dev)
-    partners = [lanes ^ off for off in (16, 8, 4, 2, 1)]
+    partners = [torch.arange(32, device=dev) ^ off
+                for off in (16, 8, 4, 2, 1)]
     xs = torch.empty((m, n_max), dtype=torch.float32, device=dev)
     rs = torch.empty_like(xs)
     for j in range(n_max):
         r_k = d * (1.0 + q)                 # residence time per station
-        p = torch.zeros((m, 32), dtype=torch.float32, device=dev)
-        for lo in range(0, k32, 32):
-            p = p + r_k[:, lo:lo + 32]
-        for partner in partners:
-            p = p + p[:, partner]
-        r = p[:, 0]
+        s = r_k
+        if p.width:
+            while s.shape[1] > 1:           # the strided tree, a level
+                half = s.shape[1] // 2
+                s = s[:, :half] + s[:, half:]
+        else:
+            s = torch.zeros((m, 32), dtype=torch.float32, device=dev)
+            for lo in range(0, cols, 32):
+                s = s + r_k[:, lo:lo + 32]
+            for partner in partners:
+                s = s + s[:, partner]
+        r = s[:, 0]
         x = torch.div(ns[j], think_t + r)   # closed-loop throughput
         q = x[:, None] * r_k                # Little's law per station
         xs[:, j] = x

@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import latency_hist as LH  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.latency_hist import latency_hist  # noqa: E402
 
@@ -128,10 +129,157 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         latency_hist(samples.to("meta"), valid.to("meta"), edges.to("meta"))
 
 
-@pytest.mark.gpu
-def test_cuda_kernel_matches_plain_version_bit_for_bit():
+@pytest.mark.parametrize("lanes, n, route, n_chunks", [
+    (256, 0, "lane", 0), (256, 4000, "lane", 0), (3, LH.LANE_N, "lane", 0),
+    (3, LH.LANE_N + 1, "chunks", 2), (100, 20_001, "chunks", 5),
+    (256, 7_503_872, "chunks", 229), (256, 2_932_736, "chunks", 90),
+    (1, 10 ** 6, "chunks", 245), (1000, 10 ** 9, "chunks", 30_518)])
+def test_plan_routes_by_lane_length(lanes, n, route, n_chunks):
+    """One block a lane up to one pass of it (the transient run's 4000);
+    past it chunks of whole 16-entry vectors, at most ``CHUNK`` entries,
+    as many as give a 132-multiprocessor card 8 blocks on each while a
+    thread keeps a whole vector (the execution plane's 7.5 M entries:
+    229)."""
+    p = LH.plan(lanes, n, 132)
+    assert (p.route, p.n_chunks) == (route, n_chunks)
+    if route == "lane":
+        assert (p.threads, p.chunk) == (LH.LANE_THREADS, 0)
+        return
+    assert p.threads == LH.CHUNK_THREADS
+    assert p.chunk % 16 == 0 and p.chunk <= LH.CHUNK
+    assert (p.n_chunks - 1) * p.chunk < n <= p.n_chunks * p.chunk
+
+
+# -- the kernel, on a card --------------------------------------------------
+
+
+def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc")
+
+
+#: (L, N, B): N at each route's edge, a lane of N = 0, and long lanes
+ROUTE_SHAPES = [(3, 0, 8), (4, 1, 8), (5, LH.LANE_N, 96),
+                (5, LH.LANE_N + 1, 96), (2, 300_001, 64), (3, 65_536, 4096),
+                (257, 3000, 64)]
+
+
+def _cuda_case(shape, seed, as_bool):
+    samples, valid, edges = _inputs(shape, seed)
+    if shape[1] >= 6:
+        samples, valid, edges = _with_edge_cases(samples, valid, edges)
+    host = [torch.from_numpy(a) for a in (samples, valid, edges)]
+    if as_bool:
+        host[1] = host[1] > 0
+    return host, [t.cuda() for t in host]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("as_bool", [False, True], ids=["f32mask", "bool"])
+@pytest.mark.parametrize("shape", ROUTE_SHAPES,
+                         ids=[f"{L}x{N}x{B}" for L, N, B in ROUTE_SHAPES])
+def test_cuda_routes_match_plain_version_on_garbage_memory(shape, as_bool):
+    """Each route bit for bit against the plain version, its output in
+    memory the caching allocator hands back full of garbage: no bin may
+    depend on a zero fill."""
+    _cuda()
+    host, dev = _cuda_case(shape, 21, as_bool)
+    expect = ref.ref_latency_hist(*host)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    garbage = torch.full((shape[0] * shape[2],), -123_456_789,
+                         dtype=torch.int32, device="cuda")
+    ptr = garbage.data_ptr()
+    del garbage
+    before = latency_hist.launches
+    got = latency_hist(*dev)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr
+    assert latency_hist.launches == before + 1
+    assert torch.equal(got.cpu(), expect)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 4000, 96), (4, 300_001, 64)],
+                         ids=["lane", "chunks"])
+def test_cuda_graph_replays_are_bitwise_equal(shape):
+    _cuda()
+    host, dev = _cuda_case(shape, 22, True)
+    expect = ref.ref_latency_hist(*host)
+    first = latency_hist(*dev).clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        latency_hist(*dev)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = latency_hist(*dev)
+    for _ in range(20):
+        out.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+    assert torch.equal(first.cpu(), expect)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(256, 4000, 96), (4, 300_001, 64)],
+                         ids=["lane", "chunks"])
+def test_cuda_call_is_one_kernel_launch(shape):
+    """A profiler window over one call holds exactly one device kernel:
+    no fill before it."""
+    _cuda()
+    from torch.autograd import DeviceType
+    _, dev = _cuda_case(shape, 23, True)
+    latency_hist(*dev)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        latency_hist(*dev)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "hist_" in kernels[0], kernels
+
+
+@pytest.mark.gpu
+def test_cuda_refused_launch_raises(monkeypatch):
+    """A plan the source has no kernel for (blocks wider than the chunk
+    kernel's) is refused, and the call raises: it never falls back to
+    another kernel or the plain version."""
+    _cuda()
+    _, dev = _cuda_case((2, 300_001, 64), 24, True)
+    good = LH.launch_plan(dev[0])
+    monkeypatch.setattr(LH, "launch_plan", lambda samples: good._replace(
+        threads=LH.CHUNK_THREADS * 2))
+    before = latency_hist.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        latency_hist(*dev)
+    assert latency_hist.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 300, 1500])
+def test_cuda_chunks_route_leaves_its_counters_zeroed(lanes):
+    """The last block of each lane resets the lane's arrival counter and
+    row of bin sums, so the next call (or a graph replay) starts from
+    zero; three calls in a row agree with the plain version."""
+    _cuda()
+    host, dev = _cuda_case((lanes, LH.LANE_N + 100, 16), 25, True)
+    expect = ref.ref_latency_hist(*host)
+    for _ in range(3):
+        got = latency_hist(*dev)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), expect)
+        counters = LH._arrival_counters(dev[0].device, lanes)
+        assert int(counters.abs().sum()) == 0
+        assert int(LH._lane_sums(dev[0].device, 0).abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain_version_bit_for_bit():
+    _cuda()
     before = latency_hist.launches
     cases = [_inputs(s, seed=i) for i, s in enumerate(HIST_SHAPES)]
     cases.append(_with_edge_cases(*_inputs((3, 1000, 64), seed=11)))

@@ -116,25 +116,102 @@ def test_edge_cases_match_reference(name):
         assert torch.isinf(x[2, 0]) and torch.isnan(x[2, 1:]).all()
 
 
+def _documented_row_sum(d: np.ndarray) -> np.ndarray:
+    """A first step's R (q = 0, so r_k = d_k) summed in the order
+    ``csrc/mva_scan.cu`` documents, written out in numpy: up to 512
+    columns, the row zero-padded to the power of two at or above K and
+    summed by the strided pairwise tree (each level adds the upper half
+    onto the lower); past 512, 32 partial sums in column order, then the
+    xor butterfly over them."""
+    m, k = d.shape
+    p = MV.plan(k)
+    if p.width:
+        part = np.zeros((m, p.lanes * p.width), dtype=np.float32)
+        part[:, :k] = d
+        while part.shape[1] > 1:
+            half = part.shape[1] // 2
+            part = part[:, :half] + part[:, half:]
+        return part[:, 0]
+    return _butterfly_row_sum(d)
+
+
+def _butterfly_row_sum(d: np.ndarray) -> np.ndarray:
+    """32 partial sums in column order (column c into partial c mod 32),
+    then the xor butterfly at offsets 16, 8, 4, 2, 1."""
+    m, k = d.shape
+    padded = np.zeros((m, -(-k // 32) * 32), dtype=np.float32)
+    padded[:, :k] = d
+    part = np.zeros((m, 32), dtype=np.float32)
+    for lo in range(0, padded.shape[1], 32):
+        part = part + padded[:, lo:lo + 32]
+    for off in (16, 8, 4, 2, 1):
+        part = part + part[:, np.arange(32) ^ off]
+    return part[:, 0]
+
+
+def _column_order_sum(d: np.ndarray) -> np.ndarray:
+    total = np.zeros(d.shape[0], dtype=np.float32)
+    for c in range(d.shape[1]):
+        total = total + d[:, c]
+    return total
+
+
 def test_row_sum_runs_in_the_documented_order():
-    """A first step's R is its row's sum in the kernel's order: 32 partial
-    sums in column order, then the xor butterfly; on these rows that
-    differs from the sum in column order."""
+    """A first step's R is its row's sum in the kernel's order at K = 200
+    (``plan``: 32 lanes of 8 columns): the strided pairwise tree over 256
+    zero-padded columns; on these rows that differs from the sum in column
+    order and from 32 partial sums then a butterfly."""
     rng = np.random.default_rng(11)
     d = (10.0 ** rng.uniform(-8, 0, size=(16, 200))).astype(np.float32)
+    assert MV.plan(200) == MV.Plan("lanes", 8, 32)
     _, r = ref.ref_mva_scan(torch.from_numpy(d), 0.0, 1)
-    padded = np.zeros((16, 224), dtype=np.float32)
-    padded[:, :200] = d
-    p = np.zeros((16, 32), dtype=np.float32)
-    for lo in range(0, 224, 32):
-        p = p + padded[:, lo:lo + 32]
-    for off in (16, 8, 4, 2, 1):
-        p = p + p[:, np.arange(32) ^ off]
-    np.testing.assert_array_equal(r[:, 0].numpy(), p[:, 0])
-    in_order = np.zeros(16, dtype=np.float32)
-    for c in range(200):
-        in_order = in_order + d[:, c]
-    assert (in_order != p[:, 0]).any()
+    want = _documented_row_sum(d)
+    np.testing.assert_array_equal(r[:, 0].numpy(), want)
+    assert (_column_order_sum(d) != want).any()
+    assert (_butterfly_row_sum(d) != want).any()
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 15, 16, 17, 31, 32])
+def test_row_sum_up_to_32_columns_is_the_one_warp_butterfly(k):
+    """Up to 32 columns the strided tree is the order of one column a lane
+    on a whole warp and an xor butterfly at 16, ..., 1 (its additions past
+    K add zeros, which is exact): the order the kernel took before one
+    thread held a row, so the MVA surfaces there did not move."""
+    rng = np.random.default_rng(100 + k)
+    d = (10.0 ** rng.uniform(-8, 0, size=(64, k))).astype(np.float32)
+    np.testing.assert_array_equal(_documented_row_sum(d),
+                                  _butterfly_row_sum(d))
+
+
+@pytest.mark.parametrize("k", [1, 8, 15, 32, 33, 512, 600])
+def test_row_sum_order_on_each_route(k):
+    """The same at the routes' widths: one thread a row (K 1, 8), 8
+    columns a lane on 2 to 32 lanes (15, 32, 33), a warp of 16 columns
+    a lane (512), the global-memory walk (600); past one column the
+    order differs from the column order's on these rows."""
+    rng = np.random.default_rng(k)
+    d = (10.0 ** rng.uniform(-8, 0, size=(64, k))).astype(np.float32)
+    _, r = ref.ref_mva_scan(torch.from_numpy(d), 0.0, 1)
+    want = _documented_row_sum(d)
+    np.testing.assert_array_equal(r[:, 0].numpy(), want)
+    if k > 1:
+        assert (_column_order_sum(d) != want).any()
+
+
+@pytest.mark.parametrize("k, route, width, lanes", [
+    (1, "thread", 1, 1), (5, "thread", 8, 1), (8, "thread", 8, 1),
+    (15, "lanes", 8, 2), (16, "lanes", 8, 2), (17, "lanes", 8, 4),
+    (32, "lanes", 8, 4), (33, "lanes", 8, 8), (200, "lanes", 8, 32),
+    (256, "lanes", 8, 32), (257, "lanes", 16, 32), (480, "lanes", 16, 32),
+    (512, "lanes", 16, 32), (513, "global", 0, 32), (600, "global", 0, 32)])
+def test_plan_is_a_function_of_k(k, route, width, lanes):
+    """With N the power of two at or above K: one thread a row up to 8
+    columns, 8 columns a lane on N / 8 lanes up to 256, a warp of N / 32
+    columns a lane up to 512, the global walk past that."""
+    p = MV.plan(k)
+    assert p == MV.Plan(route, width, lanes)
+    assert p.width == 0 or p.lanes * p.width >= k
+    assert p.width == 0 or p.lanes * p.width < 2 * max(k, 32)
 
 
 def test_cpu_path_launches_nothing():
@@ -214,6 +291,61 @@ def test_cuda_kernel_matches_plain_loop_bit_for_bit(name):
     assert MV.mva_scan.launches - before == int(n_max > 0)
     for a, b, what in zip(got, want, "XR"):
         assert _bits_equal(a, b), what
+
+
+#: (rows, columns, think, n_max) on every route and split: one thread a
+#: row (K up to 8), 8 columns a lane on 2-32 lanes (9-256), a warp of 16
+#: columns a lane (257-512), the global walk (past 512); rows no
+#: multiple of a warp's, n_max no multiple of the 32-step chunk
+ROUTE_CASES = [(37, k, think, n) for k, think, n in (
+    (1, 0.0, 70), (2, 0.0, 33), (8, 0.0, 40), (9, 0.0, 96),
+    (15, 0.0, 512), (16, 1e-3, 100), (17, 0.0, 31), (32, 0.0, 65),
+    (33, 0.0, 64), (64, 2e-3, 97), (200, 0.0, 40), (256, 0.0, 33),
+    (257, 0.0, 35), (480, 0.0, 512), (512, 0.0, 32), (513, 0.0, 50),
+    (600, 1e-3, 45))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ROUTE_CASES,
+                         ids=[f"K{k}-n{n}" for _, k, _, n in ROUTE_CASES])
+def test_cuda_routes_match_plain_loop_bit_for_bit(case):
+    """Each route of ``plan`` against the plain loop on the card, bit for
+    bit, one launch a call."""
+    _cuda()
+    m, k, think, n_max = case
+    d = torch.from_numpy(_random(m, k, zero_col=k // 2, seed=k)).cuda()
+    before = MV.mva_scan.launches
+    got = MV.mva_scan(d, think, n_max)
+    want = ref.ref_mva_scan(d, think, n_max)
+    torch.cuda.synchronize()
+    assert MV.mva_scan.launches - before == 1
+    for a, b, what in zip(got, want, "XR"):
+        assert _bits_equal(a, b), (MV.plan(k), what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [15, 480, 600], ids=["thread", "lanes",
+                                                   "global"])
+def test_cuda_graph_replays_on_each_route_are_bitwise_equal(k):
+    _cuda()
+    d = torch.from_numpy(_random(32, k, seed=12)).cuda()
+    want = ref.ref_mva_scan(d, 0.0, 200)
+    first = [t.clone() for t in MV.mva_scan(d, 0.0, 200)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        MV.mva_scan(d, 0.0, 200)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = MV.mva_scan(d, 0.0, 200)
+    for _ in range(20):
+        for t in outs:
+            t.fill_(-1.0)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(outs, first))
+    assert all(_bits_equal(a, b) for a, b in zip(first, want))
 
 
 @pytest.mark.gpu
